@@ -1,0 +1,307 @@
+"""The Llama transformer core (port of ``models/transformer.py``).
+
+Plain functions over a params dict:
+
+    embed()    tokens -> hidden
+    attention(), mlp(), decoder_layer()
+    head()     hidden -> logits (final norm + lm_head)
+    forward()  the full model
+
+Quantization is threaded through as a :class:`LayerOps`, the per-layer
+resolution of a :class:`~..qformats.QuantConfig`. ``fuse_model``
+concatenates q|k|v and gate|up; ``stack_model`` stacks the layers along a
+leading axis, and :func:`layer_view` gives one layer of the stack (dense
+tensors as views, packed weights as :class:`~.layers.LayerSlice`).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..kernels import w4a8_matmul as wm
+from ..qformats.config import OpQuantConfig, QuantConfig
+from ..qformats.qtensor import QTensor
+from .config import ModelConfig
+from .layers import (
+    LayerSlice,
+    activation,
+    apply_norm,
+    apply_rope,
+    int8_per_token,
+    qlinear,
+    qmatmul_qk,
+    qmatmul_sv,
+    rope_cos_sin,
+    rope_inv_freq,
+)
+
+Params = Dict[str, Any]
+
+NEG_INF = -1e9
+SLOTS = ("q", "k", "v", "o", "gate", "up", "down")
+
+
+def op_names(cfg: ModelConfig, layer_idx: int) -> Dict[str, str]:
+    p = f"layers.{layer_idx}"
+    return {
+        "q": f"{p}.self_attn.q_proj", "k": f"{p}.self_attn.k_proj",
+        "v": f"{p}.self_attn.v_proj", "o": f"{p}.self_attn.o_proj",
+        "gate": f"{p}.mlp.gate_proj", "up": f"{p}.mlp.up_proj",
+        "down": f"{p}.mlp.down_proj",
+        "qk": f"{p}.self_attn.qk_matmul", "sv": f"{p}.self_attn.sv_matmul",
+    }
+
+
+@dataclass(frozen=True)
+class LayerOps:
+    """Per-layer quantizer resolution: ``linears`` maps slot name ->
+    OpQuantConfig; ``qk``/``sv`` are the attention matmul slots."""
+
+    linears: tuple
+    qk: Optional[OpQuantConfig] = None
+    sv: Optional[OpQuantConfig] = None
+
+    def get(self, slot: str) -> Optional[OpQuantConfig]:
+        for s, op in self.linears:
+            if s == slot:
+                return op
+        return None
+
+
+def layer_ops(cfg: ModelConfig, qcfg: Optional[QuantConfig], layer_idx: int) -> Optional[LayerOps]:
+    if qcfg is None:
+        return None
+    names = op_names(cfg, layer_idx)
+    return LayerOps(
+        linears=tuple((s, qcfg.for_op(names[s], "linear")) for s in SLOTS),
+        qk=qcfg.for_op(names["qk"], "matmul"),
+        sv=qcfg.for_op(names["sv"], "matmul"),
+    )
+
+
+def _slot(ops: Optional[LayerOps], slot: str) -> Optional[OpQuantConfig]:
+    return ops.get(slot) if ops is not None else None
+
+
+def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Token ids (B, T) -> hidden states (B, T, hidden)."""
+    return params["embed"]["weight"][tokens.long()]
+
+
+def head(params: Params, cfg: ModelConfig, h: torch.Tensor,
+         qcfg: Optional[QuantConfig] = None) -> torch.Tensor:
+    """Final norm + lm_head -> f32 logits (B, T, vocab)."""
+    h = apply_norm(cfg, h, params["final_norm"])
+    lm = params.get("lm_head")
+    w = params["embed"]["weight"] if lm is None else lm["weight"]
+    op = qcfg.for_op("lm_head", "head") if qcfg is not None else None
+    return qlinear(h, w, None, op).float()
+
+
+def rope_for_positions(cfg: ModelConfig, positions: torch.Tensor):
+    inv = rope_inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
+                        device=positions.device)
+    return rope_cos_sin(positions, inv)
+
+
+def causal_mask(q_positions, kv_positions) -> torch.Tensor:
+    """(B, T, S) additive f32 causal mask (0 / NEG_INF)."""
+    keep = kv_positions[:, None, :] <= q_positions[:, :, None]
+    zero = torch.zeros((), dtype=torch.float32, device=q_positions.device)
+    return torch.where(keep, zero, torch.full_like(zero, NEG_INF))
+
+
+def project_qkv(lp: Params, cfg: ModelConfig, x, ops: Optional[LayerOps], cos, sin):
+    """QKV projection + rope for a (B, T, E) slice -> q (B, T, H, D), k/v
+    (B, T, KV, D)."""
+    B, T, _ = x.shape
+    ap = lp["attn"]
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if "qkv_cat" in ap:
+        y = qlinear(x, ap["qkv_cat"]["weight"], None, _slot(ops, "q"))
+        q = y[..., :H * D].reshape(B, T, H, D)
+        k = y[..., H * D:(H + KV) * D].reshape(B, T, KV, D)
+        v = y[..., (H + KV) * D:].reshape(B, T, KV, D)
+    else:
+        q = qlinear(x, ap["q"]["weight"], None, _slot(ops, "q")).reshape(B, T, H, D)
+        k = qlinear(x, ap["k"]["weight"], None, _slot(ops, "k")).reshape(B, T, KV, D)
+        v = qlinear(x, ap["v"]["weight"], None, _slot(ops, "v")).reshape(B, T, KV, D)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def attention(lp: Params, cfg: ModelConfig, x, cos, sin, mask,
+              ops: Optional[LayerOps] = None) -> torch.Tensor:
+    """Multi-head attention with GQA; ``mask`` (B, 1, T, S)."""
+    B, T, _ = x.shape
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = project_qkv(lp, cfg, x, ops, cos, sin)
+    r = H // KV
+    k = k[:, :, :, None, :].expand(B, T, KV, r, D).reshape(B, T, H, D)
+    v = v[:, :, :, None, :].expand(B, T, KV, r, D).reshape(B, T, H, D)
+    scores = qmatmul_qk(q.transpose(1, 2), k.permute(0, 2, 3, 1),
+                        ops.qk if ops is not None else None) * cfg.attn_scale
+    probs = torch.softmax(scores + mask, dim=-1).to(x.dtype)
+    out = qmatmul_sv(probs, v.transpose(1, 2), ops.sv if ops is not None else None)
+    out = out.to(x.dtype).transpose(1, 2).reshape(B, T, H * D)
+    return qlinear(out, lp["attn"]["o"]["weight"], None, _slot(ops, "o"))
+
+
+def _try_fused_gateup(cfg: ModelConfig, mp: Params, x, gop: Optional[OpQuantConfig]):
+    """The fused gate|up + activation kernel (B2) for a stacked gateup
+    weight, under qlinear's integer-kernel conditions; None otherwise."""
+    w = mp["gateup"]["weight"]
+    if not isinstance(w, LayerSlice) or gop is None:
+        return None
+    if not (int8_per_token(gop.act_in) and gop.act_out.qtype == "dummy"):
+        return None
+    if not wm.gateup_silu_ok(w.qt, cfg.hidden_act):
+        return None
+    _, C, g = wm.weight_dims(w.qt)
+    if x.shape[:-1].numel() > 256 and C // g > 16:
+        return None
+    return wm.gateup_silu_matmul(x, w.qt, cfg.hidden_act, w.layer)
+
+
+def mlp(lp: Params, cfg: ModelConfig, x, ops: Optional[LayerOps] = None):
+    mp = lp["mlp"]
+    if "gateup" in mp:
+        gop = _slot(ops, "gate")
+        h = _try_fused_gateup(cfg, mp, x, gop)
+        if h is None:
+            y = qlinear(x, mp["gateup"]["weight"], None, gop)
+            I = y.shape[-1] // 2
+            h = activation(cfg.hidden_act, y[..., :I]) * y[..., I:]
+    else:
+        gt = qlinear(x, mp["gate"]["weight"], None, _slot(ops, "gate"))
+        u = qlinear(x, mp["up"]["weight"], None, _slot(ops, "up"))
+        h = activation(cfg.hidden_act, gt) * u
+    return qlinear(h, mp["down"]["weight"], None, _slot(ops, "down"))
+
+
+def decoder_layer(lp: Params, cfg: ModelConfig, x, cos, sin, mask,
+                  ops: Optional[LayerOps] = None) -> torch.Tensor:
+    x = x + attention(lp, cfg, apply_norm(cfg, x, lp["ln1"]), cos, sin, mask, ops)
+    return x + mlp(lp, cfg, apply_norm(cfg, x, lp["ln2"]), ops)
+
+
+# ---------------------------------------------------------------------------
+# Serving transforms
+# ---------------------------------------------------------------------------
+
+
+def _concat_linear(entries) -> Params:
+    ws = [e["weight"] for e in entries]
+    if isinstance(ws[0], QTensor):
+        q0 = ws[0]
+        N = sum(w.shape[0] for w in ws)
+        weight = replace(
+            q0,
+            codes=torch.cat([w.codes for w in ws]),
+            scales=torch.cat([w.scales for w in ws]),
+            zeros=None if q0.zeros is None else torch.cat([w.zeros for w in ws]),
+            shape=(N,) + tuple(q0.shape[1:]),
+            blocked_shape=(N,) + tuple(q0.blocked_shape[1:]),
+        )
+    else:
+        weight = torch.cat(ws)
+    return {"weight": weight}
+
+
+def _fusible(entries, ops: Optional[LayerOps], slots) -> bool:
+    """Slots fuse when they share quantizer behaviour, no act_out quantizer
+    and compatible weights (row-wise groups concatenate exactly along N)."""
+    if ops is not None:
+        opcfgs = [ops.get(s) for s in slots]
+        if any(o != opcfgs[0] for o in opcfgs[1:]):
+            return False
+        if opcfgs[0] is not None and opcfgs[0].act_out.qtype != "dummy":
+            return False
+    ws = [e["weight"] for e in entries]
+    if any(isinstance(w, QTensor) != isinstance(ws[0], QTensor) for w in ws):
+        return False
+    if isinstance(ws[0], QTensor):
+        q0 = ws[0]
+        if q0.quantizer.eff_axes != -1:
+            return False
+        return all(w.quantizer == q0.quantizer
+                   and tuple(w.shape[1:]) == tuple(q0.shape[1:])
+                   and tuple(w.blocked_shape[1:]) == tuple(q0.blocked_shape[1:])
+                   and (w.zeros is None) == (q0.zeros is None)
+                   and w.pair_planes == q0.pair_planes for w in ws)
+    return all(w.dim() == 2 and w.shape[1] == ws[0].shape[1] for w in ws)
+
+
+def fuse_model(params: Params, cfg: ModelConfig,
+               qcfg: Optional[QuantConfig] = None) -> Params:
+    """Concatenate q/k/v into ``qkv_cat`` and gate/up into ``gateup`` in
+    every layer (in place), when every layer fuses."""
+    layers = params["layers"]
+    can_qkv = all(_fusible([lp["attn"][s] for s in ("q", "k", "v")],
+                           layer_ops(cfg, qcfg, i), ("q", "k", "v"))
+                  for i, lp in enumerate(layers))
+    can_gu = all(_fusible([lp["mlp"][s] for s in ("gate", "up")],
+                          layer_ops(cfg, qcfg, i), ("gate", "up"))
+                 for i, lp in enumerate(layers))
+    for lp in layers:
+        if can_qkv:
+            ap = lp["attn"]
+            ap["qkv_cat"] = _concat_linear([ap.pop("q"), ap.pop("k"), ap.pop("v")])
+        if can_gu:
+            mp = lp["mlp"]
+            mp["gateup"] = _concat_linear([mp.pop("gate"), mp.pop("up")])
+    return params
+
+
+def _stack(nodes):
+    n0 = nodes[0]
+    if isinstance(n0, dict):
+        return {k: _stack([n[k] for n in nodes]) for k in n0}
+    if isinstance(n0, QTensor):
+        return replace(n0, codes=torch.stack([n.codes for n in nodes]),
+                       scales=torch.stack([n.scales for n in nodes]),
+                       zeros=None if n0.zeros is None
+                       else torch.stack([n.zeros for n in nodes]))
+    return torch.stack(nodes)
+
+
+def stack_model(params: Params) -> Params:
+    """Serving form: the per-layer list becomes one stacked dict
+    ``layers_stacked`` (leading L axis)."""
+    new = dict(params)
+    new["layers_stacked"] = _stack(new.pop("layers"))
+    return new
+
+
+def layer_view(stacked, i: int):
+    """Layer ``i`` of a stacked tree: tensors as views, QTensors as
+    LayerSlice (the kernels read the stacked buffers in place)."""
+    if isinstance(stacked, dict):
+        return {k: layer_view(v, i) for k, v in stacked.items()}
+    if isinstance(stacked, QTensor):
+        return LayerSlice(stacked, i)
+    return stacked[i]
+
+
+def iter_layers(params: Params):
+    """(index, per-layer params) over either params form."""
+    if "layers_stacked" in params:
+        st = params["layers_stacked"]
+        n = st["ln1"]["weight"].shape[0]
+        return ((i, layer_view(st, i)) for i in range(n))
+    return enumerate(params["layers"])
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            qcfg: Optional[QuantConfig] = None) -> torch.Tensor:
+    """tokens (B, T) -> f32 logits (B, T, vocab)."""
+    B, T = tokens.shape
+    positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
+    h = embed(params, cfg, tokens)
+    cos, sin = rope_for_positions(cfg, positions)
+    mask = causal_mask(positions, positions)[:, None]
+    for i, lp in iter_layers(params):
+        h = decoder_layer(lp, cfg, h, cos, sin, mask, layer_ops(cfg, qcfg, i))
+    return head(params, cfg, h, qcfg)

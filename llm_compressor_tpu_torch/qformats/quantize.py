@@ -1,0 +1,149 @@
+"""Quantizer specs and quantize/dequantize transforms (port of
+``qformats/quantize.py``).
+
+A quantizer is a frozen, hashable :class:`Quantizer` spec plus plain
+functions over tensors. Integer formats follow the reference numerics: the
+restrictive range +-7 / +-127, round-half-even value rounding, scales
+clamped at ``SCALE_EPS``, math in float32 and the result cast back to the
+input dtype. The fp/MX/NVFP solvers and the MSE clip search are not ported
+yet (ROADMAP.md, queue A items 2 and 9).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Optional
+
+import torch
+
+from .blocking import BlockMeta, block, resolve_group, unblock
+from .formats import ElemFormat, FormatParams, format_params
+
+SCALE_EPS = 1e-5
+
+
+@dataclass(frozen=True)
+class Quantizer:
+    """Static description of a quantization scheme.
+
+    qtype: "dummy" | "int" | "fp" | "mx" | "nvfp"
+    group_size: 0 per-tensor, -1 per-token, -2 per-channel, >0 per-group
+    axes: -1 row-wise, -2 column-wise (which axis groups run along)
+    """
+
+    qtype: str = "dummy"
+    fmt: Optional[ElemFormat] = None
+    group_size: int = -1
+    axes: int = -1
+    zero_point: bool = False
+
+    def __post_init__(self):
+        if self.qtype not in ("dummy", "int", "fp", "mx", "nvfp"):
+            raise ValueError(f"Unknown qtype {self.qtype!r}")
+        if self.qtype == "int" and self.fmt not in (ElemFormat.int4, ElemFormat.int8):
+            raise ValueError(f"INT quantizer requires int4/int8, got {self.fmt}")
+        if self.qtype == "fp" and self.fmt not in (
+                ElemFormat.fp4_e2m1, ElemFormat.fp8_e4m3, ElemFormat.fp8_e5m2):
+            raise ValueError(f"FP quantizer requires an fp format, got {self.fmt}")
+        if self.qtype == "nvfp" and self.fmt != ElemFormat.fp4_e2m1:
+            raise ValueError("NVFP quantizer supports fp4_e2m1 only")
+
+    @property
+    def eff_axes(self) -> int:
+        """Per-token forces row-wise, per-channel forces column-wise."""
+        if self.group_size == -1:
+            return -1
+        if self.group_size == -2:
+            return -2
+        return self.axes
+
+    @property
+    def params(self) -> FormatParams:
+        return format_params(self.fmt)
+
+    def with_axes_flipped(self) -> "Quantizer":
+        """Flip row/column orientation (the second matmul operand)."""
+        gs = self.group_size
+        if gs == -1:
+            gs = -2
+        elif gs == -2:
+            gs = -1
+        return replace(self, group_size=gs, axes=-1 if self.eff_axes == -2 else -2)
+
+
+def _check_ported(q: Quantizer) -> None:
+    if q.qtype != "int":
+        raise NotImplementedError(
+            f"{q.qtype} quantizers are not ported yet: ROADMAP.md queue A item 2")
+
+
+def _minmax(q: Quantizer, xb: torch.Tensor, axes):
+    if axes is None:
+        dims, keep = tuple(range(xb.dim())), False
+    else:
+        dims, keep = (axes,), True
+    if q.zero_point:
+        max_val = torch.amax(xb, dim=dims, keepdim=keep)
+        min_val = torch.amin(xb, dim=dims, keepdim=keep)
+    else:
+        max_val = torch.amax(torch.abs(xb), dim=dims, keepdim=keep)
+        min_val = -max_val
+    return max_val.float(), min_val.float()
+
+
+def _solve_int(q: Quantizer, max_val, min_val):
+    q_max = float(q.params.int_max)
+    if q.zero_point:
+        scales = torch.clamp_min((max_val - min_val) / (2.0 * q_max), SCALE_EPS)
+        zeros = torch.round(-q_max - min_val / scales)
+    else:
+        scales = max_val / q_max
+        zeros = torch.zeros_like(scales)
+    return scales, zeros
+
+
+def fake_quantize_blocked(q: Quantizer, xb, scales, zeros):
+    """Quantize-dequantize a blocked array with given group params."""
+    if q.qtype == "dummy":
+        return xb
+    _check_ported(q)
+    q_max = float(q.params.int_max)
+    qv = torch.clamp(torch.round(xb.float() / scales + zeros), -q_max, q_max)
+    return ((qv - zeros) * scales).to(xb.dtype)
+
+
+def find_params_blocked(q: Quantizer, xb, axes):
+    """Solve (scales, zeros) for an already-blocked array; reduce over ``axes``."""
+    _check_ported(q)
+    max_val, min_val = _minmax(q, xb, axes)
+    scales, zeros = _solve_int(q, max_val, min_val)
+    return torch.clamp_min(scales, SCALE_EPS), zeros
+
+
+def block_for(q: Quantizer, x) -> tuple[torch.Tensor, Optional[BlockMeta], Optional[int]]:
+    """Block ``x`` per the quantizer's group config. Per-tensor returns
+    (x, None, None)."""
+    group, axes = resolve_group(q.group_size, q.eff_axes, x.shape)
+    if group == 0:
+        return x, None, None
+    xb, meta = block(x, group, axes)
+    return xb, meta, axes
+
+
+def quantize_dequant_with_params(q: Quantizer, x):
+    """Block -> solve params -> quantize-dequantize -> unblock; also
+    returns the solved params."""
+    if q.qtype == "dummy":
+        return x, (None, None)
+    xb, meta, axes = block_for(q, x)
+    scales, zeros = find_params_blocked(q, xb, axes)
+    x_dq = fake_quantize_blocked(q, xb, scales, zeros)
+    if meta is not None:
+        x_dq = unblock(x_dq, meta)
+    return x_dq, (scales, zeros)
+
+
+def quantize_dequant(q: Quantizer, x):
+    """Full fake quantization with the group statistics solved per call
+    (dynamic activation quantization)."""
+    return quantize_dequant_with_params(q, x)[0]

@@ -1,0 +1,129 @@
+"""Each CUDA kernel of the port against its plain PyTorch version, on the
+card, at small shapes.
+
+Run on a machine with an H100: ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
+Here, without a card, every test skips (the check runs inside a fixture,
+so every pytest-xdist worker collects the same tests).
+
+Tolerances:
+* B1/B2/B3: the kernel and the plain version take the same exact int32
+  group dots and add the scaled parts in the same order without FMA
+  contraction, so f32 outputs are bitwise equal. bf16 outputs may differ
+  by one bf16 ulp where the activation (B2) rounds differently.
+* B4: the written cache codes are bitwise equal; the output agrees to a
+  few f32 ulps (the row sum is reduced in another order), plus at most one
+  flipped prob code per row (exp may differ by an ulp at a .5 boundary).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from llm_compressor_tpu_torch.kernels import decode_attention as da
+from llm_compressor_tpu_torch.kernels import w4a8_matmul as wm
+from llm_compressor_tpu_torch.qformats import parse_qspec, quantize_pack
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (H100); the CPU runs the plain versions only")
+    return torch.device("cuda")
+
+
+def _packed(spec, N, C, seed, stack=1):
+    rng = np.random.default_rng(seed)
+    q = parse_qspec(spec)
+    qts = [quantize_pack(q, torch.from_numpy(rng.normal(size=(N, C)).astype(np.float32)))
+           for _ in range(stack)]
+    return qts
+
+
+# even group counts pack as pair planes, odd ones as group halves
+@pytest.mark.parametrize("spec,C", [("int4-g[128]-rw", 512), ("int4-g[128]-rw", 640),
+                                    ("int4-g[256]-rw", 1024), ("int8-g[128]-rw", 640)])
+@pytest.mark.parametrize("M", [8, 40, 130])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_w4a8_flat_and_stacked(cuda, spec, C, M, out_dtype):
+    N = 320
+    qts = _packed(spec, N, C, seed=M, stack=2)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(M, C)).astype(np.float32)).to(cuda)
+    x_i8, sx = wm.quantize_acts_per_token(x)
+    codes = torch.stack([q.codes for q in qts]).to(cuda)
+    scales = torch.stack([q.scales for q in qts]).to(cuda)
+    fmt = wm._wfmt(qts[0])
+    for layer in (0, 1):
+        got = wm.matmul_stacked(x_i8, codes, scales, sx, layer, fmt, out_dtype)
+        want = wm.w4a8_plain(x_i8, codes[layer], scales[layer], sx, fmt, out_dtype)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    got = wm.matmul_flat(x_i8, codes[1].contiguous(), scales[1].contiguous(), sx, fmt, out_dtype)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu", "gelu_tanh"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_gateup(cuda, act, out_dtype):
+    I, C, M = 256, 512, 40
+    qts = _packed("int4-g[128]-rw", 2 * I, C, seed=3)
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(M, C)).astype(np.float32)).to(cuda)
+    x_i8, sx = wm.quantize_acts_per_token(x)
+    codes, scales = qts[0].codes[None].to(cuda), qts[0].scales[None].to(cuda)
+    got = wm.gateup_silu(x_i8, codes, scales, sx, 0, wm.W_PAIRS, act, out_dtype)
+    want = wm.gateup_plain(x_i8, codes[0], scales[0], sx, wm.W_PAIRS, act, out_dtype)
+    ulp = 2.0 ** -7 if out_dtype == torch.bfloat16 else 2.0 ** -22
+    torch.testing.assert_close(got.float(), want.float(), rtol=ulp, atol=1e-6)
+
+
+@pytest.mark.parametrize("window,softcap", [(0, None), (5, 30.0)])
+def test_decode_attention(cuda, window, softcap):
+    B, KV, r, D, S = 3, 2, 4, 64, 128
+    g = torch.Generator(device="cpu").manual_seed(0)
+    q = torch.randn(B, KV, r, D, generator=g).to(cuda)
+    kc = torch.randint(-127, 128, (B, KV, S, D), generator=g, dtype=torch.int8).to(cuda)
+    vc = torch.randint(-127, 128, (B, KV, S, D), generator=g, dtype=torch.int8).to(cuda)
+    ks = (torch.rand(B, KV, S, generator=g) * 0.02).to(cuda)
+    vs = (torch.rand(B, KV, S, generator=g) * 0.02).to(cuda)
+    nk = torch.randint(-127, 128, (B, KV, D), generator=g, dtype=torch.int8).to(cuda)
+    nv = torch.randint(-127, 128, (B, KV, D), generator=g, dtype=torch.int8).to(cuda)
+    nks = (torch.rand(B, KV, generator=g) * 0.02).to(cuda)
+    nvs = (torch.rand(B, KV, generator=g) * 0.02).to(cuda)
+    pos = torch.tensor([0, 37, 127], dtype=torch.int32, device=cuda)
+    caches = [t.clone() for t in (kc, vc, ks, vs)]
+    got = da.decode_attention_append(q, nk, nv, nks, nvs, kc, vc, ks, vs, pos,
+                                     window=window, scale=0.125, softcap=softcap)
+    want = da.decode_attention_plain(q, nk, nv, nks, nvs, *caches, pos,
+                                     window=window, scale=0.125, softcap=softcap)
+    for a, b in zip((kc, vc, ks, vs), caches):
+        assert torch.equal(a, b)
+    # one flipped prob code moves an output by at most 127 * a / sum, and
+    # a <= max(v_scale) / 127, sum >= 1
+    err = (got - want).abs()
+    ulps = 4 * torch.finfo(torch.float32).eps * want.abs() + 1e-7
+    flip = float(torch.maximum(vs.max(), nvs.max()))
+    assert bool((err <= ulps + flip).all()), float(err.max())
+    assert float((err > ulps).float().mean()) <= 0.01
+
+
+def test_decode_attention_position_outside_cache(cuda):
+    """A slot whose position lies outside the cache gets NaN and no write;
+    the other slots are unaffected."""
+    B, KV, r, D, S = 2, 2, 4, 64, 32
+    g = torch.Generator(device="cpu").manual_seed(1)
+    q = torch.randn(B, KV, r, D, generator=g).to(cuda)
+    kc = torch.randint(-127, 128, (B, KV, S, D), generator=g, dtype=torch.int8).to(cuda)
+    vc = torch.randint(-127, 128, (B, KV, S, D), generator=g, dtype=torch.int8).to(cuda)
+    ks = (torch.rand(B, KV, S, generator=g) * 0.02).to(cuda)
+    vs = (torch.rand(B, KV, S, generator=g) * 0.02).to(cuda)
+    nk = torch.ones((B, KV, D), dtype=torch.int8, device=cuda)
+    ns = torch.ones((B, KV), device=cuda)
+    before = [t.clone() for t in (kc, vc, ks, vs)]
+    pos = torch.tensor([S, 5], dtype=torch.int32, device=cuda)
+    out = da.decode_attention_append(q, nk, nk, ns, ns, kc, vc, ks, vs, pos, scale=0.125)
+    torch.cuda.synchronize()
+    assert bool(out[0].isnan().all()) and bool(out[1].isfinite().all())
+    for a, b in zip((kc, vc, ks, vs), before):
+        assert torch.equal(a[0], b[0])
+    assert bool((kc[1, :, 5] == 1).all())
