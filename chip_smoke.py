@@ -1,25 +1,28 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
 
-    python3 chip_smoke.py [--layers 16] [--steps 32] [--seed 0]
+    python3 chip_smoke.py [--seed 0]
 
 Phases (each prints a line; any failure exits non-zero):
 1. device — card name, count, and nvidia-smi's name and power limit;
 2. build — compile every kernel of ``llm_compressor_tpu_torch/csrc`` (one
    nvcc per source, all at once) and print ptxas register / smem use;
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the flagship shapes, with its time (CUDA events, L2 flushed before each
-   launch), the plain version's time, one PyTorch library call's time for
-   the same function, and the bound: max(bytes / 3.35 TB/s, int8 ops /
-   1979 TOP/s) from the published H100 SXM peaks;
-4. slice — full-width Llama-3.2-1B W4A8 (random weights from ``--seed``):
-   RTN -> pack -> fuse -> stack, prefill 128 prompts of 128 tokens into an
-   int8 cache of 256 positions, then 32 greedy decode steps; every kernel's
-   launch counter must move. At 2 layers, full width, the kernel path's
-   greedy tokens must equal the plain path's wherever the plain logits'
-   top-2 gap exceeds the stated tolerance. Two more decode steps run under
-   ``torch.profiler`` for the device time by kernel and the idle share.
-The last two lines are the ``kernels`` JSON object and then
-``{"ok": true, "device": {...}}``; nvidia-smi's line comes before them.
+   the flagship shapes, with its device time (CUDA events, L2 flushed
+   before each launch, host work queued ahead of the window), the plain
+   version's time, one PyTorch library call's time for the same function,
+   and the bound: max(bytes / 3.35 TB/s, int8 ops / 1979 TOP/s) from the
+   published H100 SXM peaks;
+4. slice — full-width, full-depth Llama-3.2-1B W4A8 (random weights from
+   ``--seed``): RTN -> pack -> fuse -> stack, prefill 128 prompts of 128
+   tokens into an int8 cache of 256 positions, then 32 greedy decode steps;
+   every kernel's launch counter must move. At 2 layers, full width, the
+   kernel path's greedy tokens must equal the plain path's wherever the
+   plain logits' top-2 gap exceeds the stated tolerance. Two more decode
+   steps run under ``torch.profiler`` for the device time by kernel and the
+   idle share.
+The ``kernels`` JSON object and nvidia-smi's name and power limit come on
+the two lines before the last; the last is ``{"ok": true, "device": {...},
+"slice": {...}}``, the slice's TTFT, decode tok/s and peak memory included.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12       # dense int8 tensor-core peak, same source
+# the slice: Llama-3.2-1B at full depth, the serving shape of the flagship bench
+LAYERS, BATCH, PROMPT, MAX_LEN, STEPS = 16, 128, 128, 256, 32
 TPU_KERNELS = {
     "B1_w4a8_stacked": "llm_compressor_tpu/kernels/w4a8_matmul.py:405",
     "B2_w4a8_gateup_silu": "llm_compressor_tpu/kernels/w4a8_matmul.py:517",
@@ -69,24 +74,38 @@ def nvidia_smi_line() -> str:
 # ---------------------------------------------------------------------------
 
 _FLUSH = None
+_SPIN_CYCLES = 1 << 20   # ~0.5 ms at the H100's clock; doubled where too short
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     """Median device time of ``fn`` in ms, CUDA events around each call,
     with the 50 MB L2 cache overwritten before each call (a decode step
-    finds each layer's weights cold)."""
-    global _FLUSH
+    finds each layer's weights cold).
+
+    A spin kernel is queued between the flush and the start event, so the
+    host has queued all of ``fn``'s launches (wrapper checks, allocation,
+    ctypes call) while the card spins: the window holds device work only.
+    A call whose start event has already passed when ``fn`` returns on the
+    host is not counted; it runs again with a spin twice as long."""
+    global _FLUSH, _SPIN_CYCLES
     if _FLUSH is None:
         _FLUSH = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(reps):
+    while len(times) < reps:
         _FLUSH.fill_(1)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(_SPIN_CYCLES)
         a.record()
         fn()
         b.record()
+        if a.query():  # the spin ended before the host had queued fn
+            b.synchronize()
+            if _SPIN_CYCLES >= 1 << 32:
+                raise RuntimeError("time_ms: the host cannot queue fn within a 2 s spin")
+            _SPIN_CYCLES *= 2
+            continue
         b.synchronize()
         times.append(a.elapsed_time(b))
     times.sort()
@@ -406,23 +425,24 @@ def profile_decode(params, cfg, qcfg, cache, token, steps: int = 2):
             "device_ms_per_step": {k: round(v, 4) for k, v in sorted(by_class.items())}}
 
 
-def phase_slice(layers: int, steps: int, seed: int):
+def phase_slice(seed: int):
     from llm_compressor_tpu_torch import kernels
 
-    cfg, qcfg, params = build_model(layers, seed)
+    cfg, qcfg, params = build_model(LAYERS, seed)
     # warm the allocator, cuBLAS and the kernel libraries at a small batch
     run_slice(params, cfg, qcfg, batch=8, prompt=16, steps=2, max_len=64, seed=seed)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
     logits, out, cache, ttft_ms, dec_ms = run_slice(
-        params, cfg, qcfg, batch=128, prompt=128, steps=steps, max_len=256, seed=seed)
+        params, cfg, qcfg, batch=BATCH, prompt=PROMPT, steps=STEPS, max_len=MAX_LEN,
+        seed=seed)
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    if not bool(torch.isfinite(logits).all()) or logits.shape != (128, cfg.vocab_size):
-        raise AssertionError("prefill logits are not finite (128, vocab)")
-    if out.shape != (128, steps) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+    if not bool(torch.isfinite(logits).all()) or logits.shape != (BATCH, cfg.vocab_size):
+        raise AssertionError("prefill logits are not finite (batch, vocab)")
+    if out.shape != (BATCH, STEPS) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         raise AssertionError("decoded tokens out of range")
-    if not bool((cache.lengths == 128 + steps).all()):
+    if not bool((cache.lengths == PROMPT + STEPS).all()):
         raise AssertionError("cache lengths did not advance")
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
@@ -431,15 +451,12 @@ def phase_slice(layers: int, steps: int, seed: int):
     del params, cache
     torch.cuda.empty_cache()
     return {"counts": counts, "ttft_ms": ttft_ms, "decode_ms": dec_ms,
-            "decode_tok_s": 128 * steps / (dec_ms / 1e3),
-            "peak_mem_gib": peak / 2 ** 30, "layers": layers, "steps": steps,
-            "profile": prof}
+            "decode_tok_s": BATCH * STEPS / (dec_ms / 1e3),
+            "peak_mem_gib": peak / 2 ** 30, "profile": prof}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, default=16)
-    ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -468,28 +485,32 @@ def main() -> int:
     log(f"reduced depth (2 layers, full width): {checked}/{total} kernel-path tokens with "
         f"a plain top-2 gap > 0.1 equal the plain path's; max |logit diff| {max_err:.4g}")
 
-    s = phase_slice(args.layers, args.steps, args.seed)
-    log(f"slice: Llama-3.2-1B W4A8, {s['layers']} layers, batch 128, prompt 128, "
-        f"max_len 256: prefill (TTFT) {s['ttft_ms']:.2f} ms, {s['steps']} decode steps "
+    s = phase_slice(args.seed)
+    log(f"slice: Llama-3.2-1B W4A8, {LAYERS} layers, batch {BATCH}, prompt {PROMPT}, "
+        f"max_len {MAX_LEN}: prefill (TTFT) {s['ttft_ms']:.2f} ms, {STEPS} decode steps "
         f"{s['decode_ms']:.2f} ms = {s['decode_tok_s']:.1f} tok/s, peak memory "
         f"{s['peak_mem_gib']:.2f} GiB on {smi}; launches {s['counts']}")
     log(f"decode profile (2 steps, torch.profiler): {json.dumps(s['profile'])}")
 
+    metrics = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for kname, cs in cases.items():
-        main_case = cs[0]
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": TPU_KERNELS[kname], "launches": s["counts"][COUNTER_OF[kname]],
-            **{k: main_case[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")},
-            "case": main_case["case"], "cases": cs,
+            **{k: cs[0][k] for k in metrics}, "case": cs[0]["case"],
+            "other_cases": [{"case": c["case"], **{k: c[k] for k in metrics}}
+                            for c in cs[1:]],
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": count}}), flush=True)
+    prof = s["profile"]
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count},
+                      "slice": {"ttft_ms": s["ttft_ms"], "decode_tok_s": s["decode_tok_s"],
+                                "peak_mem_gib": s["peak_mem_gib"],
+                                "device_busy_ms_per_step": prof.get("device_busy_ms_per_step"),
+                                "wall_ms_per_step": prof["wall_ms_per_step"]}}), flush=True)
     return 0
 
 

@@ -11,7 +11,8 @@ The output lands in ``llm_compressor_tpu_torch/_build/`` (listed in
 ``.gitignore``), named by a hash of the source and flags, so an edited
 source rebuilds. ``-Xptxas -v`` output (registers, shared memory, spills)
 is kept beside the library as ``<lib>.log``. A missing ``nvcc`` or a failed
-build raises.
+build raises. :func:`c_launcher` gives the wrappers each C function typed
+once.
 """
 
 from __future__ import annotations
@@ -23,7 +24,9 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List, Sequence
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
@@ -107,3 +110,23 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build((name,))[name]))
         _LOADED[name] = lib
     return lib
+
+
+def c_launcher(name: str, fn_name: str, argtypes: Sequence) -> Callable[..., None]:
+    """A callable for the C function ``fn_name`` of ``csrc/<name>.cu``,
+    typed once: it passes its arguments and the current CUDA stream, and
+    raises if the function returns a non-zero ``cudaError_t``. The library
+    is built and loaded on the first call, not here."""
+    cfn = None
+
+    def launch(*args) -> None:
+        nonlocal cfn
+        if cfn is None:
+            cfn = getattr(load(name), fn_name)
+            cfn.restype = ctypes.c_int
+            cfn.argtypes = [*argtypes, ctypes.c_void_p]
+        err = cfn(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+
+    return launch

@@ -27,6 +27,11 @@ import torch
 from . import _build
 
 NEG_INF = -1e9
+# q, new_k, new_v, new_ks, new_vs, k_cache, v_cache, k_scale, v_scale, pos,
+# out; B, KV, r, D, S, window; scale, softcap; has_softcap
+_launch = _build.c_launcher(
+    "decode_attention", "llmc_decode_attention_append",
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int])
 
 
 def row_quant_i8(x: torch.Tensor):
@@ -122,19 +127,11 @@ def decode_attention_append(q, new_k, new_v, new_ks, new_vs, k_cache, v_cache,
     B, KV, r, D = q.shape
     S = k_cache.shape[2]
     out = torch.empty_like(q)
-    lib = _build.load("decode_attention")
-    fn = lib.llmc_decode_attention_append
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    err = fn(q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(), new_ks.data_ptr(),
-             new_vs.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             k_scale.data_ptr(), v_scale.data_ptr(), pos.data_ptr(), out.data_ptr(),
-             B, KV, r, D, S, int(window), float(scale),
-             float(softcap) if softcap is not None else 0.0, int(softcap is not None),
-             torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"llmc_decode_attention_append launch failed: CUDA error {err}")
+    _launch(q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(), new_ks.data_ptr(),
+            new_vs.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            B, KV, r, D, S, int(window), float(scale),
+            float(softcap) if softcap is not None else 0.0, int(softcap is not None))
     decode_attention_append.launches += 1
     return out
 

@@ -181,26 +181,18 @@ def _check(x_i8, codes, scales, sx, wfmt, out_dtype):
                              "their data must be 16-byte aligned")
 
 
-def _launch(fn_name, args_ptrs, ints):
-    lib = _build.load("w4a8_matmul")
-    fn = getattr(lib, fn_name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * len(args_ptrs) + [ctypes.c_int] * len(ints)
-                   + [ctypes.c_void_p])
-    stream = torch.cuda.current_stream().cuda_stream
-    err = fn(*args_ptrs, *ints, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+# x, w, scales, sx, out; M, N (I for gateup), C, group, wfmt, out_bf16[, act]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_matmul_launch = _build.c_launcher("w4a8_matmul", "llmc_w4a8_matmul", [_P] * 5 + [_I] * 6)
+_gateup_launch = _build.c_launcher("w4a8_matmul", "llmc_w4a8_gateup", [_P] * 5 + [_I] * 7)
 
 
 def _matmul_kernel(x_i8, codes, scales, sx, wfmt, out_dtype):
     M, C = x_i8.shape
     N, G = scales.shape
     out = torch.empty((M, N), dtype=out_dtype, device=x_i8.device)
-    _launch("llmc_w4a8_matmul",
-            [x_i8.data_ptr(), codes.data_ptr(), scales.data_ptr(), sx.data_ptr(),
-             out.data_ptr()],
-            [M, N, C, C // G, wfmt, int(out_dtype == torch.bfloat16)])
+    _matmul_launch(x_i8.data_ptr(), codes.data_ptr(), scales.data_ptr(), sx.data_ptr(),
+                   out.data_ptr(), M, N, C, C // G, wfmt, int(out_dtype == torch.bfloat16))
     return out
 
 
@@ -251,9 +243,9 @@ def gateup_silu(x_i8, codes, scales, sx, layer: int, wfmt: int, act: str,
     M, C = x_i8.shape
     N2, G = sl.shape
     out = torch.empty((M, N2 // 2), dtype=out_dtype, device=x_i8.device)
-    _launch("llmc_w4a8_gateup",
-            [x_i8.data_ptr(), cl.data_ptr(), sl.data_ptr(), sx.data_ptr(), out.data_ptr()],
-            [M, N2 // 2, C, C // G, wfmt, int(out_dtype == torch.bfloat16), _ACTS[act]])
+    _gateup_launch(x_i8.data_ptr(), cl.data_ptr(), sl.data_ptr(), sx.data_ptr(),
+                   out.data_ptr(), M, N2 // 2, C, C // G, wfmt,
+                   int(out_dtype == torch.bfloat16), _ACTS[act])
     gateup_silu.launches += 1
     return out
 
