@@ -10,19 +10,26 @@ Phases (each prints a line; any failure exits non-zero):
    the flagship shapes, with its device time (CUDA events, L2 flushed
    before each launch, host work queued ahead of the window), the plain
    version's time, one PyTorch library call's time for the same function,
-   and the bound: max(bytes / 3.35 TB/s, int8 ops / 1979 TOP/s) from the
-   published H100 SXM peaks;
-4. slice — full-width, full-depth Llama-3.2-1B W4A8 (random weights from
+   and the bound: max(bytes / 3.35 TB/s, ops / the peak of the kernel's
+   own arithmetic) from the published H100 SXM peaks — int8 at 1979 TOP/s
+   for B1-B4, dense bf16 at 989.4 TFLOP/s for B5;
+4. token checks — at 2 layers, full width, the kernel path's greedy tokens
+   must equal the plain path's wherever the plain logits' top-2 gap exceeds
+   the stated tolerance: W4A8, and weight-only with zero-point int4 and
+   with fp8 e4m3 weights;
+5. slices — full-width, full-depth Llama-3.2-1B (random weights from
    ``--seed``): RTN -> pack -> fuse -> stack, prefill 128 prompts of 128
-   tokens into an int8 cache of 256 positions, then 32 greedy decode steps;
-   every kernel's launch counter must move. At 2 layers, full width, the
-   kernel path's greedy tokens must equal the plain path's wherever the
-   plain logits' top-2 gap exceeds the stated tolerance. Two more decode
-   steps run under ``torch.profiler`` for the device time by kernel and the
-   idle share.
-The ``kernels`` JSON object and nvidia-smi's name and power limit come on
-the two lines before the last; the last is ``{"ok": true, "device": {...},
-"slice": {...}}``, the slice's TTFT, decode tok/s and peak memory included.
+   tokens into a cache of 256 positions, then 32 greedy decode steps, for
+   two serving configs: W4A8 over an int8 cache (B1-B4), and weight-only
+   zero-point int4-g128 with an int8-g128 head over a bf16 cache (B5, 65
+   launches per decode step). Each slice's counts are set to 0 just before
+   it and read just after; each of its kernels must have launched. Two more
+   decode steps run under ``torch.profiler`` for the device time by kernel
+   and the idle share. The weight-only params then serve one ``generate``
+   call with top-k sampling from a fixed seed, twice, which must agree.
+The ``kernels`` JSON object, nvidia-smi's name and power limit and the
+slices' TTFT, decode tok/s and peak memory come on the three lines before
+the last; the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -41,21 +48,31 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12       # dense int8 tensor-core peak, same source
-# the slice: Llama-3.2-1B at full depth, the serving shape of the flagship bench
+BF16_OPS_PER_S = 989.4e12      # dense bf16 tensor-core peak, same source
+# the slices: Llama-3.2-1B at full depth, the serving shape of the flagship bench
 LAYERS, BATCH, PROMPT, MAX_LEN, STEPS = 16, 128, 128, 256, 32
+# serving configs: build_quant_config arguments, head_act, an int8 KV cache?
+W4A8 = (("int4-g[128]-rw", "int8-g[-1]-rw", None, "int8-g[128]-rw"), "int8-g[-1]-rw", True)
+WEIGHT_ONLY = (("int4-g[128]-zp-rw", None, None, "int8-g[128]-rw"), None, False)
+WEIGHT_ONLY_FP8 = (("fp8_e4m3-g[128]-rw", None, None, "int8-g[128]-rw"), None, False)
+B5_PER_STEP = 4 * LAYERS + 1   # qkv, o, gate|up, down per layer + the head
 TPU_KERNELS = {
     "B1_w4a8_stacked": "llm_compressor_tpu/kernels/w4a8_matmul.py:405",
     "B2_w4a8_gateup_silu": "llm_compressor_tpu/kernels/w4a8_matmul.py:517",
     "B3_w4a8_flat": "llm_compressor_tpu/kernels/w4a8_matmul.py:353",
     "B4_decode_attention_append": "llm_compressor_tpu/kernels/decode_attention.py:469",
+    "B5_dequant_matmul": "llm_compressor_tpu/kernels/dequant_matmul.py:216",
 }
 COUNTER_OF = {"B1_w4a8_stacked": "w4a8_stacked", "B2_w4a8_gateup_silu": "w4a8_gateup",
               "B3_w4a8_flat": "w4a8_flat",
-              "B4_decode_attention_append": "decode_attention_append"}
+              "B4_decode_attention_append": "decode_attention_append",
+              "B5_dequant_matmul": "dequant_matmul"}
 SOURCES = {"B1_w4a8_stacked": "llm_compressor_tpu_torch/csrc/w4a8_matmul.cu",
            "B2_w4a8_gateup_silu": "llm_compressor_tpu_torch/csrc/w4a8_matmul.cu",
            "B3_w4a8_flat": "llm_compressor_tpu_torch/csrc/w4a8_matmul.cu",
-           "B4_decode_attention_append": "llm_compressor_tpu_torch/csrc/decode_attention.cu"}
+           "B4_decode_attention_append": "llm_compressor_tpu_torch/csrc/decode_attention.cu",
+           "B5_dequant_matmul": "llm_compressor_tpu_torch/csrc/dequant_matmul.cu"}
+SLICE_OF = {k: "w4a8" for k in TPU_KERNELS} | {"B5_dequant_matmul": "weight_only"}
 
 
 def log(msg: str) -> None:
@@ -112,8 +129,10 @@ def time_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
-def bound(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+def bound(nbytes: float, ops: float, ops_per_s: float):
+    """Least time (ms) for the work: the larger of bytes over the memory
+    rate and operations over the peak of their type, and which bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -173,7 +192,7 @@ def check_w4a8(gen, label, kind, M, N, C, wfmt):
     wbytes = codes[0].numel() + scales[0].numel() * 4
     nbytes = x_i8.numel() + sx.numel() * 4 + wbytes + M * n_out * 2
     ops = 2.0 * M * N * C
-    b_ms, b_by = bound(nbytes, ops)
+    b_ms, b_by = bound(nbytes, ops, INT8_OPS_PER_S)
     w_bf = torch.randn((N, C), generator=gen, device="cuda").to(bf)
     case = {
         "case": label, "M": M, "N": N, "C": C, "tolerance": tol,
@@ -218,7 +237,7 @@ def check_decode_attention(gen, B=128, KV=8, r=4, D=64, S=256, pos=144):
               + 2 * B * KV * n * (D + 4)                   # K/V window codes + scales
               + 2 * B * KV * (D + 4) + got.numel() * 4)    # token written, out
     ops = 2.0 * 2 * B * KV * r * n * D
-    b_ms, b_by = bound(nbytes, ops)
+    b_ms, b_by = bound(nbytes, ops, INT8_OPS_PER_S)
     kd = (kc.float() * ks[..., None]).to(torch.bfloat16)   # dequantized (B, KV, S, D)
     vd = (vc.float() * vs[..., None]).to(torch.bfloat16)
     qh = q.reshape(B, KV * r, 1, D).to(torch.bfloat16)
@@ -234,7 +253,53 @@ def check_decode_attention(gen, B=128, KV=8, r=4, D=64, S=256, pos=144):
             "bound_by": b_by, "library_ms": time_ms(lib)}
 
 
+def check_dequant_matmul(gen, label, M, N, C, fmt, zeros: bool, g=128):
+    """One B5 case: random packed codes, scales (and zero points) of an
+    (N, C) weight, x (M, C) bf16, bf16 out. Tolerance: one bf16 ulp of the
+    output plus the f32 summation term 2 * C * 2**-24 * (|x| @ |W|^T) —
+    kernel and plain version build the same bf16 weight and differ only in
+    the order of the f32 sums."""
+    from llm_compressor_tpu_torch.kernels import dequant_matmul as dm
+
+    G = C // g
+    if fmt in (dm.F_INT4_PAIRS, dm.F_INT4_HALVES):
+        codes = _rand_codes(gen, (N, C // 2), 1)
+        zs = torch.randint(-4, 5, (N, G), generator=gen, device="cuda").float()
+    elif fmt == dm.F_INT8:
+        codes = _rand_codes(gen, (N, C), 0)
+        zs = torch.zeros((N, G), device="cuda")
+    else:  # fp8 codes of normal values; zeros are real-domain midpoints, added
+        codes = torch.randn((N, C), generator=gen, device="cuda").to(torch.float8_e4m3fn)
+        zs = torch.randn((N, G), generator=gen, device="cuda") * 1e-2
+    zs = zs if zeros else None
+    scales = torch.rand((N, G), generator=gen, device="cuda") * 1e-2 + 1e-3
+    x = torch.randn((M, C), generator=gen, device="cuda").to(torch.bfloat16)
+    bf = torch.bfloat16
+    run = lambda: dm.dequant_matmul_codes(x, codes, scales, zs, fmt, bf)
+    plain = lambda: dm.dequant_matmul_plain(x, codes, scales, zs, fmt, bf)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    w = dm.dequant_weight_bf16(codes, scales, zs, fmt)
+    mag = x.float().abs() @ w.float().abs().t()
+    err = (got.float() - want.float()).abs()
+    if not bool((err <= 2.0 ** -7 * want.float().abs() + 2 * C * 2.0 ** -24 * mag).all()):
+        raise AssertionError(f"B5 {label}: kernel disagrees with plain (max err {float(err.max())})")
+    del mag
+    nbytes = (x.numel() * 2 + codes.numel() * codes.element_size() + scales.numel() * 4
+              + (0 if zs is None else zs.numel() * 4) + M * N * 2)
+    b_ms, b_by = bound(nbytes, 2.0 * M * N * C, BF16_OPS_PER_S)
+    case = {"case": label, "M": M, "N": N, "C": C,
+            "tolerance": "1 bf16 ulp + 2*C*2^-24*(|x|@|W|^T)",
+            "max_abs_err": float(err.max()), "ms": time_ms(run),
+            "plain_ms": time_ms(plain, reps=3, warmup=1), "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": time_ms(lambda: torch.matmul(x, w.t()))}
+    del codes, scales, zs, w
+    return case
+
+
 def phase_kernels(seed: int):
+    from llm_compressor_tpu_torch.kernels import dequant_matmul as dm
+
     gen = torch.Generator(device="cuda").manual_seed(seed)
     E, I, V = 2048, 8192, 128256
     cases = {
@@ -247,6 +312,17 @@ def phase_kernels(seed: int):
             check_w4a8(gen, "decode int8 head", "flat", 128, V, E, 0),
             check_w4a8(gen, "prefill qkv 128x128 rows", "flat", 128 * 128, 3072, E, 1)],
         "B4_decode_attention_append": [check_decode_attention(gen)],
+        "B5_dequant_matmul": [
+            check_dequant_matmul(gen, "decode qkv int4-g128 zp", 128, 3072, E, dm.F_INT4_PAIRS, True),
+            check_dequant_matmul(gen, "decode o int4-g128 zp", 128, E, E, dm.F_INT4_PAIRS, True),
+            check_dequant_matmul(gen, "decode gate|up int4-g128 zp", 128, 2 * I, E,
+                                 dm.F_INT4_PAIRS, True),
+            check_dequant_matmul(gen, "decode down int4-g128 zp", 128, E, I, dm.F_INT4_PAIRS, True),
+            check_dequant_matmul(gen, "decode qkv int4-g128 symmetric", 128, 3072, E,
+                                 dm.F_INT4_PAIRS, False),
+            check_dequant_matmul(gen, "decode int8-g128 head", 128, V, E, dm.F_INT8, False),
+            check_dequant_matmul(gen, "decode qkv fp8-e4m3-g128", 128, 3072, E,
+                                 dm.F_FP8_E4M3, True)],
     }
     for name, cs in cases.items():
         for c in cs:
@@ -274,14 +350,16 @@ def flagship_cfg(layers: int):
         tie_word_embeddings=True, dtype="bfloat16")
 
 
-def build_model(layers: int, seed: int):
+def build_model(layers: int, seed: int, serving):
+    """RTN -> pack -> fuse -> stack of random full-width weights for a
+    serving config (``W4A8``, ``WEIGHT_ONLY``, ...)."""
     from llm_compressor_tpu_torch.algorithms import pack_model, rtn
     from llm_compressor_tpu_torch.models import fuse_model, init_params, stack_model
     from llm_compressor_tpu_torch.qformats import build_quant_config
 
+    qargs, head_act, _ = serving
     cfg = flagship_cfg(layers)
-    qcfg = build_quant_config("int4-g[128]-rw", "int8-g[-1]-rw", None, "int8-g[128]-rw",
-                              head_act="int8-g[-1]-rw")
+    qcfg = build_quant_config(*qargs, head_act=head_act)
     params = init_params(cfg, seed=seed)
     rtn(params, cfg, qcfg)
     pack_model(params, cfg, qcfg)
@@ -291,57 +369,76 @@ def build_model(layers: int, seed: int):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the four kernel wrappers to their plain versions (CUDA
-    tensors included) — the reference run of the reduced-depth check."""
-    from llm_compressor_tpu_torch.engine import generate as gen_mod
+    """Route the five kernel wrappers to their plain versions (CUDA tensors
+    included) — the reference run of the reduced-depth checks."""
+    import importlib
+
     from llm_compressor_tpu_torch.kernels import decode_attention as da
+    from llm_compressor_tpu_torch.kernels import dequant_matmul as dm
     from llm_compressor_tpu_torch.kernels import w4a8_matmul as wm
 
-    saved = (wm.matmul_stacked, wm.matmul_flat, wm.gateup_silu, gen_mod.decode_attention_append)
+    gen_mod = importlib.import_module("llm_compressor_tpu_torch.engine.generate")
+    saved = (wm.matmul_stacked, wm.matmul_flat, wm.gateup_silu, gen_mod.decode_attention_append,
+             dm.dequant_matmul_codes)
     wm.matmul_stacked = lambda x, c, s, sx, layer, f, dt: wm.w4a8_plain(x, c[layer], s[layer], sx, f, dt)
     wm.matmul_flat = wm.w4a8_plain
     wm.gateup_silu = lambda x, c, s, sx, layer, f, act, dt: wm.gateup_plain(
         x, c[layer], s[layer], sx, f, act, dt)
     gen_mod.decode_attention_append = da.decode_attention_plain
+    dm.dequant_matmul_codes = dm.dequant_matmul_plain
     try:
         yield
     finally:
-        wm.matmul_stacked, wm.matmul_flat, wm.gateup_silu, gen_mod.decode_attention_append = saved
+        (wm.matmul_stacked, wm.matmul_flat, wm.gateup_silu, gen_mod.decode_attention_append,
+         dm.dequant_matmul_codes) = saved
 
 
-def run_slice(params, cfg, qcfg, batch, prompt, steps, max_len, seed):
-    from llm_compressor_tpu_torch.engine import decode_greedy_steps, init_cache, prefill
+def new_cache(cfg, batch, max_len, serving):
+    from llm_compressor_tpu_torch.engine import init_cache
+
+    return init_cache(cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim,
+                      quantized=serving[2])
+
+
+def run_slice(params, cfg, qcfg, serving, batch, prompt, steps, max_len, seed):
+    """Prefill then ``steps`` greedy steps; also returns the launch counts
+    read between the two (the counters run on from wherever they were)."""
+    from llm_compressor_tpu_torch import kernels
+    from llm_compressor_tpu_torch.engine import decode_greedy_steps, prefill
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen, device="cuda",
                          dtype=torch.int32)
-    cache = init_cache(cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    cache = new_cache(cfg, batch, max_len, serving)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = prefill(params, toks, cache, cfg=cfg, qcfg=qcfg)
     tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    after_prefill = kernels.launch_counts()
     out, cache = decode_greedy_steps(params, tok, cache, n=steps, cfg=cfg, qcfg=qcfg)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    return logits, out, cache, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    return logits, out, cache, (t1 - t0) * 1e3, (t2 - t1) * 1e3, after_prefill
 
 
-def check_reduced_depth(seed: int, gap_tol: float = 0.1):
+def check_reduced_depth(seed: int, serving, kernel_names, gap_tol: float = 0.1):
     """2 layers, full width: teacher-force the plain path's greedy tokens
     through both paths; where the plain logits' top-2 gap exceeds
-    ``gap_tol`` the kernel path's argmax must be the same token."""
-    from llm_compressor_tpu_torch.engine import decode_step, init_cache, prefill
+    ``gap_tol`` the kernel path's argmax must be the same token. The kernel
+    run must launch every kernel of ``kernel_names`` and no other."""
+    from llm_compressor_tpu_torch import kernels
+    from llm_compressor_tpu_torch.engine import decode_step, prefill
 
-    cfg, qcfg, params = build_model(2, seed)
+    cfg, qcfg, params = build_model(2, seed, serving)
     B, T, steps = 16, 32, 8
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device="cuda",
                          dtype=torch.int32)
 
     def run(feed=None):
-        cache = init_cache(cfg.num_layers, B, 64, cfg.num_kv_heads, cfg.head_dim)
+        cache = new_cache(cfg, B, 64, serving)
         logits, cache = prefill(params, toks, cache, cfg=cfg, qcfg=qcfg)
         all_logits = [logits]
         tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
@@ -353,8 +450,6 @@ def check_reduced_depth(seed: int, gap_tol: float = 0.1):
             tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
         return all_logits
 
-    from llm_compressor_tpu_torch import kernels
-
     kernels.reset_counts()
     with plain_kernels():
         ref = run()
@@ -362,8 +457,10 @@ def check_reduced_depth(seed: int, gap_tol: float = 0.1):
         raise AssertionError(f"the plain run launched kernels: {kernels.launch_counts()}")
     feed = [torch.argmax(lg, -1).to(torch.int32)[:, None] for lg in ref[:-1]]
     got = run(feed)
-    if not all(kernels.launch_counts().values()):
-        raise AssertionError(f"the kernel run missed a kernel: {kernels.launch_counts()}")
+    counts = kernels.launch_counts()
+    used = {COUNTER_OF[k] for k in kernel_names}
+    if any((v > 0) != (k in used) for k, v in counts.items()):
+        raise AssertionError(f"the kernel run's launches {counts} are not those of {kernel_names}")
     checked = agree = 0
     for a, b in zip(ref, got):
         if not bool(torch.isfinite(b).all()):
@@ -383,6 +480,8 @@ def check_reduced_depth(seed: int, gap_tol: float = 0.1):
 def _kernel_class(name: str) -> str:
     if "decode_attention" in name:
         return "B4"
+    if "dequant_matmul_kernel" in name:
+        return "B5"
     if "w4a8_kernel" in name:  # template argument NW: 2 is the fused gate|up
         return "B2" if ("Li2EEEv" in name or ", 2>" in name) else "B1/B3"
     return "other"
@@ -425,16 +524,19 @@ def profile_decode(params, cfg, qcfg, cache, token, steps: int = 2):
             "device_ms_per_step": {k: round(v, 4) for k, v in sorted(by_class.items())}}
 
 
-def phase_slice(seed: int):
+def phase_slice(seed: int, serving, kernel_names):
+    """The full-depth slice of one serving config; every kernel of
+    ``kernel_names`` must launch during it (counts set to 0 just before,
+    read just after) and no other kernel may."""
     from llm_compressor_tpu_torch import kernels
 
-    cfg, qcfg, params = build_model(LAYERS, seed)
+    cfg, qcfg, params = build_model(LAYERS, seed, serving)
     # warm the allocator, cuBLAS and the kernel libraries at a small batch
-    run_slice(params, cfg, qcfg, batch=8, prompt=16, steps=2, max_len=64, seed=seed)
+    run_slice(params, cfg, qcfg, serving, batch=8, prompt=16, steps=2, max_len=64, seed=seed)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
-    logits, out, cache, ttft_ms, dec_ms = run_slice(
-        params, cfg, qcfg, batch=BATCH, prompt=PROMPT, steps=STEPS, max_len=MAX_LEN,
+    logits, out, cache, ttft_ms, dec_ms, after_prefill = run_slice(
+        params, cfg, qcfg, serving, batch=BATCH, prompt=PROMPT, steps=STEPS, max_len=MAX_LEN,
         seed=seed)
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -444,15 +546,46 @@ def phase_slice(seed: int):
         raise AssertionError("decoded tokens out of range")
     if not bool((cache.lengths == PROMPT + STEPS).all()):
         raise AssertionError("cache lengths did not advance")
-    missing = [k for k, v in counts.items() if v == 0]
+    used = {COUNTER_OF[k] for k in kernel_names}
+    missing = [k for k in used if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+    stray = {k: v for k, v in counts.items() if v and k not in used}
+    if stray:
+        raise AssertionError(f"kernels of another path launched: {stray}")
+    per_step = {k: (counts[k] - after_prefill[k]) / STEPS for k in sorted(used)}
     prof = profile_decode(params, cfg, qcfg, cache, out[:, -1:])
-    del params, cache
-    torch.cuda.empty_cache()
-    return {"counts": counts, "ttft_ms": ttft_ms, "decode_ms": dec_ms,
+    del cache
+    return {"cfg": cfg, "qcfg": qcfg, "params": params, "counts": counts,
+            "per_step": per_step, "ttft_ms": ttft_ms, "decode_ms": dec_ms,
             "decode_tok_s": BATCH * STEPS / (dec_ms / 1e3),
             "peak_mem_gib": peak / 2 ** 30, "profile": prof}
+
+
+def check_generate(params, cfg, qcfg, seed: int):
+    """``generate`` on the card: 4 prompts of 16 tokens, 8 new tokens with
+    top-k 50 sampling at temperature 0.8, twice from one seed."""
+    import numpy as np
+
+    from llm_compressor_tpu_torch.engine import generate
+
+    prompts = np.random.default_rng(seed + 3).integers(0, cfg.vocab_size, (4, 16))
+    run = lambda: generate(params, cfg, prompts, max_new_tokens=8, temperature=0.8, top_k=50,
+                           qcfg=qcfg, seed=seed)
+    a, b = run(), run()
+    if a.shape != (4, 24) or not (a[:, :16] == prompts).all():
+        raise AssertionError(f"generate returned {a.shape}, not the prompts + 8 tokens")
+    if int(a.min()) < 0 or int(a.max()) >= cfg.vocab_size or not (a == b).all():
+        raise AssertionError("generate: tokens out of range, or one seed gave two outputs")
+    return a[:, 16:].tolist()
+
+
+def _slice_numbers(s):
+    prof = s["profile"]
+    return {"ttft_ms": s["ttft_ms"], "decode_tok_s": s["decode_tok_s"],
+            "peak_mem_gib": s["peak_mem_gib"],
+            "device_busy_ms_per_step": prof.get("device_busy_ms_per_step"),
+            "wall_ms_per_step": prof["wall_ms_per_step"]}
 
 
 def main() -> int:
@@ -481,23 +614,46 @@ def main() -> int:
 
     cases = phase_kernels(args.seed)
 
-    checked, total, max_err = check_reduced_depth(args.seed)
-    log(f"reduced depth (2 layers, full width): {checked}/{total} kernel-path tokens with "
-        f"a plain top-2 gap > 0.1 equal the plain path's; max |logit diff| {max_err:.4g}")
+    w4a8_kernels = [k for k in TPU_KERNELS if SLICE_OF[k] == "w4a8"]
+    for label, serving, names in (("W4A8", W4A8, w4a8_kernels),
+                                  ("weight-only int4-g128 zp", WEIGHT_ONLY, ["B5_dequant_matmul"]),
+                                  ("weight-only fp8-e4m3-g128", WEIGHT_ONLY_FP8,
+                                   ["B5_dequant_matmul"])):
+        checked, total, max_err = check_reduced_depth(args.seed, serving, names)
+        log(f"reduced depth {label} (2 layers, full width): {checked}/{total} kernel-path "
+            f"tokens with a plain top-2 gap > 0.1 equal the plain path's; max |logit diff| "
+            f"{max_err:.4g}")
 
-    s = phase_slice(args.seed)
-    log(f"slice: Llama-3.2-1B W4A8, {LAYERS} layers, batch {BATCH}, prompt {PROMPT}, "
-        f"max_len {MAX_LEN}: prefill (TTFT) {s['ttft_ms']:.2f} ms, {STEPS} decode steps "
-        f"{s['decode_ms']:.2f} ms = {s['decode_tok_s']:.1f} tok/s, peak memory "
-        f"{s['peak_mem_gib']:.2f} GiB on {smi}; launches {s['counts']}")
-    log(f"decode profile (2 steps, torch.profiler): {json.dumps(s['profile'])}")
+    slices = {}
+    for key, label, serving, names in (
+            ("w4a8", "Llama-3.2-1B W4A8, int8 KV cache", W4A8, w4a8_kernels),
+            ("weight_only", "Llama-3.2-1B weight-only int4-g128 zp + int8-g128 head, bf16 KV "
+             "cache", WEIGHT_ONLY, ["B5_dequant_matmul"])):
+        s = phase_slice(args.seed, serving, names)
+        log(f"slice {key}: {label}, {LAYERS} layers, batch {BATCH}, prompt {PROMPT}, "
+            f"max_len {MAX_LEN}: prefill (TTFT) {s['ttft_ms']:.2f} ms, {STEPS} decode steps "
+            f"{s['decode_ms']:.2f} ms = {s['decode_tok_s']:.1f} tok/s, peak memory "
+            f"{s['peak_mem_gib']:.2f} GiB on {smi}; launches {s['counts']}, per decode step "
+            f"{s['per_step']}")
+        log(f"slice {key} decode profile (2 steps, torch.profiler): {json.dumps(s['profile'])}")
+        if key == "weight_only":
+            if s["per_step"]["dequant_matmul"] != B5_PER_STEP:
+                raise AssertionError(f"B5 launched {s['per_step']['dequant_matmul']} times per "
+                                     f"decode step, not {B5_PER_STEP}")
+            sampled = check_generate(s["params"], s["cfg"], s["qcfg"], args.seed)
+            log(f"generate (weight-only, 4 prompts, top_k 50, temperature 0.8, seed "
+                f"{args.seed}, twice, equal): {sampled}")
+        del s["params"]
+        torch.cuda.empty_cache()
+        slices[key] = s
 
     metrics = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for kname, cs in cases.items():
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],
-            "replaces": TPU_KERNELS[kname], "launches": s["counts"][COUNTER_OF[kname]],
+            "replaces": TPU_KERNELS[kname],
+            "launches": slices[SLICE_OF[kname]]["counts"][COUNTER_OF[kname]],
             **{k: cs[0][k] for k in metrics}, "case": cs[0]["case"],
             "other_cases": [{"case": c["case"], **{k: c[k] for k in metrics}}
                             for c in cs[1:]],
@@ -505,12 +661,9 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
-    prof = s["profile"]
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count},
-                      "slice": {"ttft_ms": s["ttft_ms"], "decode_tok_s": s["decode_tok_s"],
-                                "peak_mem_gib": s["peak_mem_gib"],
-                                "device_busy_ms_per_step": prof.get("device_busy_ms_per_step"),
-                                "wall_ms_per_step": prof["wall_ms_per_step"]}}), flush=True)
+    print(json.dumps({"slices": {k: _slice_numbers(v) for k, v in slices.items()}}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),
+          flush=True)
     return 0
 
 

@@ -1,7 +1,9 @@
 """Parameters of the JAX package, handed over as numpy, into the port's form.
 
 The input is the JAX params tree with every array as a numpy array
-(bfloat16 arrives as ``ml_dtypes.bfloat16``). A packed QTensor arrives as
+(bfloat16 and the fp8 codes arrive as ``ml_dtypes`` types, which
+``torch.from_numpy`` rejects: they cross as same-width integer views and
+are viewed back as the torch type). A packed QTensor arrives as
 a dict of its fields: ``codes``, ``scales``, ``zeros`` (or None),
 ``shape``, ``blocked_shape``, ``group_axis``, ``ngroups_axis``,
 ``pair_planes``, ``dtype`` (a name such as "float32") and ``qspec``, its
@@ -20,10 +22,17 @@ from .qformats.config import parse_qspec
 from .qformats.qtensor import QTensor
 
 
+# ml_dtypes names -> (integer view of the same width, torch dtype)
+_VIEWED = {"bfloat16": (np.int16, torch.bfloat16),
+           "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+           "float8_e5m2": (np.uint8, torch.float8_e5m2)}
+
+
 def tensor_from_numpy(a, device) -> torch.Tensor:
     a = np.array(a, order="C")  # a writable copy (JAX hands out read-only views)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    if a.dtype.name in _VIEWED:
+        as_int, dt = _VIEWED[a.dtype.name]
+        return torch.from_numpy(a.view(as_int)).view(dt).to(device)
     return torch.from_numpy(a).to(device)
 
 

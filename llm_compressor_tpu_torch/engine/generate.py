@@ -1,15 +1,22 @@
-"""Prefill and greedy decode over the int8 KV cache (port of
+"""Prefill, decode and sampling over the KV cache (port of
 ``engine/generate.py``: ``prefill`` :1009, ``decode_step`` :1019,
-``decode_greedy_steps`` :1029).
+``decode_greedy_steps`` :1029, ``_sample`` :1089, ``generate`` :1099).
 
-* Prefill (T > 1) runs the attention in plain PyTorch, as the JAX package
-  runs it in XLA: the whole cache window is dequantized and the QK / SV
-  activation quantizers are applied as configured (``_cached_attention``).
-* Decode (T = 1) runs the int8-codes attention of the W4A8 serving config
-  through the fused-append kernel B4, which writes the token's K/V codes in
-  place and attends over the slot's window. The JAX package decodes the
-  same tokens and cache codes whether new tokens go to a side block or
-  straight into the cache; the port writes in place.
+Attention per layer, chosen as the JAX package's ``_cached_attention``
+chooses it:
+
+* Decode (T = 1) over an int8 cache whose attention matmuls both take
+  symmetric int8 per-token inputs (:func:`acts_mode` True, the W4A8
+  serving config) runs the int8-codes attention through the fused-append
+  kernel B4, which writes the token's K/V codes in place and attends over
+  the slot's window. The JAX package decodes the same tokens and cache
+  codes whether new tokens go to a side block or straight into the cache.
+* Everything else — prefill, and decode over a bf16 cache or with other
+  attention quantizers — writes K/V into the cache (at ``start`` for
+  prefill, at each slot's length for decode) and runs grouped-query float
+  attention in plain PyTorch over the whole cache window, applying the QK /
+  SV activation quantizers as configured (JAX :306-363, which runs it
+  outside any Pallas kernel).
 
 The decode loop is a Python loop over steps and layers; a CUDA graph is
 later work (ROADMAP.md).
@@ -19,6 +26,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..kernels.decode_attention import decode_attention_append
@@ -36,27 +44,37 @@ from ..models.transformer import (
     rope_for_positions,
 )
 from ..qformats import QuantConfig
-from .kvcache import KVCache, _quant_i8, append_prefill, read
+from .kvcache import KVCache, _quant_i8, append_decode, append_prefill, init_cache, read
 
 
-def int8_attention(ops: Optional[LayerOps]) -> bool:
-    """Both attention matmuls take symmetric int8 per-token inputs and no
-    output quantizer: the int8-codes attention of kernel B4 (the JAX
-    package's ``acts_mode`` True)."""
-    return ops is not None and all(
-        int8_per_token(op.act_in) and op.act_out.qtype == "dummy" for op in (ops.qk, ops.sv))
+def acts_mode(qk_op, sv_op):
+    """The decode-attention mode of the attention-matmul quantizers: False
+    when neither matmul quantizes its inputs (exact float attention), True
+    when both take symmetric int8 per-token inputs and no output quantizer
+    (int8-codes attention), None otherwise (float attention with the
+    quantizers applied as configured)."""
+    def kind(op):
+        if op is None or op.act_in.qtype == "dummy":
+            return "none"
+        if int8_per_token(op.act_in) and op.act_out.qtype == "dummy":
+            return "i8"
+        return "other"
+
+    k1, k2 = kind(qk_op), kind(sv_op)
+    if k1 == "none" and k2 == "none":
+        return False
+    if k1 == "i8" and k2 == "i8":
+        return True
+    return None
 
 
-def _prefill_attention(lp, cfg: ModelConfig, layer: int, x, cache: KVCache,
-                       ops: Optional[LayerOps], cos, sin, mask):
-    """Attention of a (B, T, E) prompt slice: write its K/V codes into the
-    cache, then attend over the dequantized window with the activation
-    quantizers as configured (JAX ``_cached_attention``, T > 1)."""
+def _float_attention(cfg: ModelConfig, layer: int, x, q, cache: KVCache,
+                     ops: Optional[LayerOps], mask):
+    """Grouped-query attention of q (B, T, H, D) over the layer's whole
+    cache window, without the KV -> H broadcast (JAX :306-363)."""
     B, T, _ = x.shape
     H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     r = H // KV
-    q, k, v = project_qkv(lp, cfg, x, ops, cos, sin)
-    append_prefill(cache, layer, k, v, 0)
     K, V = read(cache, layer, x.dtype)                     # (B, KV, S, D)
     S = K.shape[2]
     # the r query heads of a kv head as (r * T) rows; every quantizer here
@@ -67,16 +85,14 @@ def _prefill_attention(lp, cfg: ModelConfig, layer: int, x, cache: KVCache,
     probs = torch.softmax(scores, dim=-1).to(x.dtype).reshape(B, KV, r * T, S)
     out = qmatmul_sv(probs, V, ops.sv if ops is not None else None)
     out = out.reshape(B, KV, r, T, D).permute(0, 3, 1, 2, 4).reshape(B, T, H * D)
-    out = out.to(x.dtype)
-    return qlinear(out, lp["attn"]["o"]["weight"], None, ops.get("o") if ops else None)
+    return out.to(x.dtype)
 
 
-def _decode_attention(lp, cfg: ModelConfig, layer: int, x, cache: KVCache,
-                      ops: LayerOps, cos, sin):
-    """int8-codes attention of one new token per slot through kernel B4."""
-    B = x.shape[0]
+def _i8_decode_attention(cfg: ModelConfig, layer: int, q, k, v, cache: KVCache):
+    """int8-codes attention of one new token per slot through kernel B4,
+    which also writes the token's codes at each slot's length."""
+    B = q.shape[0]
     H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = project_qkv(lp, cfg, x, ops, cos, sin)
     kc, ks = _quant_i8(k)                                  # (B, KV, 1, D), (B, KV, 1)
     vc, vs = _quant_i8(v)
     out = decode_attention_append(
@@ -85,8 +101,25 @@ def _decode_attention(lp, cfg: ModelConfig, layer: int, x, cache: KVCache,
         ks[:, :, 0].contiguous(), vs[:, :, 0].contiguous(),
         cache.k[layer], cache.v[layer], cache.k_scale[layer], cache.v_scale[layer],
         cache.lengths, scale=cfg.attn_scale)
-    out = out.to(x.dtype).reshape(B, 1, H * D)             # head h = kv * r + j
-    return qlinear(out, lp["attn"]["o"]["weight"], None, ops.get("o"))
+    return out.reshape(B, 1, H * D)                        # head h = kv * r + j
+
+
+def _cached_attention(lp, cfg: ModelConfig, layer: int, x, cache: KVCache,
+                      ops: Optional[LayerOps], cos, sin, mask, start: Optional[int]):
+    """Attention of a (B, T, E) slice: ``start`` set is prefill (K/V written
+    at [start, start + T) of every slot), ``start`` None is decode (at each
+    slot's length). Routed as the module doc says."""
+    q, k, v = project_qkv(lp, cfg, x, ops, cos, sin)
+    qk, sv = (ops.qk, ops.sv) if ops is not None else (None, None)
+    if start is None and cache.quantized and x.shape[1] == 1 and acts_mode(qk, sv) is True:
+        out = _i8_decode_attention(cfg, layer, q, k, v, cache).to(x.dtype)
+    else:
+        if start is None:
+            append_decode(cache, layer, k, v, cache.lengths)
+        else:
+            append_prefill(cache, layer, k, v, start)
+        out = _float_attention(cfg, layer, x, q, cache, ops, mask)
+    return qlinear(out, lp["attn"]["o"]["weight"], None, ops.get("o") if ops else None)
 
 
 def _layer(lp, cfg: ModelConfig, x, ops, attend):
@@ -96,44 +129,46 @@ def _layer(lp, cfg: ModelConfig, x, ops, attend):
     return x + mlp(lp, cfg, apply_norm(cfg, x, lp["ln2"]), ops)
 
 
-@torch.inference_mode()
-def prefill(params, tokens: torch.Tensor, cache: KVCache, *, cfg: ModelConfig,
-            qcfg: Optional[QuantConfig] = None):
-    """Encode the prompt (B, T) into ``cache`` (in place); returns the
-    last-position logits (B, V) f32 and the cache."""
+def _forward_cached(params, cfg: ModelConfig, tokens, cache: KVCache, qcfg,
+                    start: Optional[int]):
+    """Hidden states (B, T, E) of ``tokens`` at positions [start, start + T)
+    (prefill) or at each slot's length (decode, ``start`` None), writing
+    their K/V into ``cache``."""
     B, T = tokens.shape
-    positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
-    kv_pos = torch.arange(cache.max_len, device=tokens.device)[None, :].expand(B, -1)
+    dev = tokens.device
+    if start is None:
+        positions = cache.lengths.long()[:, None] + torch.arange(T, device=dev)[None, :]
+    else:
+        positions = (start + torch.arange(T, device=dev))[None, :].expand(B, T)
+    kv_pos = torch.arange(cache.max_len, device=dev)[None, :].expand(B, -1)
     h = embed(params, cfg, tokens)
     cos, sin = rope_for_positions(cfg, positions)
     mask = causal_mask(positions, kv_pos)
     for i, lp in iter_layers(params):
         ops = layer_ops(cfg, qcfg, i)
-        h = _layer(lp, cfg, h, ops, lambda xn: _prefill_attention(
-            lp, cfg, i, xn, cache, ops, cos, sin, mask))
+        h = _layer(lp, cfg, h, ops, lambda xn: _cached_attention(
+            lp, cfg, i, xn, cache, ops, cos, sin, mask, start))
+    return h
+
+
+@torch.inference_mode()
+def prefill(params, tokens: torch.Tensor, cache: KVCache, *, cfg: ModelConfig,
+            qcfg: Optional[QuantConfig] = None):
+    """Encode the prompt (B, T) into ``cache`` (in place); returns the
+    last-position logits (B, V) f32 and the cache."""
+    h = _forward_cached(params, cfg, tokens, cache, qcfg, start=0)
     logits = head(params, cfg, h[:, -1:, :], qcfg)
-    cache.lengths.fill_(T)
+    cache.lengths.fill_(tokens.shape[1])
     return logits[:, -1, :], cache
 
 
-def _check_decode(params, cfg: ModelConfig, cache: KVCache, qcfg, n: int) -> None:
-    for i in range(cfg.num_layers):
-        if not int8_attention(layer_ops(cfg, qcfg, i)):
-            raise NotImplementedError(
-                "decode is ported for the int8 per-token attention config only "
-                "(the W4A8 serving path): ROADMAP.md queue A item 5")
+def _check_decode(cache: KVCache, n: int) -> None:
     if int(cache.lengths.max()) + n > cache.max_len:
         raise ValueError(f"{n} decode steps overrun the cache (max_len {cache.max_len})")
 
 
 def _decode_one(params, token, cache: KVCache, cfg: ModelConfig, qcfg):
-    positions = cache.lengths.long()[:, None]
-    h = embed(params, cfg, token)
-    cos, sin = rope_for_positions(cfg, positions)
-    for i, lp in iter_layers(params):
-        ops = layer_ops(cfg, qcfg, i)
-        h = _layer(lp, cfg, h, ops, lambda xn: _decode_attention(
-            lp, cfg, i, xn, cache, ops, cos, sin))
+    h = _forward_cached(params, cfg, token, cache, qcfg, start=None)
     logits = head(params, cfg, h, qcfg)
     cache.lengths += 1
     return logits[:, -1, :]
@@ -144,7 +179,7 @@ def decode_step(params, token: torch.Tensor, cache: KVCache, *, cfg: ModelConfig
                 qcfg: Optional[QuantConfig] = None):
     """One token per slot (B, 1) -> (logits (B, V) f32, cache); the cache is
     updated in place."""
-    _check_decode(params, cfg, cache, qcfg, 1)
+    _check_decode(cache, 1)
     return _decode_one(params, token, cache, cfg, qcfg), cache
 
 
@@ -154,10 +189,57 @@ def decode_greedy_steps(params, token: torch.Tensor, cache: KVCache, *, n: int,
     """``n`` greedy decode steps -> (tokens (B, n) int32, cache).
     ``tokens[:, i]`` is the argmax after consuming ``token`` and ``i``
     generated predecessors."""
-    _check_decode(params, cfg, cache, qcfg, n)
+    _check_decode(cache, n)
     out = []
     for _ in range(n):
         logits = _decode_one(params, token, cache, cfg, qcfg)
         token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         out.append(token)
     return torch.cat(out, dim=1), cache
+
+
+def top_k_filter(logits: torch.Tensor, top_k: Optional[int]) -> torch.Tensor:
+    """Logits below the k-th largest of their row set to -inf (ties at the
+    k-th value kept), as the JAX ``_sample`` does."""
+    if top_k is None:
+        return logits
+    kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
+    return torch.where(logits < kth, torch.full_like(logits, float("-inf")), logits)
+
+
+def _sample(logits: torch.Tensor, temperature: float, top_k: Optional[int],
+            generator: torch.Generator) -> torch.Tensor:
+    """Reference sampling semantics: top-k filter, then a draw from
+    softmax(logits / temperature), or the argmax at temperature 0. The
+    draws come from ``generator`` (not the JAX package's random bits)."""
+    logits = top_k_filter(logits, top_k)
+    if temperature > 0.0:
+        probs = torch.softmax(logits.float() / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return torch.argmax(logits, dim=-1)
+
+
+def generate(params, cfg: ModelConfig, prompt_tokens: np.ndarray, max_new_tokens: int = 100,
+             temperature: float = 0.0, top_k: Optional[int] = None,
+             eos_id: Optional[int] = None, qcfg: Optional[QuantConfig] = None,
+             quantized_kv: bool = False, seed: int = 0) -> np.ndarray:
+    """Autoregressive generation with a KV cache on the params' device (a
+    bf16 cache, or int8 with ``quantized_kv``). Returns prompt + generated
+    tokens (B, T_out) int32; stops early when slot 0 samples ``eos_id``."""
+    dev = params["embed"]["weight"].device
+    prompt_tokens = np.asarray(prompt_tokens, dtype=np.int32)
+    B, T = prompt_tokens.shape
+    cache = init_cache(cfg.num_layers, B, T + max_new_tokens, cfg.num_kv_heads, cfg.head_dim,
+                       quantized=quantized_kv, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    logits, cache = prefill(params, torch.from_numpy(prompt_tokens).to(dev), cache,
+                            cfg=cfg, qcfg=qcfg)
+    out = [prompt_tokens]
+    for _ in range(max_new_tokens):
+        nxt = _sample(logits, temperature, top_k, gen).to(torch.int32)
+        nxt_np = nxt.cpu().numpy()
+        if eos_id is not None and int(nxt_np[0]) == eos_id:
+            break
+        out.append(nxt_np[:, None])
+        logits, cache = decode_step(params, nxt[:, None], cache, cfg=cfg, qcfg=qcfg)
+    return np.concatenate(out, axis=1)

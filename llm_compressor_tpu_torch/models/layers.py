@@ -6,10 +6,14 @@ in_features) orientation; they arrive as plain tensors, packed
 :class:`~..qformats.QTensor` or a :class:`LayerSlice` of a stacked one.
 
 :func:`qlinear` keeps the JAX package's routing so that numbers match:
-* a LayerSlice with M <= 256 rows -> the stacked W4A8 kernel (B1);
+* a LayerSlice with int8 per-token acts and M <= 256 rows -> the stacked
+  W4A8 kernel (B1); any other LayerSlice is taken as its layer's QTensor
+  (a view);
 * a QTensor with int8 per-token acts and (M <= 256 or C/g <= 16) -> the
   flat W4A8 kernel (B3);
-* otherwise (prefill with deep K) -> plain dequantization + torch.matmul.
+* otherwise the acts are quantized as configured, then M > 256 rows
+  (prefill) -> plain dequantization + torch.matmul, and M <= 256 -> the
+  dequantize-in-kernel matmul (B5; weight-only serving).
 The thresholds were measured on a TPU; re-tuning them for the H100 is
 later work (ROADMAP.md).
 """
@@ -22,6 +26,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..kernels import dequant_matmul as dm
 from ..kernels import w4a8_matmul as wm
 from ..qformats import ElemFormat, QTensor, Quantizer, dequantize, quantize_dequant
 from ..qformats.config import OpQuantConfig
@@ -144,19 +149,18 @@ def qlinear(x, weight, bias=None, op: Optional[OpQuantConfig] = None):
         elif int8_per_token(ai) and wm.supported(weight) and (
                 m_rows <= 256 or _groups(weight) <= 16):
             y = wm.w4a8_matmul(x, weight, bias)
-        elif m_rows > 256:
-            # prefill with deep K: one dequantization feeds a plain matmul
-            # (float32 accumulation in both backends), as the JAX package
-            # leaves it to XLA
-            x = maybe_quant(ai, x)
-            w = dequantize(weight).to(x.dtype)
-            y = torch.matmul(x, w.t())
-            if bias is not None:
-                y = y + bias.to(y.dtype)
         else:
-            raise NotImplementedError(
-                "small-M packed matmul without int8 per-token acts needs the "
-                "dequant-matmul kernel B5: ROADMAP.md queue B item 5")
+            x = maybe_quant(ai, x)
+            if m_rows > 256:
+                # prefill: one dequantization feeds a plain matmul (float32
+                # accumulation in both backends), as the JAX package leaves
+                # it to XLA
+                w = dequantize(weight).to(x.dtype)
+                y = torch.matmul(x, w.t())
+                if bias is not None:
+                    y = y + bias.to(y.dtype)
+            else:
+                y = dm.dequant_matmul(x, weight, bias)
     else:
         x = maybe_quant(ai, x)
         y = torch.matmul(x, weight.t())

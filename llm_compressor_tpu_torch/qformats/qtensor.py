@@ -9,12 +9,18 @@ moves between the two unchanged:
   element j of group 2t in its low nibble and element j of group 2t+1 in
   its high nibble. Odd group counts keep the "group halves" layout: byte i
   of a group holds elements (i, i + g/2).
+* fp8 codes are ``torch.float8_e4m3fn`` / ``torch.float8_e5m2`` (one value
+  per byte).
 * Storage is flat: codes for an (N, C) weight are (N, C/2) uint8 or (N, C)
-  int8; ``scales`` / ``zeros`` are (N, G) float32. The stacked serving
-  form adds a leading layer axis to every array.
+  int8 / fp8; ``scales`` / ``zeros`` are (N, G) float32. The stacked
+  serving form adds a leading layer axis to every array.
+* ``zeros``: the int formats keep them only with a zero point (in the
+  quantized domain, subtracted); the fp formats always keep them (a
+  real-domain midpoint, added; all zero without a zero point), as the JAX
+  package does.
 
-Only the int formats are ported; fp8/fp4/MX codes are queued in
-ROADMAP.md (queue A item 2).
+fp4 e2m1, MX and NVFP4 codes are queued in ROADMAP.md (queue A item 2);
+fp4 fake quantization is ported.
 """
 
 from __future__ import annotations
@@ -27,7 +33,10 @@ import torch
 
 from .blocking import BlockMeta, unblock
 from .formats import ElemFormat
+from .numerics import quantize_elemwise
 from .quantize import Quantizer, _check_ported, block_for, find_params_blocked
+
+FP8_DTYPES = {ElemFormat.fp8_e4m3: torch.float8_e4m3fn, ElemFormat.fp8_e5m2: torch.float8_e5m2}
 
 
 @dataclass
@@ -116,28 +125,41 @@ def _flatten_groups(arr: torch.Tensor, a: int) -> torch.Tensor:
     return arr.reshape(tuple(s[:a]) + (s[a] * s[a + 1],) + tuple(s[a + 2:]))
 
 
+def _check_packable(q: Quantizer) -> None:
+    _check_ported(q)
+    if q.qtype == "fp" and q.fmt not in FP8_DTYPES:
+        raise NotImplementedError(
+            f"{q.fmt.value} codes are not packed yet: ROADMAP.md queue A item 2")
+
+
 def quantize_pack(q: Quantizer, x: torch.Tensor) -> QTensor:
     """Quantize ``x`` into a packed :class:`QTensor`, the group parameters
     solved from ``x``."""
-    _check_ported(q)
+    _check_packable(q)
     xb, meta, axes = block_for(q, x)
     if meta is None:
         raise NotImplementedError("per-tensor packing: use group_size=-1/-2/N")
     scales, zeros = find_params_blocked(q, xb, axes)
     intra_axis = axes % xb.dim()
     pairs = pair_planes_for(q, xb.shape[meta.axis], xb.shape[intra_axis])
-    qmax = float(q.params.int_max)
     z = zeros if zeros is not None else 0.0
-    qv = torch.clamp(torch.round(xb.float() / scales + z), -qmax, qmax)
-    if q.fmt == ElemFormat.int8:
-        codes = qv.to(torch.int8)
-    elif pairs:
-        codes = _pack_nibbles_pairs((qv + 8.0).to(torch.uint8), meta.axis)
+    if q.qtype == "fp":
+        qv = quantize_elemwise((xb.float() - z) / scales, q.params, round="nearest",
+                               saturate_normals=True)
+        codes = qv.to(FP8_DTYPES[q.fmt])
     else:
-        codes = _pack_nibbles((qv + 8.0).to(torch.uint8), intra_axis)
+        qmax = float(q.params.int_max)
+        qv = torch.clamp(torch.round(xb.float() / scales + z), -qmax, qmax)
+        if q.fmt == ElemFormat.int8:
+            codes = qv.to(torch.int8)
+        elif pairs:
+            codes = _pack_nibbles_pairs((qv + 8.0).to(torch.uint8), meta.axis)
+        else:
+            codes = _pack_nibbles((qv + 8.0).to(torch.uint8), intra_axis)
 
     scales32 = scales.float()
-    zeros32 = None if zeros is None or not q.zero_point else zeros.float()
+    keep_zeros = zeros is not None and (q.qtype != "int" or q.zero_point)
+    zeros32 = zeros.float() if keep_zeros else None
     a = meta.axis
     return QTensor(
         codes=_flatten_groups(codes, a).contiguous(),
@@ -172,17 +194,21 @@ def unpack_int_codes(qt: QTensor) -> torch.Tensor:
 
 
 def dequantize(qt: QTensor) -> torch.Tensor:
-    """Plain dequantization (the kernels fuse this into the matmul)."""
+    """Plain dequantization: (code - z) * s for the int formats, code * s
+    + z for the fp formats, in f32, cast to ``qt.dtype`` (the kernels fuse
+    this into the matmul with their own roundings)."""
     q = qt.quantizer
-    _check_ported(q)
+    _check_packable(q)
     a = qt.ngroups_axis
     ss = qt.scales.shape
     G = ss[a]
-    qv = unpack_int_codes(qt).float()
-    scales_b = qt.scales.reshape(tuple(ss[:a]) + (G, 1) + tuple(ss[a + 1:]))
-    z = (0.0 if qt.zeros is None
-         else qt.zeros.reshape(tuple(ss[:a]) + (G, 1) + tuple(ss[a + 1:])))
-    vals = (qv - z) * scales_b
+    grouped = lambda t: t.reshape(tuple(ss[:a]) + (G, -1) + tuple(ss[a + 1:]))
+    scales_b = grouped(qt.scales)
+    z = 0.0 if qt.zeros is None else grouped(qt.zeros)
+    if q.qtype == "fp":
+        vals = grouped(qt.codes).float() * scales_b + z
+    else:
+        vals = (unpack_int_codes(qt).float() - z) * scales_b
     blocked = tuple(vals.shape)
     padded = math.prod(qt.blocked_shape) != math.prod(qt.shape)
     orig_len = qt.shape[a] if padded else blocked[a] * blocked[a + 1]

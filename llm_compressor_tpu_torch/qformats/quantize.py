@@ -5,8 +5,11 @@ A quantizer is a frozen, hashable :class:`Quantizer` spec plus plain
 functions over tensors. Integer formats follow the reference numerics: the
 restrictive range +-7 / +-127, round-half-even value rounding, scales
 clamped at ``SCALE_EPS``, math in float32 and the result cast back to the
-input dtype. The fp/MX/NVFP solvers and the MSE clip search are not ported
-yet (ROADMAP.md, queue A items 2 and 9).
+input dtype. Float formats (``qtype="fp"``: fp8 e4m3 / e5m2, fp4 e2m1) scale
+by absmax / max_norm (or a min-max midpoint zero point in the real domain)
+and round through :func:`~.numerics.quantize_elemwise`. The MX / NVFP
+solvers and the MSE clip search are not ported yet (ROADMAP.md, queue A
+items 2 and 9).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 
 from .blocking import BlockMeta, block, resolve_group, unblock
 from .formats import ElemFormat, FormatParams, format_params
+from .numerics import quantize_elemwise
 
 SCALE_EPS = 1e-5
 
@@ -72,7 +76,7 @@ class Quantizer:
 
 
 def _check_ported(q: Quantizer) -> None:
-    if q.qtype != "int":
+    if q.qtype not in ("int", "fp"):
         raise NotImplementedError(
             f"{q.qtype} quantizers are not ported yet: ROADMAP.md queue A item 2")
 
@@ -102,11 +106,29 @@ def _solve_int(q: Quantizer, max_val, min_val):
     return scales, zeros
 
 
+def _solve_fp(q: Quantizer, max_val, min_val):
+    p = q.params
+    if q.zero_point:
+        scales = (max_val - min_val) / (2.0 * p.max_norm)
+        zeros = (max_val + min_val) / 2.0
+    else:
+        scales = max_val / p.max_norm
+        zeros = torch.zeros_like(scales)
+    return scales, zeros
+
+
+_SOLVERS = {"int": _solve_int, "fp": _solve_fp}
+
+
 def fake_quantize_blocked(q: Quantizer, xb, scales, zeros):
     """Quantize-dequantize a blocked array with given group params."""
     if q.qtype == "dummy":
         return xb
     _check_ported(q)
+    if q.qtype == "fp":
+        x32 = (xb.float() - zeros) / scales
+        qv = quantize_elemwise(x32, q.params, round="nearest", saturate_normals=True)
+        return (qv * scales + zeros).to(xb.dtype)
     q_max = float(q.params.int_max)
     qv = torch.clamp(torch.round(xb.float() / scales + zeros), -q_max, q_max)
     return ((qv - zeros) * scales).to(xb.dtype)
@@ -116,7 +138,7 @@ def find_params_blocked(q: Quantizer, xb, axes):
     """Solve (scales, zeros) for an already-blocked array; reduce over ``axes``."""
     _check_ported(q)
     max_val, min_val = _minmax(q, xb, axes)
-    scales, zeros = _solve_int(q, max_val, min_val)
+    scales, zeros = _SOLVERS[q.qtype](q, max_val, min_val)
     return torch.clamp_min(scales, SCALE_EPS), zeros
 
 

@@ -20,6 +20,8 @@ Tolerances:
 * cache scales: rtol 1e-5 (same cause).
 """
 
+import importlib
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -31,7 +33,9 @@ from llm_compressor_tpu import models as jm
 from llm_compressor_tpu.engine import decode_greedy_steps as j_greedy, init_cache as j_init
 from llm_compressor_tpu.engine import prefill as j_prefill
 from llm_compressor_tpu.engine import kvcache as jkv
+from llm_compressor_tpu.engine.generate import _sample as j_sample
 from llm_compressor_tpu.engine.generate import decode_step as j_step
+from llm_compressor_tpu.engine.generate import generate as j_generate
 from llm_compressor_tpu.qformats import build_quant_config as jbuild
 from llm_compressor_tpu_torch import engine as te
 from llm_compressor_tpu_torch import models as tm
@@ -40,6 +44,9 @@ from llm_compressor_tpu_torch.engine import kvcache as tkv
 from llm_compressor_tpu_torch.engine.kvcache import to_jax_layout
 from llm_compressor_tpu_torch.qformats import build_quant_config as tbuild
 from torch_port_util import jax_to_numpy, one_torch_thread  # noqa: F401
+
+# the engine package re-exports ``generate`` under the module's name
+tgen = importlib.import_module("llm_compressor_tpu_torch.engine.generate")
 
 CFG = dict(hidden_size=256, intermediate_size=512, num_heads=4, num_kv_heads=2,
            head_dim=64, num_layers=2, vocab_size=512)
@@ -78,7 +85,7 @@ def slice_runs():
         tok = jnp.argmax(logits, -1).astype(jnp.int32)[:, None]
 
     tcache = te.init_cache(tcfg.num_layers, B, MAX_LEN, tcfg.num_kv_heads, tcfg.head_dim,
-                           device="cpu")
+                           quantized=True, device="cpu")
     t_logits, tcache = te.prefill(tp, torch.from_numpy(toks), tcache, cfg=tcfg, qcfg=tq)
     ttok0 = torch.argmax(t_logits, -1).to(torch.int32)[:, None]
     t_toks, tcache = te.decode_greedy_steps(tp, ttok0, tcache, n=N_STEPS, cfg=tcfg, qcfg=tq)
@@ -152,3 +159,225 @@ def test_kv_layout_round_trip():
     back = tkv.from_jax_layout(**j, device="cpu")
     for name in ("k", "v", "k_scale", "v_scale", "lengths"):
         assert torch.equal(getattr(back, name), getattr(cache, name))
+
+
+# ---------------------------------------------------------------------------
+# The weight-only slice: zero-point int4 weights without act quantizers, an
+# int8-g128 lm_head, a bf16 KV cache. Every projection of prefill (M = 12)
+# and decode goes through B5 — on the JAX side the Pallas kernel in
+# interpret mode, in the port its plain version — and the attention is
+# exact float attention over the bf16 window.
+#
+# Tolerances:
+# * tokens: equal, with the JAX logits' top-2 gap asserted above 1e-3.
+# * prefill logits: one bf16 ulp of the largest logit, 2**-7 * max|logit|.
+#   B5 rounds its f32 input to bf16, so an f32 summation-order difference
+#   upstream can move an input element across a bf16 rounding boundary,
+#   which moves the outputs by |w| times that element's bf16 ulp.
+# * bf16 cache: equal after conversion, outside at most 0.1 % of entries
+#   that may sit one bf16 ulp apart (a k/v value whose f32 sums differ in
+#   order can cross a bf16 rounding boundary). The f32 model's B5 returns
+#   f32 k/v, summed in another order by the interpret-mode kernel and by the
+#   plain version; test_weight_only_bf16_cache_bitwise_in_one_sum_order
+#   shows that with one summation order on both sides the cache is bitwise
+#   equal.
+# ---------------------------------------------------------------------------
+
+WO_QARGS = ("int4-g[128]-zp-rw", None, None, "int8-g[128]-rw")
+
+
+@pytest.fixture(scope="module")
+def wo_runs():
+    jcfg, tcfg = jm.tiny_config("llama", **CFG), tm.tiny_config("llama", **CFG)
+    jq, tq = jbuild(*WO_QARGS), tbuild(*WO_QARGS)
+    p = jm.init_params(jcfg, jax.random.PRNGKey(1))
+    jalg.rtn(p, jcfg, jq, verbose=False)
+    jalg.pack_model(p, jcfg, jq)
+    tp = tm.stack_model(tm.fuse_model(params_from_numpy(jax_to_numpy(p), "cpu"), tcfg, tq))
+    p = jm.stack_model(jm.fuse_model(p, jcfg, jq))
+    toks = np.random.default_rng(6).integers(0, jcfg.vocab_size, (B, T)).astype(np.int32)
+
+    cache = j_init(jcfg.num_layers, B, MAX_LEN, jcfg.num_kv_heads, jcfg.head_dim)
+    j_logits, cache = j_prefill(p, jnp.asarray(toks), cache, cfg=jcfg, qcfg=jq)
+    tok0 = jnp.argmax(j_logits, -1).astype(jnp.int32)[:, None]
+    gaps = [np.asarray(j_logits)]
+    c2 = jax.tree_util.tree_map(jnp.copy, cache)
+    tok = tok0
+    for _ in range(N_STEPS - 1):
+        logits, c2 = j_step(p, tok, c2, cfg=jcfg, qcfg=jq)
+        gaps.append(np.asarray(logits))
+        tok = jnp.argmax(logits, -1).astype(jnp.int32)[:, None]
+    j_toks, j_cache = j_greedy(p, tok0, cache, n=N_STEPS, cfg=jcfg, qcfg=jq)
+    j_gen = j_generate(p, jcfg, toks, max_new_tokens=N_STEPS, qcfg=jq)
+
+    tcache = te.init_cache(tcfg.num_layers, B, MAX_LEN, tcfg.num_kv_heads, tcfg.head_dim,
+                           device="cpu")
+    t_logits, tcache = te.prefill(tp, torch.from_numpy(toks), tcache, cfg=tcfg, qcfg=tq)
+    ttok0 = torch.argmax(t_logits, -1).to(torch.int32)[:, None]
+    t_toks, tcache = te.decode_greedy_steps(tp, ttok0, tcache, n=N_STEPS, cfg=tcfg, qcfg=tq)
+    t_gen = te.generate(tp, tcfg, toks, max_new_tokens=N_STEPS, qcfg=tq)
+    return dict(j_logits=np.asarray(j_logits), t_logits=t_logits.numpy(), gaps=gaps,
+                j_tok0=np.asarray(tok0), t_tok0=ttok0.numpy(),
+                j_toks=np.asarray(j_toks), t_toks=t_toks.numpy(),
+                j_cache={k: np.asarray(getattr(j_cache, k)) for k in ("k", "v", "lengths")},
+                t_cache=to_jax_layout(tcache), j_gen=j_gen, t_gen=t_gen,
+                tp=tp, tcfg=tcfg, tq=tq, toks=toks, t_dtype=tcache.k.dtype,
+                jp=p, jcfg=jcfg, jq=jq)
+
+
+def test_weight_only_reference_has_no_near_ties(wo_runs):
+    for logits in wo_runs["gaps"]:
+        top2 = np.sort(logits, axis=-1)[:, -2:]
+        assert (top2[:, 1] - top2[:, 0]).min() > 1e-3
+
+
+def test_weight_only_prefill_logits(wo_runs):
+    j, t = wo_runs["j_logits"], wo_runs["t_logits"]
+    np.testing.assert_allclose(t, j, rtol=0, atol=2.0 ** -7 * np.abs(j).max())
+
+
+def test_weight_only_greedy_tokens_equal(wo_runs):
+    np.testing.assert_array_equal(wo_runs["t_tok0"], wo_runs["j_tok0"])
+    np.testing.assert_array_equal(wo_runs["t_toks"], wo_runs["j_toks"])
+
+
+@pytest.mark.parametrize("name", ["k", "v"])
+def test_weight_only_bf16_cache(wo_runs, name):
+    assert wo_runs["t_dtype"] == torch.bfloat16 and wo_runs["t_cache"]["k_scale"] is None
+    a = wo_runs["j_cache"][name].astype(np.float32)
+    b = wo_runs["t_cache"][name]
+    assert a.shape == b.shape
+    differ = a != b
+    assert differ.mean() <= 1e-3, differ.sum()
+    np.testing.assert_allclose(b[differ], a[differ], rtol=2.0 ** -7, atol=0)
+    np.testing.assert_array_equal(wo_runs["t_cache"]["lengths"], wo_runs["j_cache"]["lengths"])
+
+
+def _pairwise_b5(x, w, bias):
+    """y = x @ w for bf16-valued f32 x (.., C) and w (C, N): the exact
+    products summed pairwise in one fixed order (halves added elementwise),
+    the same code for jax and torch arrays."""
+    pr = x.reshape(-1, x.shape[-1])[:, None, :] * w.T[None]
+    while pr.shape[-1] > 1:
+        h = pr.shape[-1] // 2
+        pr = pr[..., :h] + pr[..., h:]
+    y = pr[..., 0]
+    y = y if bias is None else y + bias
+    return y.reshape(tuple(x.shape[:-1]) + (y.shape[-1],))
+
+
+def test_weight_only_bf16_cache_bitwise_in_one_sum_order(wo_runs, monkeypatch):
+    """The bf16 cache entries that differ from JAX's come from the order of
+    B5's f32 sums: with both packages' B5 replaced by one pairwise sum of
+    the same bf16 products (each side's weight read out of its own B5
+    through x = I), the cache and the tokens are bitwise equal."""
+    r = wo_runs
+    jdm = importlib.import_module("llm_compressor_tpu.kernels.dequant_matmul")
+    tdm = importlib.import_module("llm_compressor_tpu_torch.kernels.dequant_matmul")
+    j_b5, t_b5 = jdm.dequant_matmul, tdm.dequant_matmul
+
+    def j_pairwise(x, qt, bias=None):
+        C = x.shape[-1]
+        w = j_b5(jnp.eye(C, dtype=jnp.bfloat16), qt).astype(jnp.float32)
+        xb = x.astype(jnp.bfloat16).astype(jnp.float32)
+        return _pairwise_b5(xb, w, bias).astype(x.dtype)
+
+    def t_pairwise(x, qt, bias=None):
+        C = x.shape[-1]
+        w = t_b5(torch.eye(C, dtype=torch.bfloat16), qt).float()
+        xb = x.to(torch.bfloat16).float()
+        return _pairwise_b5(xb, w, bias).to(x.dtype)
+
+    monkeypatch.setattr(jdm, "dequant_matmul", j_pairwise)
+    monkeypatch.setattr(tdm, "dequant_matmul", t_pairwise)
+    jax.clear_caches()   # prefill and decode were traced with the kernel
+    try:
+        cache = j_init(2, B, MAX_LEN, 2, 64)
+        logits, cache = j_prefill(r["jp"], jnp.asarray(r["toks"]), cache, cfg=r["jcfg"],
+                                  qcfg=r["jq"])
+        tok0 = jnp.argmax(logits, -1).astype(jnp.int32)[:, None]
+        j_toks, j_cache = j_greedy(r["jp"], tok0, cache, n=N_STEPS, cfg=r["jcfg"], qcfg=r["jq"])
+        tcache = te.init_cache(2, B, MAX_LEN, 2, 64, device="cpu")
+        tlogits, tcache = te.prefill(r["tp"], torch.from_numpy(r["toks"]), tcache,
+                                     cfg=r["tcfg"], qcfg=r["tq"])
+        ttok0 = torch.argmax(tlogits, -1).to(torch.int32)[:, None]
+        t_toks, tcache = te.decode_greedy_steps(r["tp"], ttok0, tcache, n=N_STEPS,
+                                                cfg=r["tcfg"], qcfg=r["tq"])
+    finally:
+        jax.clear_caches()
+    np.testing.assert_array_equal(t_toks.numpy(), np.asarray(j_toks))
+    t = to_jax_layout(tcache)
+    for name in ("k", "v"):
+        np.testing.assert_array_equal(t[name], np.asarray(getattr(j_cache, name)).astype(np.float32))
+
+
+def test_generate_greedy_equals_jax(wo_runs):
+    assert wo_runs["t_gen"].dtype == np.int32
+    np.testing.assert_array_equal(wo_runs["t_gen"], np.asarray(wo_runs["j_gen"]))
+
+
+@pytest.mark.parametrize("quantized_kv", [False, True])
+def test_generate_eos_matches_jax(wo_runs, quantized_kv):
+    """EOS on slot 0 ends both loops at the same step, over the bf16 cache
+    and over an int8 cache (float attention on the dequantized window)."""
+    r = wo_runs
+    eos = int(np.asarray(r["j_gen"])[0, T + 1])
+    kw = dict(max_new_tokens=N_STEPS, eos_id=eos, quantized_kv=quantized_kv)
+    want = np.asarray(j_generate(r["jp"], r["jcfg"], r["toks"], qcfg=r["jq"], **kw))
+    got = te.generate(r["tp"], r["tcfg"], r["toks"], qcfg=r["tq"], **kw)
+    assert want.shape[1] < T + N_STEPS
+    np.testing.assert_array_equal(got, want)
+
+
+def test_sampling_is_seeded(wo_runs):
+    """The same seed gives the same samples; another seed may not. Every
+    sampled token lies in its step's top-k."""
+    r = wo_runs
+    run = lambda seed: te.generate(r["tp"], r["tcfg"], r["toks"], max_new_tokens=3,
+                                   temperature=1.0, top_k=5, qcfg=r["tq"], seed=seed)
+    a, b = run(7), run(7)
+    np.testing.assert_array_equal(a, b)
+    assert a.shape == (B, T + 3)
+    np.testing.assert_array_equal(a[:, :T], r["toks"])
+
+
+@pytest.mark.parametrize("top_k", [1, 5, 40])
+def test_top_k_mask_matches_jax(top_k):
+    """The port's top-k filter keeps the entries that the JAX ``_sample``
+    can draw: with k = 1 both sample the argmax, and every JAX draw from
+    the filtered logits lies in the port's kept set."""
+    rng = np.random.default_rng(8)
+    logits = rng.normal(size=(4, 64)).astype(np.float32)
+    logits[0, :3] = logits[0].max()                   # ties at the top
+    kept = np.isfinite(tgen.top_k_filter(torch.from_numpy(logits), top_k).numpy())
+    kth = np.sort(logits, axis=-1)[:, -top_k][:, None]
+    np.testing.assert_array_equal(kept, logits >= kth)
+    for i in range(20):
+        s = np.asarray(j_sample(jnp.asarray(logits), 1.0, top_k, jax.random.PRNGKey(i)))
+        assert kept[np.arange(4), s].all()
+    g = torch.Generator().manual_seed(0)
+    for _ in range(20):
+        s = tgen._sample(torch.from_numpy(logits), 1.0, top_k, g).numpy()
+        assert kept[np.arange(4), s].all()
+
+
+def test_kv_layout_round_trip_bf16():
+    """A bf16 cache crosses to the JAX layout as float32 (exact) and back."""
+    rng = np.random.default_rng(9)
+    L_, B_, KV_, S_, D_ = 2, 3, 2, 16, 64
+    vals = lambda: torch.from_numpy(rng.normal(size=(L_, B_, KV_, S_, D_)).astype(np.float32))
+    cache = tkv.KVCache(k=vals().to(torch.bfloat16), v=vals().to(torch.bfloat16),
+                        k_scale=None, v_scale=None, lengths=torch.tensor([3, 0, 16],
+                                                                         dtype=torch.int32))
+    j = to_jax_layout(cache)
+    ref = j_init(L_, B_, S_, KV_, D_)
+    assert not cache.quantized and j["k_scale"] is None
+    for name in ("k", "v", "lengths"):
+        assert j[name].shape == getattr(ref, name).shape
+    back = tkv.from_jax_layout(**j, device="cpu")
+    for name in ("k", "v", "lengths"):
+        assert torch.equal(getattr(back, name), getattr(cache, name))
+    # and from the JAX cache's own bf16 arrays
+    jk = np.asarray(jnp.asarray(j["k"], jnp.bfloat16))
+    assert torch.equal(tkv.from_jax_layout(jk, jk, None, None, j["lengths"], device="cpu").k,
+                       cache.k)

@@ -13,6 +13,9 @@ Tolerances:
 * B4: the written cache codes are bitwise equal; the output agrees to a
   few f32 ulps (the row sum is reduced in another order), plus at most one
   flipped prob code per row (exp may differ by an ulp at a .5 boundary).
+* B5: kernel and plain version build the same bf16 weight (checked
+  bitwise through x = I) and differ only in the order of the f32 sums: one
+  ulp of the output dtype plus 2 * C * 2**-24 * (|x| @ |W|^T).
 """
 
 import numpy as np
@@ -20,6 +23,7 @@ import pytest
 import torch
 
 from llm_compressor_tpu_torch.kernels import decode_attention as da
+from llm_compressor_tpu_torch.kernels import dequant_matmul as dm
 from llm_compressor_tpu_torch.kernels import w4a8_matmul as wm
 from llm_compressor_tpu_torch.qformats import parse_qspec, quantize_pack
 
@@ -127,3 +131,35 @@ def test_decode_attention_position_outside_cache(cuda):
     for a, b in zip((kc, vc, ks, vs), before):
         assert torch.equal(a[0], b[0])
     assert bool((kc[1, :, 5] == 1).all())
+
+
+# every body and both int4 layouts: even group counts pack as pair planes,
+# odd ones (g >= 256) as group halves
+@pytest.mark.parametrize("spec,C", [
+    ("int4-g[128]-rw", 512), ("int4-g[128]-zp-rw", 512), ("int4-g[256]-rw", 768),
+    ("int4-g[256]-zp-rw", 768), ("int8-g[128]-rw", 384), ("int8-g[128]-zp-rw", 384),
+    ("fp8_e4m3-g[128]-rw", 512), ("fp8_e5m2-g[128]-rw", 512), ("fp8_e4m3-g[128]-zp-rw", 512),
+    ("fp8_e5m2-g[128]-zp-rw", 512), ("int4-g[192]-rw", 768)])
+@pytest.mark.parametrize("M", [8, 130])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_dequant_matmul(cuda, spec, C, M, out_dtype):
+    N = 192
+    qt = _packed(spec, N, C, seed=M)[0]
+    codes, scales = qt.codes.to(cuda), qt.scales.to(cuda)
+    zeros = None if qt.zeros is None else qt.zeros.to(cuda)
+    fmt = dm.weight_format(qt)
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(M, C)).astype(np.float32))
+    xb = x.to(torch.bfloat16).to(cuda)
+    before = dm.dequant_matmul_codes.launches
+    got = dm.dequant_matmul_codes(xb, codes, scales, zeros, fmt, out_dtype)
+    assert dm.dequant_matmul_codes.launches == before + 1
+    want = dm.dequant_matmul_plain(xb, codes, scales, zeros, fmt, out_dtype)
+    w = dm.dequant_weight_bf16(codes, scales, zeros, fmt).float()
+    mag = xb.float().abs() @ w.abs().t()
+    ulp = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11, torch.float32: 2.0 ** -24}[out_dtype]
+    tol = 2 * ulp * want.float().abs() + 2 * C * 2.0 ** -24 * mag
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+    # the weight the kernel builds, read out through x = I
+    eye = torch.eye(C, device=cuda, dtype=torch.bfloat16)
+    wt = dm.dequant_matmul_codes(eye, codes, scales, zeros, fmt, torch.float32)
+    assert torch.equal(wt, w.t())

@@ -135,3 +135,78 @@ def test_fuse_and_stack_match_jax():
 def test_tiny_config_rejects_unported_arch():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.tiny_config("gemma2")
+
+
+# Weight-only configs: no activation quantizers, so every small-M packed
+# projection runs B5 (its plain version here; the Pallas kernel in interpret
+# mode in JAX) and long prompts take dequantize + matmul. B5 rounds its f32
+# input to bf16, so an f32 rounding-order difference upstream can move an
+# input element across a bf16 boundary: logits are held to one bf16 ulp of
+# the largest logit, 2**-7 * max|logit|.
+WEIGHT_ONLY = [("int4-g[128]-zp-rw", None, None, "int8-g[128]-rw"),
+               ("int8-g[128]-rw", None, None, None),
+               ("fp8_e4m3-g[128]-rw", None, None, "int8-g[128]-rw"),
+               ("fp8_e5m2-g[128]-zp-rw", None, None, None)]
+
+
+def _weight_only_pair(quant, serving: bool):
+    jcfg, tcfg = _cfgs(**SMALL)
+    p = jm.init_params(jcfg, jax.random.PRNGKey(4))
+    jq, tq = jbuild(*quant), tbuild(*quant)
+    jalg.rtn(p, jcfg, jq, verbose=False)
+    jalg.pack_model(p, jcfg, jq)
+    tp = params_from_numpy(jax_to_numpy(p), "cpu")
+    if serving:
+        p = jm.stack_model(jm.fuse_model(p, jcfg, jq))
+        tp = tm.stack_model(tm.fuse_model(tp, tcfg, tq))
+    return jcfg, tcfg, jq, tq, p, tp
+
+
+@pytest.mark.parametrize("quant", WEIGHT_ONLY, ids=lambda q: q[0])
+@pytest.mark.parametrize("serving", [False, True])
+@pytest.mark.parametrize("T", [5, 130])
+def test_weight_only_forward(quant, serving, T):
+    jcfg, tcfg, jq, tq, p, tp = _weight_only_pair(quant, serving)
+    if serving:  # fused and stacked with the zero points / fp8 codes
+        for grp, slot in (("attn", "qkv_cat"), ("mlp", "gateup")):
+            a = params_from_numpy(jax_to_numpy(p), "cpu")["layers_stacked"][grp][slot]["weight"]
+            b = tp["layers_stacked"][grp][slot]["weight"]
+            assert torch.equal(a.codes.view(torch.uint8), b.codes.view(torch.uint8))
+            assert (a.zeros is None) == (b.zeros is None)
+            if a.zeros is not None:
+                assert torch.equal(a.zeros, b.zeros)
+    toks = _tokens(jcfg, (2, T), seed=5)
+    jl = np.asarray(jm.forward(p, jcfg, jnp.asarray(toks), jq))
+    tl = tm.forward(tp, tcfg, torch.from_numpy(toks), tq).numpy()
+    np.testing.assert_allclose(tl, jl, rtol=0, atol=2.0 ** -7 * np.abs(jl).max())
+
+
+@pytest.mark.parametrize("quant", WEIGHT_ONLY, ids=lambda q: q[0])
+def test_rtn_and_pack_weight_only_match_jax(quant):
+    """RTN + packing with zero points and fp8 codes: the decoder weights'
+    codes, scales and zeros bitwise; the head as in the W4A8 test."""
+    jcfg, tcfg = _cfgs(**SMALL)
+    p = jm.init_params(jcfg, jax.random.PRNGKey(3))
+    tp = params_from_numpy(jax_to_numpy(p), "cpu")
+    jq, tq = jbuild(*quant), tbuild(*quant)
+    jalg.rtn(p, jcfg, jq, verbose=False)
+    jalg.pack_model(p, jcfg, jq)
+    talg.rtn(tp, tcfg, tq)
+    talg.pack_model(tp, tcfg, tq)
+    want = params_from_numpy(jax_to_numpy(p), "cpu")
+    for jl, tl in zip(want["layers"], tp["layers"]):
+        for grp in ("attn", "mlp"):
+            for slot, node in jl[grp].items():
+                a, b = node["weight"], tl[grp][slot]["weight"]
+                assert isinstance(b, QTensor) and b.pair_planes == a.pair_planes
+                assert a.codes.dtype == b.codes.dtype
+                assert torch.equal(a.codes.view(torch.uint8), b.codes.view(torch.uint8))
+                assert torch.equal(a.scales, b.scales)
+                assert (a.zeros is None) == (b.zeros is None)
+                if a.zeros is not None:
+                    assert torch.equal(a.zeros, b.zeros)
+    if quant[3] is not None:
+        a, b = want["lm_head"]["weight"], tp["lm_head"]["weight"]
+        torch.testing.assert_close(b.scales, a.scales, rtol=1e-6, atol=0)
+        diff = (a.codes.int() - b.codes.int()).abs()
+        assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
