@@ -12,11 +12,16 @@ Phases (each prints a line; any failure exits non-zero):
    version's time, one PyTorch library call's time for the same function,
    and the bound: max(bytes / 3.35 TB/s, ops / the peak of the kernel's
    own arithmetic) from the published H100 SXM peaks — int8 at 1979 TOP/s
-   for B1-B4, dense bf16 at 989.4 TFLOP/s for B5;
+   for B1-B4, dense bf16 at 989.4 TFLOP/s for B5, float32 outside the
+   tensor cores at 67 TFLOP/s for B10;
 4. token checks — at 2 layers, full width, the kernel path's greedy tokens
    must equal the plain path's wherever the plain logits' top-2 gap exceeds
-   the stated tolerance: W4A8, and weight-only with zero-point int4 and
-   with fp8 e4m3 weights;
+   the stated tolerance: W4A8, weight-only with zero-point int4 and with
+   fp8 e4m3 weights, and the SpinQuant-Hadamard + GPTQ pipeline (calibrated
+   once on each path, B10 or its plain version drawing the rotations, then
+   served W4A8); that pipeline's layer 0 must then beat RTN on every
+   linear, ||(W - Q) X||_F on its own calibration inputs at most 0.9 x
+   RTN's (GPTQ without its error feedback would give 1.0);
 5. slices — full-width, full-depth Llama-3.2-1B (random weights from
    ``--seed``): RTN -> pack -> fuse -> stack, prefill 128 prompts of 128
    tokens into a cache of 256 positions, then 32 greedy decode steps, for
@@ -27,9 +32,16 @@ Phases (each prints a line; any failure exits non-zero):
    decode steps run under ``torch.profiler`` for the device time by kernel
    and the idle share. The weight-only params then serve one ``generate``
    call with top-k sampling from a fixed seed, twice, which must agree.
+   The third slice, ``spinquant_gptq``, calibrates the model instead of
+   RTN: ``spinquant(mode="hadamard")`` on 128 x 512 synthetic tokens (17 B10
+   launches and no other kernel; seconds by phase, peak memory), packs it
+   losslessly with GPTQ's scale book (bitwise against the GPTQ'd weights),
+   checks that its layer 0 equals the 2-layer run's bitwise, and serves it
+   W4A8 as above (B1-B4, no B10).
 The ``kernels`` JSON object, nvidia-smi's name and power limit and the
-slices' TTFT, decode tok/s and peak memory come on the three lines before
-the last; the last is ``{"ok": true, "device": {...}}``.
+slices' numbers (TTFT, decode tok/s, peak memory; calibration seconds for
+``spinquant_gptq``) come on the three lines before the last; the last is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -49,6 +62,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12       # dense int8 tensor-core peak, same source
 BF16_OPS_PER_S = 989.4e12      # dense bf16 tensor-core peak, same source
+FP32_OPS_PER_S = 67e12         # float32 outside the tensor cores, same source
 # the slices: Llama-3.2-1B at full depth, the serving shape of the flagship bench
 LAYERS, BATCH, PROMPT, MAX_LEN, STEPS = 16, 128, 128, 256, 32
 # serving configs: build_quant_config arguments, head_act, an int8 KV cache?
@@ -62,17 +76,28 @@ TPU_KERNELS = {
     "B3_w4a8_flat": "llm_compressor_tpu/kernels/w4a8_matmul.py:353",
     "B4_decode_attention_append": "llm_compressor_tpu/kernels/decode_attention.py:469",
     "B5_dequant_matmul": "llm_compressor_tpu/kernels/dequant_matmul.py:216",
+    "B10_hadamard": "llm_compressor_tpu/kernels/hadamard.py:271",
 }
 COUNTER_OF = {"B1_w4a8_stacked": "w4a8_stacked", "B2_w4a8_gateup_silu": "w4a8_gateup",
               "B3_w4a8_flat": "w4a8_flat",
               "B4_decode_attention_append": "decode_attention_append",
-              "B5_dequant_matmul": "dequant_matmul"}
+              "B5_dequant_matmul": "dequant_matmul", "B10_hadamard": "hadamard"}
 SOURCES = {"B1_w4a8_stacked": "llm_compressor_tpu_torch/csrc/w4a8_matmul.cu",
            "B2_w4a8_gateup_silu": "llm_compressor_tpu_torch/csrc/w4a8_matmul.cu",
            "B3_w4a8_flat": "llm_compressor_tpu_torch/csrc/w4a8_matmul.cu",
            "B4_decode_attention_append": "llm_compressor_tpu_torch/csrc/decode_attention.cu",
-           "B5_dequant_matmul": "llm_compressor_tpu_torch/csrc/dequant_matmul.cu"}
-SLICE_OF = {k: "w4a8" for k in TPU_KERNELS} | {"B5_dequant_matmul": "weight_only"}
+           "B5_dequant_matmul": "llm_compressor_tpu_torch/csrc/dequant_matmul.cu",
+           "B10_hadamard": "llm_compressor_tpu_torch/csrc/hadamard.cu"}
+# the slice, and which of its runs, whose launch count the kernels line reports
+SLICE_OF = {k: ("w4a8", "counts") for k in TPU_KERNELS} | {
+    "B5_dequant_matmul": ("weight_only", "counts"),
+    "B10_hadamard": ("spinquant_gptq", "calib_counts")}
+W4A8_KERNELS = ["B1_w4a8_stacked", "B2_w4a8_gateup_silu", "B3_w4a8_flat",
+                "B4_decode_attention_append"]
+# SpinQuant + GPTQ calibration: the CLI's defaults (samples x tokens)
+CALIB_SAMPLES, CALIB_LEN = 128, 512
+# B10 launches while calibrating: R1, then one R2 per layer
+B10_PER_CALIBRATION = 1 + LAYERS
 
 
 def log(msg: str) -> None:
@@ -297,6 +322,43 @@ def check_dequant_matmul(gen, label, M, N, C, fmt, zeros: bool, g=128):
     return case
 
 
+def check_hadamard(gen, label, rows, n, dtype, diagonal=False):
+    """One B10 case: x (rows, n) normal values, or a +-1 diagonal (n, n)
+    (a rotation draw, rows = n). Kernel and plain version take the same
+    float32 adds in the same order: bitwise. Bound: each value read and
+    written once; the log2(m) butterfly adds, K base adds and one scale per
+    value run on the float32 units."""
+    from llm_compressor_tpu_torch.kernels import hadamard as hd
+
+    K, m = hd.decompose(n)
+    if diagonal:
+        signs = torch.randint(0, 2, (n,), generator=gen, device="cuda").float() * 2 - 1
+        x = torch.diag(signs).to(dtype)
+    else:
+        x = torch.randn((rows, n), generator=gen, device="cuda").to(dtype)
+    run = lambda: hd.hadamard_transform(x)
+    plain = lambda: hd.hadamard_transform_plain(x)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    if got.dtype != dtype or not torch.equal(got, want):
+        raise AssertionError(f"B10 {label}: kernel disagrees with plain "
+                             f"(max err {float((got.float() - want.float()).abs().max())})")
+    if diagonal:  # the draw is orthonormal
+        eye = torch.eye(n, device="cuda")
+        if float((got.double() @ got.double().t() - eye).abs().max()) > 1e-6:
+            raise AssertionError(f"B10 {label}: the signed Hadamard draw is not orthonormal")
+    h_n = hd.hadamard_transform_plain(torch.eye(n, device="cuda", dtype=dtype))
+    b_ms, b_by = bound(2.0 * x.numel() * x.element_size(),
+                       x.numel() * (math.log2(m) + K + 1), FP32_OPS_PER_S)
+    case = {"case": label, "rows": rows, "n": n, "K": K, "dtype": str(dtype).split(".")[-1],
+            "tolerance": "bitwise", "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "ms": time_ms(run), "plain_ms": time_ms(plain, reps=5, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: torch.matmul(x, h_n))}
+    del x, h_n, got, want
+    return case
+
+
 def phase_kernels(seed: int):
     from llm_compressor_tpu_torch.kernels import dequant_matmul as dm
 
@@ -323,6 +385,12 @@ def phase_kernels(seed: int):
             check_dequant_matmul(gen, "decode int8-g128 head", 128, V, E, dm.F_INT8, False),
             check_dequant_matmul(gen, "decode qkv fp8-e4m3-g128", 128, 3072, E,
                                  dm.F_FP8_E4M3, True)],
+        "B10_hadamard": [
+            check_hadamard(gen, "R1 draw: +-1 diagonal 2048 f32", E, E, torch.float32, True),
+            check_hadamard(gen, "R2 draw: +-1 diagonal 64 f32", 64, 64, torch.float32, True),
+            check_hadamard(gen, "4096 x 2048 bf16", 4096, E, torch.bfloat16),
+            check_hadamard(gen, "4096 x 8192 bf16", 4096, I, torch.bfloat16),
+            check_hadamard(gen, "4096 x 2560 bf16 (K = 20)", 4096, 2560, torch.bfloat16)],
     }
     for name, cs in cases.items():
         for c in cs:
@@ -369,28 +437,30 @@ def build_model(layers: int, seed: int, serving):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the five kernel wrappers to their plain versions (CUDA tensors
+    """Route the six kernel wrappers to their plain versions (CUDA tensors
     included) — the reference run of the reduced-depth checks."""
     import importlib
 
     from llm_compressor_tpu_torch.kernels import decode_attention as da
     from llm_compressor_tpu_torch.kernels import dequant_matmul as dm
+    from llm_compressor_tpu_torch.kernels import hadamard as hd
     from llm_compressor_tpu_torch.kernels import w4a8_matmul as wm
 
     gen_mod = importlib.import_module("llm_compressor_tpu_torch.engine.generate")
     saved = (wm.matmul_stacked, wm.matmul_flat, wm.gateup_silu, gen_mod.decode_attention_append,
-             dm.dequant_matmul_codes)
+             dm.dequant_matmul_codes, hd.hadamard_transform)
     wm.matmul_stacked = lambda x, c, s, sx, layer, f, dt: wm.w4a8_plain(x, c[layer], s[layer], sx, f, dt)
     wm.matmul_flat = wm.w4a8_plain
     wm.gateup_silu = lambda x, c, s, sx, layer, f, act, dt: wm.gateup_plain(
         x, c[layer], s[layer], sx, f, act, dt)
     gen_mod.decode_attention_append = da.decode_attention_plain
     dm.dequant_matmul_codes = dm.dequant_matmul_plain
+    hd.hadamard_transform = hd.hadamard_transform_plain
     try:
         yield
     finally:
         (wm.matmul_stacked, wm.matmul_flat, wm.gateup_silu, gen_mod.decode_attention_append,
-         dm.dequant_matmul_codes) = saved
+         dm.dequant_matmul_codes, hd.hadamard_transform) = saved
 
 
 def new_cache(cfg, batch, max_len, serving):
@@ -423,21 +493,31 @@ def run_slice(params, cfg, qcfg, serving, batch, prompt, steps, max_len, seed):
     return logits, out, cache, (t1 - t0) * 1e3, (t2 - t1) * 1e3, after_prefill
 
 
-def check_reduced_depth(seed: int, serving, kernel_names, gap_tol: float = 0.1):
+def check_reduced_depth(seed: int, serving, kernel_names, gap_tol: float = 0.1, build=None):
     """2 layers, full width: teacher-force the plain path's greedy tokens
     through both paths; where the plain logits' top-2 gap exceeds
     ``gap_tol`` the kernel path's argmax must be the same token. The kernel
-    run must launch every kernel of ``kernel_names`` and no other."""
+    run must launch every kernel of ``kernel_names`` and no other.
+    ``build(layers)`` makes the model, by default RTN (``build_model``),
+    once for both paths; a given ``build`` runs once on each path (under
+    ``plain_kernels`` for the reference), as part of that path's run."""
     from llm_compressor_tpu_torch import kernels
     from llm_compressor_tpu_torch.engine import decode_step, prefill
 
-    cfg, qcfg, params = build_model(2, seed, serving)
+    kernels.reset_counts()
+    if build is None:
+        ref_model = build_model(2, seed, serving)
+    else:
+        with plain_kernels():
+            ref_model = build(2)
+    cfg = ref_model[0]
     B, T, steps = 16, 32, 8
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device="cuda",
                          dtype=torch.int32)
 
-    def run(feed=None):
+    def run(model, feed=None):
+        cfg, qcfg, params = model
         cache = new_cache(cfg, B, 64, serving)
         logits, cache = prefill(params, toks, cache, cfg=cfg, qcfg=qcfg)
         all_logits = [logits]
@@ -450,13 +530,14 @@ def check_reduced_depth(seed: int, serving, kernel_names, gap_tol: float = 0.1):
             tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
         return all_logits
 
-    kernels.reset_counts()
     with plain_kernels():
-        ref = run()
+        ref = run(ref_model)
     if any(kernels.launch_counts().values()):
         raise AssertionError(f"the plain run launched kernels: {kernels.launch_counts()}")
     feed = [torch.argmax(lg, -1).to(torch.int32)[:, None] for lg in ref[:-1]]
-    got = run(feed)
+    model = ref_model if build is None else build(2)
+    del ref_model
+    got = run(model, feed)
     counts = kernels.launch_counts()
     used = {COUNTER_OF[k] for k in kernel_names}
     if any((v > 0) != (k in used) for k, v in counts.items()):
@@ -473,8 +554,121 @@ def check_reduced_depth(seed: int, serving, kernel_names, gap_tol: float = 0.1):
     max_err = max(float((a - b).abs().max()) for a, b in zip(ref, got))
     if agree != checked or checked == 0:
         raise AssertionError(f"reduced-depth check: {agree}/{checked} confident tokens agree")
-    del params
+    del model
     return checked, (steps + 1) * B, max_err
+
+
+def _clone_tree(node):
+    if isinstance(node, dict):
+        return {k: _clone_tree(v) for k, v in node.items()}
+    return node.clone()
+
+
+def calibrate_and_pack(layers: int, seed: int, keep_layer0: bool = False):
+    """Llama-3.2-1B at ``layers`` layers, random weights from ``seed``:
+    ``spinquant(mode="hadamard")`` (R1 / R2 draws through B10, then GPTQ)
+    on CALIB_SAMPLES x CALIB_LEN synthetic tokens with the W4A8 config ->
+    ``pack_model`` with GPTQ's scale book -> fuse -> stack. Checks that
+    packing is lossless: ``dequantize`` of every packed weight equals the
+    GPTQ'd bf16 weight bitwise. Returns (cfg, qcfg, params, info): info
+    holds the calibration's seconds (total and by phase), peak memory and
+    launch counts (set to 0 just before it), and layer 0's GPTQ'd weights;
+    with ``keep_layer0`` also the rotated layer 0 and its calibration
+    inputs, as GPTQ received them."""
+    import importlib
+
+    from llm_compressor_tpu_torch import kernels
+    from llm_compressor_tpu_torch.algorithms import PhaseTimer, pack_model, spinquant
+    from llm_compressor_tpu_torch.algorithms.common import get_weight
+    from llm_compressor_tpu_torch.capture import CalibContext
+    from llm_compressor_tpu_torch.models import fuse_model, init_params, stack_model
+    from llm_compressor_tpu_torch.models.transformer import arch_slots
+    from llm_compressor_tpu_torch.qformats import build_quant_config, dequantize
+    from llm_compressor_tpu_torch.utils import synthetic_tokens
+
+    qargs, head_act, _ = W4A8
+    cfg = flagship_cfg(layers)
+    qcfg = build_quant_config(*qargs, head_act=head_act)
+    params = init_params(cfg, seed=seed)
+    calib = synthetic_tokens(CALIB_SAMPLES, CALIB_LEN, cfg.vocab_size, seed)
+    info: dict = {}
+    sq_mod = importlib.import_module("llm_compressor_tpu_torch.algorithms.spinquant")
+    real_gptq = sq_mod.gptq
+
+    def gptq_keeping_layer0(params, cfg, ctx, qcfg, **kw):
+        info["layer0"] = _clone_tree(params["layers"][0])
+        info["ctx"] = CalibContext(cfg=ctx.cfg, hidden=ctx.hidden.clone(),
+                                   positions=ctx.positions, chunk=ctx.chunk)
+        return real_gptq(params, cfg, ctx, qcfg, **kw)
+
+    book, timer = {}, PhaseTimer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    if keep_layer0:
+        sq_mod.gptq = gptq_keeping_layer0
+    try:
+        cfg = spinquant(params, cfg, calib, qcfg, seed=seed, scale_book=book, timings=timer)
+    finally:
+        sq_mod.gptq = real_gptq
+    torch.cuda.synchronize()
+    info.update(calib_s=time.perf_counter() - t0, phases=timer.seconds,
+                calib_counts=kernels.launch_counts(),
+                calib_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    gptq_w = {(i, s): get_weight(lp, s) for i, lp in enumerate(params["layers"])
+              for s in arch_slots(cfg)}
+    info["gptq_layer0"] = {s: w for (i, s), w in gptq_w.items() if i == 0}
+    pack_model(params, cfg, qcfg, scale_book=book)
+    for (i, s), w in gptq_w.items():
+        if not torch.equal(dequantize(get_weight(params["layers"][i], s)), w):
+            raise AssertionError(f"packing layer {i} {s} after GPTQ is not lossless")
+    del gptq_w
+    return cfg, qcfg, stack_model(fuse_model(params, cfg, qcfg)), info
+
+
+# GPTQ without its error feedback rounds exactly as RTN does (act order
+# moves whole groups and the scales are solved on W), a ratio of 1.0; sound
+# runs measured 0.52-0.81 at full width (PERF.md, PR 3).
+GPTQ_OVER_RTN_MAX = 0.9
+
+
+def check_gptq_beats_rtn(info, cfg, qcfg):
+    """For every linear of layer 0:
+    ||(W - Q_gptq) X||_F <= GPTQ_OVER_RTN_MAX * ||(W - Q_rtn) X||_F,
+    W the rotated weight, the same quantizer, X the inputs its sequential
+    group saw (earlier groups GPTQ'd), through GPTQ's own Hessian
+    H = 2/n X X^T: ||dW X||_F^2 = n/2 tr(dW H dW^T). Returns the ratios."""
+    from llm_compressor_tpu_torch.algorithms.common import (
+        get_weight, sequential_groups, set_weight, slot_tap, weight_quantizer_for)
+    from llm_compressor_tpu_torch.capture import accumulate_hessian
+    from llm_compressor_tpu_torch.device import full_f32_matmul
+    from llm_compressor_tpu_torch.models import layer_ops
+    from llm_compressor_tpu_torch.qformats import quantize_dequant
+
+    lp, ctx, gptq_w = info["layer0"], info["ctx"], info["gptq_layer0"]
+    ops, n = layer_ops(cfg, qcfg, 0), ctx.hidden.shape[0]
+    ratios = {}
+    for group in sequential_groups(cfg):
+        tap = slot_tap(group[0])
+        H = accumulate_hessian(ctx, lp, 0, (tap,), ops)[tap]
+        with full_f32_matmul():
+            for slot in group:
+                W = get_weight(lp, slot)
+                rtn_w = quantize_dequant(weight_quantizer_for(cfg, qcfg, 0, slot), W) * (W != 0)
+
+                def err(Q):
+                    d = W.float() - Q.float()
+                    return math.sqrt(n / 2 * float(((d @ H) * d).sum()))
+
+                e_gptq, e_rtn = err(gptq_w[slot]), err(rtn_w)
+                if not e_gptq <= GPTQ_OVER_RTN_MAX * e_rtn:
+                    raise AssertionError(f"layer 0 {slot}: GPTQ's output error {e_gptq} is not "
+                                         f"below {GPTQ_OVER_RTN_MAX} x RTN's {e_rtn}")
+                ratios[slot] = e_gptq / e_rtn
+        for slot in group:
+            set_weight(lp, slot, gptq_w[slot])
+    return ratios
 
 
 def _kernel_class(name: str) -> str:
@@ -485,6 +679,47 @@ def _kernel_class(name: str) -> str:
     if "w4a8_kernel" in name:  # template argument NW: 2 is the fused gate|up
         return "B2" if ("Li2EEEv" in name or ", 2>" in name) else "B1/B3"
     return "other"
+
+
+def _union_us(spans) -> float:
+    """Length of the union of (start, end) device intervals."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def profile_calibration_pass(info):
+    """Device time by kernel (the eight largest, and the rest) and the idle
+    share of one calibration pass: layer 0 (GPTQ'd) over the calibration
+    inputs, accumulating the 8192 x 8192 down-proj Hessian, under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from llm_compressor_tpu_torch.capture import accumulate_hessian
+    from llm_compressor_tpu_torch.models import layer_ops
+
+    cfg, qcfg, ctx = info["cfg"], info["qcfg"], info["ctx"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        accumulate_hessian(ctx, info["layer0"], 0, ("down_in",), layer_ops(cfg, qcfg, 0))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    busy_us = _union_us(spans)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+            "idle_share": 1.0 - busy_us / 1e3 / wall_ms if spans else "not measured",
+            "device_ms_by_kernel": {k[:90]: round(v, 3) for k, v in top[:8]},
+            "device_ms_other": round(sum(v for _, v in top[8:]), 3)}
 
 
 def profile_decode(params, cfg, qcfg, cache, token, steps: int = 2):
@@ -510,11 +745,7 @@ def profile_decode(params, cfg, qcfg, cache, token, steps: int = 2):
         spans.append((a, b))
         k = _kernel_class(e.name)
         by_class[k] = by_class.get(k, 0.0) + (b - a) / 1e3 / steps
-    busy_us, end = 0.0, float("-inf")
-    for a, b in sorted(spans):  # union of the device intervals
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
+    busy_us = _union_us(spans)
     if not spans:
         return {"device_ms_per_step": "not measured", "idle_share": "not measured",
                 "wall_ms_per_step": wall_ms / steps}
@@ -524,13 +755,14 @@ def profile_decode(params, cfg, qcfg, cache, token, steps: int = 2):
             "device_ms_per_step": {k: round(v, 4) for k, v in sorted(by_class.items())}}
 
 
-def phase_slice(seed: int, serving, kernel_names):
-    """The full-depth slice of one serving config; every kernel of
+def phase_slice(seed: int, serving, kernel_names, model=None):
+    """The full-depth slice of one serving config, RTN-built unless a
+    ``model`` (cfg, qcfg, params) is given; every kernel of
     ``kernel_names`` must launch during it (counts set to 0 just before,
     read just after) and no other kernel may."""
     from llm_compressor_tpu_torch import kernels
 
-    cfg, qcfg, params = build_model(LAYERS, seed, serving)
+    cfg, qcfg, params = model or build_model(LAYERS, seed, serving)
     # warm the allocator, cuBLAS and the kernel libraries at a small batch
     run_slice(params, cfg, qcfg, serving, batch=8, prompt=16, steps=2, max_len=64, seed=seed)
     torch.cuda.reset_peak_memory_stats()
@@ -582,10 +814,35 @@ def check_generate(params, cfg, qcfg, seed: int):
 
 def _slice_numbers(s):
     prof = s["profile"]
-    return {"ttft_ms": s["ttft_ms"], "decode_tok_s": s["decode_tok_s"],
-            "peak_mem_gib": s["peak_mem_gib"],
-            "device_busy_ms_per_step": prof.get("device_busy_ms_per_step"),
-            "wall_ms_per_step": prof["wall_ms_per_step"]}
+    out = {"ttft_ms": s["ttft_ms"], "decode_tok_s": s["decode_tok_s"],
+           "peak_mem_gib": s["peak_mem_gib"],
+           "device_busy_ms_per_step": prof.get("device_busy_ms_per_step"),
+           "wall_ms_per_step": prof["wall_ms_per_step"]}
+    if "calib_s" in s:
+        out.update(calib_s=s["calib_s"], calib_s_by_phase=s["phases"],
+                   calib_peak_mem_gib=s["calib_peak_gib"])
+    return out
+
+
+def phase_spinquant(seed: int, layer0_at_2_layers):
+    """The ``spinquant_gptq`` slice: calibrate and pack Llama-3.2-1B at full
+    depth (B10 must launch 1 + LAYERS times and no other kernel), check that
+    layer 0 came out bitwise as in the 2-layer run (whose layer 0 was held
+    against RTN), then serve it on the W4A8 path (B1-B4, and not B10)."""
+    cfg, qcfg, params, info = calibrate_and_pack(LAYERS, seed)
+    counts = info["calib_counts"]
+    if counts["hadamard"] != B10_PER_CALIBRATION or any(
+            v for k, v in counts.items() if k != "hadamard"):
+        raise AssertionError(f"calibration launched {counts}, not {B10_PER_CALIBRATION} x B10 "
+                             "and nothing else")
+    for slot, w in info["gptq_layer0"].items():
+        if not torch.equal(w.cpu(), layer0_at_2_layers[slot]):
+            raise AssertionError(f"layer 0 {slot}: GPTQ at {LAYERS} layers differs from the "
+                                 "2-layer run")
+    del info["gptq_layer0"]
+    s = phase_slice(seed, W4A8, W4A8_KERNELS, model=(cfg, qcfg, params))
+    del params
+    return s | info
 
 
 def main() -> int:
@@ -614,19 +871,36 @@ def main() -> int:
 
     cases = phase_kernels(args.seed)
 
-    w4a8_kernels = [k for k in TPU_KERNELS if SLICE_OF[k] == "w4a8"]
-    for label, serving, names in (("W4A8", W4A8, w4a8_kernels),
-                                  ("weight-only int4-g128 zp", WEIGHT_ONLY, ["B5_dequant_matmul"]),
-                                  ("weight-only fp8-e4m3-g128", WEIGHT_ONLY_FP8,
-                                   ["B5_dequant_matmul"])):
-        checked, total, max_err = check_reduced_depth(args.seed, serving, names)
+    calibrated: dict = {}
+
+    def build_calibrated(layers):
+        cfg, qcfg, params, info = calibrate_and_pack(layers, args.seed, keep_layer0=True)
+        calibrated.update(info, cfg=cfg, qcfg=qcfg)
+        return cfg, qcfg, params
+
+    for label, serving, names, build in (
+            ("W4A8", W4A8, W4A8_KERNELS, None),
+            ("weight-only int4-g128 zp", WEIGHT_ONLY, ["B5_dequant_matmul"], None),
+            ("weight-only fp8-e4m3-g128", WEIGHT_ONLY_FP8, ["B5_dequant_matmul"], None),
+            ("SpinQuant-Hadamard + GPTQ, W4A8", W4A8, W4A8_KERNELS + ["B10_hadamard"],
+             build_calibrated)):
+        checked, total, max_err = check_reduced_depth(args.seed, serving, names, build=build)
         log(f"reduced depth {label} (2 layers, full width): {checked}/{total} kernel-path "
             f"tokens with a plain top-2 gap > 0.1 equal the plain path's; max |logit diff| "
             f"{max_err:.4g}")
+    ratios = check_gptq_beats_rtn(calibrated, calibrated["cfg"], calibrated["qcfg"])
+    log(f"GPTQ vs RTN, layer 0 (same rotated W, quantizer and calibration inputs): "
+        f"||(W-Q_gptq)X|| / ||(W-Q_rtn)X|| = {json.dumps(ratios)}")
+    log(f"calibration pass profile (layer 0, the down-proj group: 16 chunks of 8 x "
+        f"{CALIB_LEN} tokens and its Hessian, torch.profiler): "
+        f"{json.dumps(profile_calibration_pass(calibrated))}")
+    # held on the host, so that the next slices' peak memory does not see it
+    layer0_at_2_layers = {k: v.cpu() for k, v in calibrated["gptq_layer0"].items()}
+    calibrated.clear()
 
     slices = {}
     for key, label, serving, names in (
-            ("w4a8", "Llama-3.2-1B W4A8, int8 KV cache", W4A8, w4a8_kernels),
+            ("w4a8", "Llama-3.2-1B W4A8, int8 KV cache", W4A8, W4A8_KERNELS),
             ("weight_only", "Llama-3.2-1B weight-only int4-g128 zp + int8-g128 head, bf16 KV "
              "cache", WEIGHT_ONLY, ["B5_dequant_matmul"])):
         s = phase_slice(args.seed, serving, names)
@@ -647,13 +921,27 @@ def main() -> int:
         torch.cuda.empty_cache()
         slices[key] = s
 
+    s = slices["spinquant_gptq"] = phase_spinquant(args.seed, layer0_at_2_layers)
+    del s["params"]
+    torch.cuda.empty_cache()
+    log(f"slice spinquant_gptq: Llama-3.2-1B, {LAYERS} layers, spinquant(mode='hadamard') + "
+        f"GPTQ on {CALIB_SAMPLES} x {CALIB_LEN} synthetic tokens in {s['calib_s']:.2f} s "
+        f"({json.dumps(s['phases'])}), peak memory {s['calib_peak_gib']:.2f} GiB, launches "
+        f"{s['calib_counts']}; packed losslessly; served W4A8 with an int8 KV cache, batch "
+        f"{BATCH}, prompt {PROMPT}: prefill (TTFT) {s['ttft_ms']:.2f} ms, {STEPS} decode steps "
+        f"{s['decode_ms']:.2f} ms = {s['decode_tok_s']:.1f} tok/s, peak memory "
+        f"{s['peak_mem_gib']:.2f} GiB on {smi}; launches {s['counts']}, per decode step "
+        f"{s['per_step']}")
+    log(f"slice spinquant_gptq decode profile (2 steps, torch.profiler): "
+        f"{json.dumps(s['profile'])}")
+
     metrics = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for kname, cs in cases.items():
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": TPU_KERNELS[kname],
-            "launches": slices[SLICE_OF[kname]]["counts"][COUNTER_OF[kname]],
+            "launches": slices[SLICE_OF[kname][0]][SLICE_OF[kname][1]][COUNTER_OF[kname]],
             **{k: cs[0][k] for k in metrics}, "case": cs[0]["case"],
             "other_cases": [{"case": c["case"], **{k: c[k] for k in metrics}}
                             for c in cs[1:]],

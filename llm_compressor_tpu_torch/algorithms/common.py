@@ -1,8 +1,20 @@
 """Shared helpers for the weight-quantization algorithms (port of
-``algorithms/common.py``): slot paths and quantizer resolution."""
+``algorithms/common.py``): slot paths, quantizer resolution, the
+sequential calibration groups and the lm_head's RTN.
+
+The port's :class:`~..qformats.Quantizer` has no MSE clip search yet
+(ROADMAP.md queue A item 2), so every ``mse`` argument accepts ``False``
+only.
+"""
 
 from __future__ import annotations
 
+import time
+from typing import List
+
+import torch
+
+from ..capture.pipeline import SLOT_TAP
 from ..models.config import ModelConfig
 from ..models.transformer import op_names
 from ..qformats.config import QuantConfig
@@ -29,17 +41,64 @@ def set_weight(layer_params, slot: str, value) -> None:
     _node(layer_params, slot)["weight"] = value
 
 
+def get_bias(layer_params, slot: str):
+    return _node(layer_params, slot).get("bias")
+
+
+def set_bias(layer_params, slot: str, value) -> None:
+    _node(layer_params, slot)["bias"] = value
+
+
+def sequential_groups(cfg: ModelConfig) -> List[List[str]]:
+    """The sequential calibration groups of the Llama family (reference
+    ``get_sequential('true')``): each group's linears are calibrated on
+    inputs that already see the earlier groups quantized."""
+    return [["k", "v", "q"], ["o"], ["up", "gate"], ["down"]]
+
+
+def slot_tap(slot: str) -> str:
+    return SLOT_TAP[slot]
+
+
+def check_mse(mse: bool) -> None:
+    if mse:
+        raise NotImplementedError(
+            "the MSE clip search is not ported yet: ROADMAP.md queue A item 2")
+
+
 def weight_quantizer_for(cfg: ModelConfig, qcfg: QuantConfig, layer_idx: int,
-                         slot: str) -> Quantizer:
+                         slot: str, mse: bool = False) -> Quantizer:
     """The weight quantizer of a slot."""
+    check_mse(mse)
     return qcfg.for_op(op_names(cfg, layer_idx)[slot], "linear").weight
 
 
-def quantize_head_weight(params, qcfg: QuantConfig) -> None:
+def head_quantizer(qcfg: QuantConfig, mse: bool = False) -> Quantizer:
+    check_mse(mse)
+    return qcfg.head.weight
+
+
+def quantize_head_weight(params, qcfg: QuantConfig, mse: bool = False) -> None:
     """RTN-quantize the lm_head weight in place. With tied embeddings the
     shared table is quantized, as the reference's in-place update does."""
-    q = qcfg.head.weight
+    q = head_quantizer(qcfg, mse)
     if q.qtype == "dummy":
         return
     key = "lm_head" if "lm_head" in params else "embed"
     params[key]["weight"] = quantize_dequant(q, params[key]["weight"])
+
+
+class PhaseTimer:
+    """Seconds per named phase, each ended by a device synchronize (the
+    card runs ahead of the host). The calibration entry points take one as
+    ``timings`` and add to it; pass none and nothing is synchronized."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+
+    def add(self, name: str, since: float, device: torch.device) -> float:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        now = time.perf_counter()
+        self.seconds[name] = self.seconds.get(name, 0.0) + now - since
+        return now

@@ -1,7 +1,9 @@
-"""Device selection shared by the port's entry points."""
+"""Device selection and float32 matmul precision, shared by the port's
+entry points."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -17,3 +19,19 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Float32 matmuls in full float32 inside the block: TF32 off
+    (``torch.backends.cuda.matmul.allow_tf32`` False), the previous setting
+    restored after. The calibration statistics and the GPTQ updates run
+    under it, as the JAX package runs them at ``"highest"`` precision: TF32
+    keeps about three decimal digits, which degrades the Hessians'
+    conditioning and GPTQ's error feedback."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)

@@ -2,29 +2,30 @@
 
 B1 ``w4a8_matmul.matmul_stacked``, B2 ``w4a8_matmul.gateup_silu``,
 B3 ``w4a8_matmul.matmul_flat``, B4
-``decode_attention.decode_attention_append`` and B5
-``dequant_matmul.dequant_matmul_codes``; sources in ``../csrc``.
+``decode_attention.decode_attention_append``, B5
+``dequant_matmul.dequant_matmul_codes`` and B10
+``hadamard.hadamard_transform``; sources in ``../csrc``.
 Importing this package builds nothing: a kernel is compiled at its first
 launch (``_build.py``).
 """
 
-from . import decode_attention, dequant_matmul, w4a8_matmul
+from . import decode_attention, dequant_matmul, hadamard, w4a8_matmul
+
+_WRAPPERS = {
+    "w4a8_stacked": (w4a8_matmul, "matmul_stacked"),
+    "w4a8_gateup": (w4a8_matmul, "gateup_silu"),
+    "w4a8_flat": (w4a8_matmul, "matmul_flat"),
+    "decode_attention_append": (decode_attention, "decode_attention_append"),
+    "dequant_matmul": (dequant_matmul, "dequant_matmul_codes"),
+    "hadamard": (hadamard, "hadamard_transform"),
+}
 
 
 def launch_counts() -> dict:
     """Launches of each kernel wrapper since the last :func:`reset_counts`."""
-    return {
-        "w4a8_stacked": w4a8_matmul.matmul_stacked.launches,
-        "w4a8_gateup": w4a8_matmul.gateup_silu.launches,
-        "w4a8_flat": w4a8_matmul.matmul_flat.launches,
-        "decode_attention_append": decode_attention.decode_attention_append.launches,
-        "dequant_matmul": dequant_matmul.dequant_matmul_codes.launches,
-    }
+    return {k: getattr(mod, fn).launches for k, (mod, fn) in _WRAPPERS.items()}
 
 
 def reset_counts() -> None:
-    w4a8_matmul.matmul_stacked.launches = 0
-    w4a8_matmul.gateup_silu.launches = 0
-    w4a8_matmul.matmul_flat.launches = 0
-    decode_attention.decode_attention_append.launches = 0
-    dequant_matmul.dequant_matmul_codes.launches = 0
+    for mod, fn in _WRAPPERS.values():
+        getattr(mod, fn).launches = 0

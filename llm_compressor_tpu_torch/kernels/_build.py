@@ -31,7 +31,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("w4a8_matmul", "decode_attention", "dequant_matmul")
+SOURCES = ("w4a8_matmul", "decode_attention", "dequant_matmul", "hadamard")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

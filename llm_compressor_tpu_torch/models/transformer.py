@@ -8,7 +8,10 @@ Plain functions over a params dict:
     forward()  the full model
 
 Quantization is threaded through as a :class:`LayerOps`, the per-layer
-resolution of a :class:`~..qformats.QuantConfig`. ``fuse_model``
+resolution of a :class:`~..qformats.QuantConfig`. A ``taps`` dict passed
+to :func:`decoder_layer` collects the inputs of the linears for
+calibration (``attn_in``, ``o_in``, ``mlp_in``, ``down_in``), as the JAX
+package's taps replace torch forward hooks. ``fuse_model``
 concatenates q|k|v and gate|up; ``stack_model`` stacks the layers along a
 leading axis, and :func:`layer_view` gives one layer of the stack (dense
 tensors as views, packed weights as :class:`~.layers.LayerSlice`).
@@ -42,6 +45,12 @@ Params = Dict[str, Any]
 
 NEG_INF = -1e9
 SLOTS = ("q", "k", "v", "o", "gate", "up", "down")
+
+
+def arch_slots(cfg: ModelConfig) -> tuple:
+    """Linear slots of the architecture, in the reference's module order
+    (the Llama family: a gated MLP)."""
+    return SLOTS
 
 
 def op_names(cfg: ModelConfig, layer_idx: int) -> Dict[str, str]:
@@ -84,6 +93,11 @@ def layer_ops(cfg: ModelConfig, qcfg: Optional[QuantConfig], layer_idx: int) -> 
 
 def _slot(ops: Optional[LayerOps], slot: str) -> Optional[OpQuantConfig]:
     return ops.get(slot) if ops is not None else None
+
+
+def _tap(taps: Optional[dict], key: str, value) -> None:
+    if taps is not None:
+        taps[key] = value
 
 
 def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -133,10 +147,11 @@ def project_qkv(lp: Params, cfg: ModelConfig, x, ops: Optional[LayerOps], cos, s
 
 
 def attention(lp: Params, cfg: ModelConfig, x, cos, sin, mask,
-              ops: Optional[LayerOps] = None) -> torch.Tensor:
+              ops: Optional[LayerOps] = None, taps: Optional[dict] = None) -> torch.Tensor:
     """Multi-head attention with GQA; ``mask`` (B, 1, T, S)."""
     B, T, _ = x.shape
     H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    _tap(taps, "attn_in", x)
     q, k, v = project_qkv(lp, cfg, x, ops, cos, sin)
     r = H // KV
     k = k[:, :, :, None, :].expand(B, T, KV, r, D).reshape(B, T, H, D)
@@ -146,6 +161,7 @@ def attention(lp: Params, cfg: ModelConfig, x, cos, sin, mask,
     probs = torch.softmax(scores + mask, dim=-1).to(x.dtype)
     out = qmatmul_sv(probs, v.transpose(1, 2), ops.sv if ops is not None else None)
     out = out.to(x.dtype).transpose(1, 2).reshape(B, T, H * D)
+    _tap(taps, "o_in", out)
     return qlinear(out, lp["attn"]["o"]["weight"], None, _slot(ops, "o"))
 
 
@@ -165,11 +181,13 @@ def _try_fused_gateup(cfg: ModelConfig, mp: Params, x, gop: Optional[OpQuantConf
     return wm.gateup_silu_matmul(x, w.qt, cfg.hidden_act, w.layer)
 
 
-def mlp(lp: Params, cfg: ModelConfig, x, ops: Optional[LayerOps] = None):
+def mlp(lp: Params, cfg: ModelConfig, x, ops: Optional[LayerOps] = None,
+        taps: Optional[dict] = None):
     mp = lp["mlp"]
+    _tap(taps, "mlp_in", x)
     if "gateup" in mp:
         gop = _slot(ops, "gate")
-        h = _try_fused_gateup(cfg, mp, x, gop)
+        h = None if taps is not None else _try_fused_gateup(cfg, mp, x, gop)
         if h is None:
             y = qlinear(x, mp["gateup"]["weight"], None, gop)
             I = y.shape[-1] // 2
@@ -178,13 +196,15 @@ def mlp(lp: Params, cfg: ModelConfig, x, ops: Optional[LayerOps] = None):
         gt = qlinear(x, mp["gate"]["weight"], None, _slot(ops, "gate"))
         u = qlinear(x, mp["up"]["weight"], None, _slot(ops, "up"))
         h = activation(cfg.hidden_act, gt) * u
+    _tap(taps, "down_in", h)
     return qlinear(h, mp["down"]["weight"], None, _slot(ops, "down"))
 
 
 def decoder_layer(lp: Params, cfg: ModelConfig, x, cos, sin, mask,
-                  ops: Optional[LayerOps] = None) -> torch.Tensor:
-    x = x + attention(lp, cfg, apply_norm(cfg, x, lp["ln1"]), cos, sin, mask, ops)
-    return x + mlp(lp, cfg, apply_norm(cfg, x, lp["ln2"]), ops)
+                  ops: Optional[LayerOps] = None, taps: Optional[dict] = None) -> torch.Tensor:
+    """One decoder block, the unit of layer-by-layer calibration."""
+    x = x + attention(lp, cfg, apply_norm(cfg, x, lp["ln1"]), cos, sin, mask, ops, taps)
+    return x + mlp(lp, cfg, apply_norm(cfg, x, lp["ln2"]), ops, taps)
 
 
 # ---------------------------------------------------------------------------

@@ -132,14 +132,18 @@ def _check_packable(q: Quantizer) -> None:
             f"{q.fmt.value} codes are not packed yet: ROADMAP.md queue A item 2")
 
 
-def quantize_pack(q: Quantizer, x: torch.Tensor) -> QTensor:
-    """Quantize ``x`` into a packed :class:`QTensor`, the group parameters
-    solved from ``x``."""
+def quantize_pack(q: Quantizer, x: torch.Tensor, scales: Optional[torch.Tensor] = None,
+                  zeros: Optional[torch.Tensor] = None) -> QTensor:
+    """Quantize ``x`` into a packed :class:`QTensor`. The group parameters
+    are solved from ``x`` unless ``scales`` (and ``zeros``) are given in
+    the blocked shape ``find_params`` returns — a calibration algorithm's
+    own parameters, which make packing its output lossless."""
     _check_packable(q)
     xb, meta, axes = block_for(q, x)
     if meta is None:
         raise NotImplementedError("per-tensor packing: use group_size=-1/-2/N")
-    scales, zeros = find_params_blocked(q, xb, axes)
+    if scales is None:
+        scales, zeros = find_params_blocked(q, xb, axes)
     intra_axis = axes % xb.dim()
     pairs = pair_planes_for(q, xb.shape[meta.axis], xb.shape[intra_axis])
     z = zeros if zeros is not None else 0.0

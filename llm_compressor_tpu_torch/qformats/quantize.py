@@ -142,6 +142,21 @@ def find_params_blocked(q: Quantizer, xb, axes):
     return torch.clamp_min(scales, SCALE_EPS), zeros
 
 
+def find_params(q: Quantizer, x):
+    """Per-group (scales, zeros) of raw ``x`` (blocked internally): shapes
+    ``(N, G, 1)`` for an (N, C) weight with row-wise groups; scalars for
+    per-tensor quantizers; (None, None) for the dummy quantizer."""
+    if q.qtype == "dummy":
+        return None, None
+    xb, meta, axes = block_for(q, x)
+    if meta is None:
+        _check_ported(q)
+        max_val, min_val = _minmax(q, xb, None)
+        scales, zeros = _SOLVERS[q.qtype](q, max_val, min_val)
+        return torch.clamp_min(scales, SCALE_EPS), zeros
+    return find_params_blocked(q, xb, axes)
+
+
 def block_for(q: Quantizer, x) -> tuple[torch.Tensor, Optional[BlockMeta], Optional[int]]:
     """Block ``x`` per the quantizer's group config. Per-tensor returns
     (x, None, None)."""

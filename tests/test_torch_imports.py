@@ -17,7 +17,10 @@ MODULES = [
     "llm_compressor_tpu_torch", "llm_compressor_tpu_torch.qformats",
     "llm_compressor_tpu_torch.models", "llm_compressor_tpu_torch.algorithms",
     "llm_compressor_tpu_torch.kernels", "llm_compressor_tpu_torch.engine",
-    "llm_compressor_tpu_torch.convert",
+    "llm_compressor_tpu_torch.convert", "llm_compressor_tpu_torch.capture",
+    "llm_compressor_tpu_torch.utils", "llm_compressor_tpu_torch.kernels.hadamard",
+    "llm_compressor_tpu_torch.algorithms.gptq", "llm_compressor_tpu_torch.algorithms.obs",
+    "llm_compressor_tpu_torch.algorithms.spinquant",
 ]
 
 
@@ -36,12 +39,17 @@ def test_import_leaves_jax_out(module):
 
 def test_entry_points_default_to_card(monkeypatch):
     from llm_compressor_tpu_torch import engine, models
+    from llm_compressor_tpu_torch.kernels import hadamard
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         engine.init_cache(1, 1, 8, 1, 16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         models.init_params(models.tiny_config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hadamard.hadamard_matrix(64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hadamard.random_hadamard_matrix(64, torch.Generator().manual_seed(0))
     assert tdevice.resolve_device("cpu").type == "cpu"
 
 

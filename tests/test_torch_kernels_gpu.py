@@ -16,6 +16,9 @@ Tolerances:
 * B5: kernel and plain version build the same bf16 weight (checked
   bitwise through x = I) and differ only in the order of the f32 sums: one
   ulp of the output dtype plus 2 * C * 2**-24 * (|x| @ |W|^T).
+* B10: the kernel and the plain version take the same float32 adds in the
+  same order (butterfly stages h = 1, 2, 4, ..., then the base terms
+  l = 0..K-1), scale once and round once: bitwise equal.
 """
 
 import numpy as np
@@ -24,6 +27,7 @@ import torch
 
 from llm_compressor_tpu_torch.kernels import decode_attention as da
 from llm_compressor_tpu_torch.kernels import dequant_matmul as dm
+from llm_compressor_tpu_torch.kernels import hadamard as hd
 from llm_compressor_tpu_torch.kernels import w4a8_matmul as wm
 from llm_compressor_tpu_torch.qformats import parse_qspec, quantize_pack
 
@@ -163,3 +167,38 @@ def test_dequant_matmul(cuda, spec, C, M, out_dtype):
     eye = torch.eye(C, device=cuda, dtype=torch.bfloat16)
     wt = dm.dequant_matmul_codes(eye, codes, scales, zeros, fmt, torch.float32)
     assert torch.equal(wt, w.t())
+
+
+# power-of-two sizes from 2 up (R2 at head_dim 64, R1 at hidden 2048), every
+# base K, and row counts that are not a multiple of anything
+@pytest.mark.parametrize("n", [2, 64, 2048, 8192, 32768, 12, 96, 2560, 28 * 32, 36 * 8,
+                               44 * 4, 52 * 16, 60 * 2, 108 * 8, 140 * 64])
+@pytest.mark.parametrize("rows", [1, 7, 129])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hadamard(cuda, n, rows, dtype):
+    x = torch.from_numpy(np.random.default_rng(n + rows).normal(size=(rows, n))
+                         .astype(np.float32)).to(cuda).to(dtype)
+    before = hd.hadamard_transform.launches
+    got = hd.hadamard_transform(x)
+    assert hd.hadamard_transform.launches == before + 1
+    want = hd.hadamard_transform_plain(x)
+    assert got.dtype == dtype and torch.equal(got, want)
+    got = hd.hadamard_transform(x[None], scale=0.5)   # leading dims, explicit scale
+    assert torch.equal(got[0], hd.hadamard_transform_plain(x, scale=0.5))
+
+
+def test_hadamard_signed_diagonal_bitwise(cuda):
+    """The R1 / R2 draws: H diag(+-1) / sqrt(n) on the card equals the CPU's."""
+    for n in (64, 2048):
+        signs = torch.from_numpy(np.random.default_rng(n).choice([-1.0, 1.0], n)
+                                 .astype(np.float32))
+        assert torch.equal(hd.signed_hadamard(signs.to(cuda)).cpu(), hd.signed_hadamard(signs))
+
+
+def test_hadamard_refuses(cuda):
+    with pytest.raises(ValueError, match="unsupported"):
+        hd.hadamard_transform(torch.zeros(2, 24 * 7, device=cuda))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        hd.hadamard_transform(torch.zeros(2, 64, device=cuda, dtype=torch.float16))
+    with pytest.raises(ValueError, match="shared memory"):
+        hd.hadamard_transform(torch.zeros(1, 1 << 16, device=cuda))
