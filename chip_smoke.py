@@ -6,29 +6,37 @@ Phases (each prints a line; any failure exits non-zero):
 1. device — card name, count, and nvidia-smi's name and power limit;
 2. build — compile every kernel of ``llm_compressor_tpu_torch/csrc`` (one
    nvcc per source, all at once) and print ptxas register / smem use;
-3. kernels — each kernel against its plain PyTorch version on the card at
-   the flagship shapes, with its device time (CUDA events, L2 flushed
-   before each launch, host work queued ahead of the window), the plain
-   version's time, one PyTorch library call's time for the same function,
-   and the bound: max(bytes / 3.35 TB/s, ops / the peak of the kernel's
-   own arithmetic) from the published H100 SXM peaks — int8 at 1979 TOP/s
-   for B1-B4, dense bf16 at 989.4 TFLOP/s for B5, float32 outside the
-   tensor cores at 67 TFLOP/s for B10;
+3. kernels — each of the ten kernels against its plain PyTorch version on
+   the card at the flagship shapes, with its device time (CUDA events, L2
+   flushed before each launch, host work queued ahead of the window), the
+   plain version's time, one PyTorch library call's time for the same
+   function, and the bound: max(bytes / 3.35 TB/s, ops / the peak of the
+   kernel's own arithmetic) from the published H100 SXM peaks — int8 at
+   1979 TOP/s for B1-B4 and B6-B9, dense bf16 at 989.4 TFLOP/s for B5,
+   float32 outside the tensor cores at 67 TFLOP/s for B10; bytes count the
+   rows this run's masks keep;
 4. token checks — at 2 layers, full width, the kernel path's greedy tokens
    must equal the plain path's wherever the plain logits' top-2 gap exceeds
-   the stated tolerance: W4A8, weight-only with zero-point int4 and with
-   fp8 e4m3 weights, and the SpinQuant-Hadamard + GPTQ pipeline (calibrated
-   once on each path, B10 or its plain version drawing the rotations, then
-   served W4A8); that pipeline's layer 0 must then beat RTN on every
-   linear, ||(W - Q) X||_F on its own calibration inputs at most 0.9 x
-   RTN's (GPTQ without its error feedback would give 1.0);
+   the stated tolerance: W4A8 (in-place B4 decode, and the side-block
+   "two_part" and "hybrid" decodes, which also count their agreement with
+   the B4 path's tokens and merged cache codes), weight-only with
+   zero-point int4 and with fp8 e4m3 weights, and the SpinQuant-Hadamard +
+   GPTQ pipeline (calibrated once on each path, B10 or its plain version
+   drawing the rotations, then served W4A8); that pipeline's layer 0 must
+   then beat RTN on every linear, ||(W - Q) X||_F on its own calibration
+   inputs at most 0.9 x RTN's (GPTQ without its error feedback would give
+   1.0);
 5. slices — full-width, full-depth Llama-3.2-1B (random weights from
    ``--seed``): RTN -> pack -> fuse -> stack, prefill 128 prompts of 128
    tokens into a cache of 256 positions, then 32 greedy decode steps, for
    two serving configs: W4A8 over an int8 cache (B1-B4), and weight-only
    zero-point int4-g128 with an int8-g128 head over a bf16 cache (B5, 65
-   launches per decode step). Each slice's counts are set to 0 just before
-   it and read just after; each of its kernels must have launched. Two more
+   launches per decode step). The W4A8 params, each time after a fresh
+   prefill, also decode in the side-block modes: ``w4a8_two_part`` (B7 and
+   B8, 16 each per step) and ``w4a8_hybrid`` (B6 and B8); every W4A8 slice
+   must launch 48 B1, 16 B2 and 1 B3 per step, and ``w4a8`` 16 B4 and none
+   of B6-B8. Each slice's counts are set to 0 just before it and read just
+   after; each of its kernels must have launched. Two more
    decode steps run under ``torch.profiler`` for the device time by kernel
    and the idle share. The weight-only params then serve one ``generate``
    call with top-k sampling from a fixed seed, twice, which must agree.
@@ -38,6 +46,9 @@ Phases (each prints a line; any failure exits non-zero):
    losslessly with GPTQ's scale book (bitwise against the GPTQ'd weights),
    checks that its layer 0 equals the 2-layer run's bitwise, and serves it
    W4A8 as above (B1-B4, no B10).
+6. B9 entry point — ``w4a8_matmul(..., act_inside=True)`` on the ``w4a8``
+   slice's int8-g128 head and layer-0 qkv at M = 128 (counts set to 0 just
+   before); each output must equal the host-quantised B3 path's bitwise.
 The ``kernels`` JSON object, nvidia-smi's name and power limit and the
 slices' numbers (TTFT, decode tok/s, peak memory; calibration seconds for
 ``spinquant_gptq``) come on the three lines before the last; the last is
@@ -70,30 +81,50 @@ W4A8 = (("int4-g[128]-rw", "int8-g[-1]-rw", None, "int8-g[128]-rw"), "int8-g[-1]
 WEIGHT_ONLY = (("int4-g[128]-zp-rw", None, None, "int8-g[128]-rw"), None, False)
 WEIGHT_ONLY_FP8 = (("fp8_e4m3-g[128]-rw", None, None, "int8-g[128]-rw"), None, False)
 B5_PER_STEP = 4 * LAYERS + 1   # qkv, o, gate|up, down per layer + the head
-TPU_KERNELS = {
-    "B1_w4a8_stacked": "llm_compressor_tpu/kernels/w4a8_matmul.py:405",
-    "B2_w4a8_gateup_silu": "llm_compressor_tpu/kernels/w4a8_matmul.py:517",
-    "B3_w4a8_flat": "llm_compressor_tpu/kernels/w4a8_matmul.py:353",
-    "B4_decode_attention_append": "llm_compressor_tpu/kernels/decode_attention.py:469",
-    "B5_dequant_matmul": "llm_compressor_tpu/kernels/dequant_matmul.py:216",
-    "B10_hadamard": "llm_compressor_tpu/kernels/hadamard.py:271",
+_JAX_KERNELS = "llm_compressor_tpu/kernels/"
+_CSRC = "llm_compressor_tpu_torch/csrc/"
+# name: (TPU kernel it replaces, CUDA source, launch counter), in table order
+KERNELS = {
+    "B1_w4a8_stacked": ("w4a8_matmul.py:405", "w4a8_matmul.cu", "w4a8_stacked"),
+    "B2_w4a8_gateup_silu": ("w4a8_matmul.py:517", "w4a8_matmul.cu", "w4a8_gateup"),
+    "B3_w4a8_flat": ("w4a8_matmul.py:353", "w4a8_matmul.cu", "w4a8_flat"),
+    "B4_decode_attention_append": ("decode_attention.py:469", "decode_attention.cu",
+                                   "decode_attention_append"),
+    "B5_dequant_matmul": ("dequant_matmul.py:216", "dequant_matmul.cu", "dequant_matmul"),
+    "B6_decode_attention_stats": ("decode_attention.py:225", "decode_attention.cu",
+                                  "decode_attention_stats"),
+    "B7_decode_attention": ("decode_attention.py:605", "decode_attention.cu",
+                            "decode_attention"),
+    "B8_fresh_write": ("decode_attention.py:308", "decode_attention.cu", "fresh_write"),
+    "B9_w4a8_actq": ("w4a8_matmul.py:621", "w4a8_matmul.cu", "w4a8_actq"),
+    "B10_hadamard": ("hadamard.py:271", "hadamard.cu", "hadamard"),
 }
-COUNTER_OF = {"B1_w4a8_stacked": "w4a8_stacked", "B2_w4a8_gateup_silu": "w4a8_gateup",
-              "B3_w4a8_flat": "w4a8_flat",
-              "B4_decode_attention_append": "decode_attention_append",
-              "B5_dequant_matmul": "dequant_matmul", "B10_hadamard": "hadamard"}
-SOURCES = {"B1_w4a8_stacked": "llm_compressor_tpu_torch/csrc/w4a8_matmul.cu",
-           "B2_w4a8_gateup_silu": "llm_compressor_tpu_torch/csrc/w4a8_matmul.cu",
-           "B3_w4a8_flat": "llm_compressor_tpu_torch/csrc/w4a8_matmul.cu",
-           "B4_decode_attention_append": "llm_compressor_tpu_torch/csrc/decode_attention.cu",
-           "B5_dequant_matmul": "llm_compressor_tpu_torch/csrc/dequant_matmul.cu",
-           "B10_hadamard": "llm_compressor_tpu_torch/csrc/hadamard.cu"}
-# the slice, and which of its runs, whose launch count the kernels line reports
+TPU_KERNELS = {k: _JAX_KERNELS + v[0] for k, v in KERNELS.items()}
+SOURCES = {k: _CSRC + v[1] for k, v in KERNELS.items()}
+COUNTER_OF = {k: v[2] for k, v in KERNELS.items()}
+# the run whose launch count the kernels line reports: (slice or phase, field)
 SLICE_OF = {k: ("w4a8", "counts") for k in TPU_KERNELS} | {
     "B5_dequant_matmul": ("weight_only", "counts"),
+    "B6_decode_attention_stats": ("w4a8_hybrid", "counts"),
+    "B7_decode_attention": ("w4a8_two_part", "counts"),
+    "B8_fresh_write": ("w4a8_two_part", "counts"),
+    "B9_w4a8_actq": ("actq_entry", "counts"),
     "B10_hadamard": ("spinquant_gptq", "calib_counts")}
-W4A8_KERNELS = ["B1_w4a8_stacked", "B2_w4a8_gateup_silu", "B3_w4a8_flat",
-                "B4_decode_attention_append"]
+LAUNCHES_FROM = {
+    "w4a8": "slice w4a8: prefill + 32 decode steps",
+    "weight_only": "slice weight_only: prefill + 32 decode steps",
+    "w4a8_hybrid": "slice w4a8_hybrid: prefill + 32 decode steps",
+    "w4a8_two_part": "slice w4a8_two_part: prefill + 32 decode steps",
+    "actq_entry": "entry point w4a8_matmul(..., act_inside=True): the w4a8 slice's int8 "
+                  "head and layer-0 qkv, M = 128",
+    "spinquant_gptq": "slice spinquant_gptq: calibration"}
+W4A8_MATMULS = ["B1_w4a8_stacked", "B2_w4a8_gateup_silu", "B3_w4a8_flat"]
+W4A8_KERNELS = W4A8_MATMULS + ["B4_decode_attention_append"]
+# decode attention of the W4A8 slices: mode, its kernels, their launches per step
+SIDE_KERNELS = {"two_part": ["B7_decode_attention", "B8_fresh_write"],
+                "hybrid": ["B6_decode_attention_stats", "B8_fresh_write"]}
+W4A8_PER_STEP = {"w4a8_stacked": 3 * LAYERS, "w4a8_gateup": LAYERS, "w4a8_flat": 1}
+W4A8_APPEND_PER_STEP = W4A8_PER_STEP | {"decode_attention_append": LAYERS}
 # SpinQuant + GPTQ calibration: the CLI's defaults (samples x tokens)
 CALIB_SAMPLES, CALIB_LEN = 128, 512
 # B10 launches while calibrating: R1, then one R2 per layer
@@ -247,7 +278,7 @@ def check_decode_attention(gen, B=128, KV=8, r=4, D=64, S=256, pos=144):
     bufs = [t.clone() for t in (kc, vc, ks, vs)]
     got = da.decode_attention_append(q, nk, nv, nks, nvs, *bufs, p, scale=scale)
     ref_bufs = [t.clone() for t in (kc, vc, ks, vs)]
-    want = da.decode_attention_plain(q, nk, nv, nks, nvs, *ref_bufs, p, scale=scale)
+    want = da.decode_attention_append_plain(q, nk, nv, nks, nvs, *ref_bufs, p, scale=scale)
     torch.cuda.synchronize()
     for a, b in zip(bufs, ref_bufs):
         if not torch.equal(a, b):
@@ -270,12 +301,180 @@ def check_decode_attention(gen, B=128, KV=8, r=4, D=64, S=256, pos=144):
     lib = lambda: torch.nn.functional.scaled_dot_product_attention(
         qh, kd, vd, attn_mask=mask, enable_gqa=True)
     run = lambda: da.decode_attention_append(q, nk, nv, nks, nvs, *bufs, p, scale=scale)
-    plain = lambda: da.decode_attention_plain(q, nk, nv, nks, nvs, *ref_bufs, p, scale=scale)
+    plain = lambda: da.decode_attention_append_plain(q, nk, nv, nks, nvs, *ref_bufs, p, scale=scale)
     return {"case": f"decode B={B} KV={KV} r={r} D={D} S={S} pos={pos}",
             "tolerance": "codes bitwise; f32 ulps + one prob code on <= 1% of outputs",
             "max_abs_err": float(err.max()), "ms": time_ms(run),
             "plain_ms": time_ms(plain, reps=3, warmup=1), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": time_ms(lib)}
+
+
+def _attention_inputs(gen, B, KV, r, D, S, W):
+    i8 = lambda *shp: torch.randint(-127, 128, shp, generator=gen, device="cuda",
+                                    dtype=torch.int16).to(torch.int8)
+    sc = lambda *shp: torch.rand(shp, generator=gen, device="cuda") * 0.02
+    q = torch.randn((B, KV, r, D), generator=gen, device="cuda")
+    return q, (i8(B, KV, S, D), i8(B, KV, S, D), sc(B, KV, S), sc(B, KV, S)), \
+        (i8(B, KV, W, D), i8(B, KV, W, D), sc(B, KV, W), sc(B, KV, W))
+
+
+def _attention_close(got, want, vmax, label):
+    err = (got - want).abs()
+    ulps = 4 * torch.finfo(torch.float32).eps * want.abs() + 1e-7
+    if not bool((err <= ulps + vmax).all()) or float((err > ulps).float().mean()) > 0.01:
+        raise AssertionError(f"{label}: kernel disagrees with plain (max err {float(err.max())})")
+    return float(err.max())
+
+
+def _sdpa_yardstick(q, parts, keep):
+    """One SDPA call on the dequantized bf16 K/V of ``parts`` (concatenated
+    along the sequence) under the kept-lane mask ``keep`` (B, S_total)."""
+    B, KV, r, D = q.shape
+    kd = torch.cat([(k.float() * ks[..., None]).to(torch.bfloat16) for k, _, ks, _ in parts], 2)
+    vd = torch.cat([(v.float() * vs[..., None]).to(torch.bfloat16) for _, v, _, vs in parts], 2)
+    qh = q.reshape(B, KV * r, 1, D).to(torch.bfloat16)
+    mask = keep[:, None, None, :]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kd, vd, attn_mask=mask, enable_gqa=True)
+
+
+def check_two_part(gen, side: bool, window=0, softcap=None, B=128, KV=8, r=4, D=64, S=256,
+                   len0=128, t=16, W=32):
+    """One B7 case: slots with ``len0`` main rows, the step-``t`` side block
+    of W lanes (or none), position len0 + t. Tolerance as B4's."""
+    from llm_compressor_tpu_torch.kernels import decode_attention as da
+
+    q, main, fresh = _attention_inputs(gen, B, KV, r, D, S, W)
+    mlen = torch.full((B,), len0, dtype=torch.int32, device="cuda")
+    pos = mlen + t
+    fr = fresh if side else None
+    scale = D ** -0.5
+    run = lambda: da.decode_attention(q, *main, mlen, pos, window, t, fr, scale=scale,
+                                      softcap=softcap)
+    plain = lambda: da.decode_attention_plain(q, *main, mlen, pos, window, t, fr, scale=scale,
+                                              softcap=softcap)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err = _attention_close(got, want, float(max(main[3].max(), fresh[3].max())), "B7")
+    keep = da._keep_main(S, mlen, pos, window)
+    parts = [main]
+    if side:
+        keep = torch.cat([keep, da._keep_side(W, mlen, pos, window, t)], 1)
+        parts.append(fresh)
+    n = int(keep.sum())                              # kept rows of all slots
+    nbytes = q.numel() * 4 + 2 * B * 4 + 2 * KV * n * (D + 4) + got.numel() * 4
+    b_ms, b_by = bound(nbytes, 2.0 * 2 * KV * r * n * D, INT8_OPS_PER_S)
+    cap = "" if softcap is None else f" softcap={softcap}"
+    win = "" if window <= 0 else f" window={window}"
+    return {"case": (f"two-part B={B} KV={KV} r={r} D={D} S={S} len0={len0} "
+                     + (f"t={t} W={W}" if side else "no side block") + win + cap),
+            "tolerance": "f32 ulps + one prob code on <= 1% of outputs",
+            "max_abs_err": err, "ms": time_ms(run), "plain_ms": time_ms(plain, reps=3, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(_sdpa_yardstick(q, parts, keep))}
+
+
+def check_stats(gen, window=0, softcap=None, B=128, KV=8, r=4, D=64, S=256, len0=128, t=16,
+                W=32):
+    """One B6 case on the side statistics of a real side block (as the
+    hybrid decode computes them). Tolerance: m, a, sum_main to rtol 1e-5;
+    o32 equal but for flipped prob codes on at most 1 % of entries."""
+    from llm_compressor_tpu_torch.kernels import decode_attention as da
+
+    q, main, fresh = _attention_inputs(gen, B, KV, r, D, S, W)
+    mlen = torch.full((B,), len0, dtype=torch.int32, device="cuda")
+    pos = mlen + t
+    scale = D ** -0.5
+    qi, qs = da.row_quant_i8(q)
+    s_f = da._masked(da._scores(qi, qs, fresh[0], fresh[2], scale, softcap),
+                     da._keep_side(W, mlen, pos, window, t))
+    m_f = torch.amax(s_f, -1, keepdim=True)
+    wfm = torch.amax(torch.exp(s_f - m_f) * fresh[3][:, :, None, :], -1, keepdim=True)
+    run = lambda: da.decode_attention_stats(qi, qs, m_f, wfm, *main, mlen, pos, window,
+                                            scale=scale, softcap=softcap)
+    plain = lambda: da.decode_attention_stats_plain(qi, qs, m_f, wfm, *main, mlen, pos, window,
+                                                    scale=scale, softcap=softcap)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    keep = da._keep_main(S, mlen, pos, window)
+    n = int(keep.sum())                              # kept main rows of all slots
+    rel = {k: float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+           for k, a, b in zip(("m", "a", "sum"), got[1:], want[1:])}
+    d = (got[0] - want[0]).abs()
+    # an ulp of a softcapped score (tanhf against torch's tanh) moves
+    # e = exp(s - m) by |s - m| ulps: rtol 1e-5 holds m, a and sum_main
+    if max(rel.values()) > 1e-5 or float((d > 0).float().mean()) > 0.01:
+        raise AssertionError(f"B6: kernel disagrees with plain (relative errors {rel}, max o32 "
+                             f"err {float(d.max())})")
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    nbytes = (qi.numel() + 3 * qs.numel() * 4 + 2 * B * 4 + 2 * KV * n * (D + 4)
+              + got[0].numel() * 4 + 3 * qs.numel() * 4)
+    b_ms, b_by = bound(nbytes, 2.0 * 2 * KV * r * n * D, INT8_OPS_PER_S)
+    cap = "" if softcap is None else f" softcap={softcap}"
+    win = "" if window <= 0 else f" window={window}"
+    return {"case": f"main part B={B} KV={KV} r={r} D={D} S={S} len0={len0} t={t}{win}{cap}",
+            "tolerance": "m, a, sum rtol 1e-5; o32 exact on >= 99% of entries",
+            "max_abs_err": err, "ms": time_ms(run), "plain_ms": time_ms(plain, reps=3, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(_sdpa_yardstick(q, [main], keep))}
+
+
+def check_fresh_write(gen, L=LAYERS, B=128, KV=8, W=32, D=64, layer=7, t=16):
+    """B8: one token into a layer's side block, bitwise. Bound: the token's
+    bytes read once and written once; library: the same four indexed
+    copies as single PyTorch calls."""
+    from llm_compressor_tpu_torch.kernels import decode_attention as da
+
+    i8 = lambda *shp: torch.randint(-127, 128, shp, generator=gen, device="cuda",
+                                    dtype=torch.int16).to(torch.int8)
+    fresh = (i8(L, B, KV, W, D), i8(L, B, KV, W, D),
+             torch.rand((L, B, KV, W), generator=gen, device="cuda"),
+             torch.rand((L, B, KV, W), generator=gen, device="cuda"))
+    new = (i8(B, KV, D), i8(B, KV, D), torch.rand((B, KV), generator=gen, device="cuda"),
+           torch.rand((B, KV), generator=gen, device="cuda"))
+    ref = da.fresh_write_plain(tuple(a.clone() for a in fresh), new, layer, t)
+    got = da.fresh_write(fresh, new, layer, t)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise AssertionError("B8: kernel disagrees with plain")
+    views = [a[layer, :, :, t] for a in ref]
+    b_ms, b_by = bound(2.0 * 2 * B * KV * (D + 4), 0.0, INT8_OPS_PER_S)
+    return {"case": f"one token, layer {layer} lane {t} of L={L} B={B} KV={KV} W={W} D={D}",
+            "tolerance": "bitwise", "max_abs_err": 0.0,
+            "ms": time_ms(lambda: da.fresh_write(fresh, new, layer, t)),
+            "plain_ms": time_ms(lambda: da.fresh_write_plain(ref, new, layer, t), reps=5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: [v.copy_(n) for v, n in zip(views, new)])}
+
+
+def check_w4a8_actq(gen, label, M, N, C, wfmt):
+    """One B9 case: raw bf16 acts, bitwise against the act quantizer + B3's
+    plain version; ``b3_ms`` times B3 on host-quantised acts at the same
+    shape, so ms - b3_ms is the price of quantising in every N-block."""
+    from llm_compressor_tpu_torch.kernels import w4a8_matmul as wm
+
+    cb = C if wfmt == 0 else C // 2
+    codes = _rand_codes(gen, (N, cb), wfmt)
+    scales = torch.rand((N, C // 128), generator=gen, device="cuda") * 1e-2 + 1e-3
+    x = torch.randn((M, C), generator=gen, device="cuda").to(torch.bfloat16)
+    bf = torch.bfloat16
+    run = lambda: wm.matmul_actq(x, codes, scales, wfmt, bf)
+    plain = lambda: wm.actq_plain(x, codes, scales, wfmt, bf)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"B9 {label}: kernel disagrees with plain "
+                             f"(max err {float((got.float() - want.float()).abs().max())})")
+    x_i8, sx = wm.quantize_acts_per_token(x)
+    nbytes = x.numel() * 2 + codes.numel() + scales.numel() * 4 + M * N * 2
+    b_ms, b_by = bound(nbytes, 2.0 * M * N * C, INT8_OPS_PER_S)
+    w_bf = torch.randn((N, C), generator=gen, device="cuda").to(bf)
+    case = {"case": label, "M": M, "N": N, "C": C, "tolerance": "bitwise", "max_abs_err": 0.0,
+            "ms": time_ms(run), "plain_ms": time_ms(plain, reps=3, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: torch.matmul(x, w_bf.t())),
+            "b3_ms": time_ms(lambda: wm.matmul_flat(x_i8, codes, scales, sx, wfmt, bf))}
+    del codes, scales, w_bf
+    return case
 
 
 def check_dequant_matmul(gen, label, M, N, C, fmt, zeros: bool, g=128):
@@ -385,6 +584,16 @@ def phase_kernels(seed: int):
             check_dequant_matmul(gen, "decode int8-g128 head", 128, V, E, dm.F_INT8, False),
             check_dequant_matmul(gen, "decode qkv fp8-e4m3-g128", 128, 3072, E,
                                  dm.F_FP8_E4M3, True)],
+        "B6_decode_attention_stats": [
+            check_stats(gen), check_stats(gen, window=64, softcap=50.0)],
+        "B7_decode_attention": [
+            check_two_part(gen, True), check_two_part(gen, False),
+            check_two_part(gen, True, window=64, softcap=50.0)],
+        "B8_fresh_write": [check_fresh_write(gen)],
+        "B9_w4a8_actq": [
+            check_w4a8_actq(gen, "int8 head, raw bf16 acts", 128, V, E, 0),
+            check_w4a8_actq(gen, "flat qkv int4-g128 pair planes, raw bf16 acts", 128, 3072, E,
+                            1)],
         "B10_hadamard": [
             check_hadamard(gen, "R1 draw: +-1 diagonal 2048 f32", E, E, torch.float32, True),
             check_hadamard(gen, "R2 draw: +-1 diagonal 64 f32", 64, 64, torch.float32, True),
@@ -397,7 +606,8 @@ def phase_kernels(seed: int):
             log(f"kernel {name} [{c['case']}]: max_abs_err={c['max_abs_err']} "
                 f"({c['tolerance']}) ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
                 f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']}) "
-                f"library_ms={c['library_ms']:.4f}")
+                f"library_ms={c['library_ms']:.4f}"
+                + (f" b3_ms={c['b3_ms']:.4f}" if "b3_ms" in c else ""))
     return cases
 
 
@@ -437,8 +647,9 @@ def build_model(layers: int, seed: int, serving):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the six kernel wrappers to their plain versions (CUDA tensors
-    included) — the reference run of the reduced-depth checks."""
+    """Route the kernel wrappers of the model paths to their plain versions
+    (CUDA tensors included) — the reference run of the reduced-depth
+    checks."""
     import importlib
 
     from llm_compressor_tpu_torch.kernels import decode_attention as da
@@ -447,20 +658,27 @@ def plain_kernels():
     from llm_compressor_tpu_torch.kernels import w4a8_matmul as wm
 
     gen_mod = importlib.import_module("llm_compressor_tpu_torch.engine.generate")
-    saved = (wm.matmul_stacked, wm.matmul_flat, wm.gateup_silu, gen_mod.decode_attention_append,
-             dm.dequant_matmul_codes, hd.hadamard_transform)
-    wm.matmul_stacked = lambda x, c, s, sx, layer, f, dt: wm.w4a8_plain(x, c[layer], s[layer], sx, f, dt)
-    wm.matmul_flat = wm.w4a8_plain
-    wm.gateup_silu = lambda x, c, s, sx, layer, f, act, dt: wm.gateup_plain(
-        x, c[layer], s[layer], sx, f, act, dt)
-    gen_mod.decode_attention_append = da.decode_attention_plain
-    dm.dequant_matmul_codes = dm.dequant_matmul_plain
-    hd.hadamard_transform = hd.hadamard_transform_plain
+    kv_mod = importlib.import_module("llm_compressor_tpu_torch.engine.kvcache")
+    plain = [
+        (wm, "matmul_stacked", lambda x, c, s, sx, layer, f, dt: wm.w4a8_plain(
+            x, c[layer], s[layer], sx, f, dt)),
+        (wm, "matmul_flat", wm.w4a8_plain),
+        (wm, "gateup_silu", lambda x, c, s, sx, layer, f, act, dt: wm.gateup_plain(
+            x, c[layer], s[layer], sx, f, act, dt)),
+        (gen_mod, "decode_attention_append", da.decode_attention_append_plain),
+        (gen_mod, "decode_attention", da.decode_attention_plain),
+        (da, "decode_attention_stats", da.decode_attention_stats_plain),
+        (kv_mod, "fresh_write", da.fresh_write_plain),
+        (dm, "dequant_matmul_codes", dm.dequant_matmul_plain),
+        (hd, "hadamard_transform", hd.hadamard_transform_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in plain]
+    for mod, name, fn in plain:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        (wm.matmul_stacked, wm.matmul_flat, wm.gateup_silu, gen_mod.decode_attention_append,
-         dm.dequant_matmul_codes, hd.hadamard_transform) = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def new_cache(cfg, batch, max_len, serving):
@@ -470,9 +688,11 @@ def new_cache(cfg, batch, max_len, serving):
                       quantized=serving[2])
 
 
-def run_slice(params, cfg, qcfg, serving, batch, prompt, steps, max_len, seed):
-    """Prefill then ``steps`` greedy steps; also returns the launch counts
-    read between the two (the counters run on from wherever they were)."""
+def run_slice(params, cfg, qcfg, serving, batch, prompt, steps, max_len, seed,
+              attention="append"):
+    """Prefill then ``steps`` greedy steps in the ``attention`` mode; also
+    returns the launch counts read between the two (the counters run on
+    from wherever they were)."""
     from llm_compressor_tpu_torch import kernels
     from llm_compressor_tpu_torch.engine import decode_greedy_steps, prefill
 
@@ -487,20 +707,52 @@ def run_slice(params, cfg, qcfg, serving, batch, prompt, steps, max_len, seed):
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     after_prefill = kernels.launch_counts()
-    out, cache = decode_greedy_steps(params, tok, cache, n=steps, cfg=cfg, qcfg=qcfg)
+    out, cache = decode_greedy_steps(params, tok, cache, n=steps, cfg=cfg, qcfg=qcfg,
+                                     attention=attention)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     return logits, out, cache, (t1 - t0) * 1e3, (t2 - t1) * 1e3, after_prefill
 
 
-def check_reduced_depth(seed: int, serving, kernel_names, gap_tol: float = 0.1, build=None):
+def _side_block_decode(params, cfg, qcfg, cache, tok, steps, attention, feed):
+    """The side-block decode of ``decode_greedy_steps`` step by step, so that
+    the reference's tokens can be fed in and every step's logits kept:
+    B8 writes, B7 (or B6) attends, one merge after the steps."""
+    import importlib
+
+    from llm_compressor_tpu_torch.models import head
+
+    gen_mod = importlib.import_module("llm_compressor_tpu_torch.engine.generate")
+    kv_mod = importlib.import_module("llm_compressor_tpu_torch.engine.kvcache")
+    len0 = cache.lengths.clone()
+    fresh = kv_mod.init_fresh(cfg.num_layers, cache.batch, steps, cfg.num_kv_heads,
+                              cfg.head_dim, device=cache.k.device)
+    all_logits = []
+    with torch.inference_mode():
+        for t in range(steps):
+            if feed is not None:
+                tok = feed[t]
+            h = gen_mod._forward_decode_fresh(params, cfg, tok, cache, fresh, t, len0, qcfg,
+                                              attention)
+            logits = head(params, cfg, h, qcfg)[:, -1, :]
+            all_logits.append(logits)
+            tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        kv_mod.merge_fresh(cache, fresh, len0, steps)
+    return all_logits
+
+
+def check_reduced_depth(seed: int, serving, kernel_names, gap_tol: float = 0.1, build=None,
+                        attention="append"):
     """2 layers, full width: teacher-force the plain path's greedy tokens
     through both paths; where the plain logits' top-2 gap exceeds
     ``gap_tol`` the kernel path's argmax must be the same token. The kernel
     run must launch every kernel of ``kernel_names`` and no other.
     ``build(layers)`` makes the model, by default RTN (``build_model``),
     once for both paths; a given ``build`` runs once on each path (under
-    ``plain_kernels`` for the reference), as part of that path's run."""
+    ``plain_kernels`` for the reference), as part of that path's run.
+    ``attention`` is the decode mode; a side-block mode also runs the
+    kernel path's in-place B4 decode on the same tokens and returns how many
+    of its tokens and how many merged-cache codes differ from that."""
     from llm_compressor_tpu_torch import kernels
     from llm_compressor_tpu_torch.engine import decode_step, prefill
 
@@ -516,28 +768,31 @@ def check_reduced_depth(seed: int, serving, kernel_names, gap_tol: float = 0.1, 
     toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device="cuda",
                          dtype=torch.int32)
 
-    def run(model, feed=None):
+    def run(model, feed=None, mode=attention):
         cfg, qcfg, params = model
         cache = new_cache(cfg, B, 64, serving)
         logits, cache = prefill(params, toks, cache, cfg=cfg, qcfg=qcfg)
         all_logits = [logits]
         tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        if mode != "append":
+            return all_logits + _side_block_decode(params, cfg, qcfg, cache, tok, steps, mode,
+                                                   feed), cache
         for i in range(steps):
             if feed is not None:
                 tok = feed[i]
             logits, cache = decode_step(params, tok, cache, cfg=cfg, qcfg=qcfg)
             all_logits.append(logits)
             tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
-        return all_logits
+        return all_logits, cache
 
     with plain_kernels():
-        ref = run(ref_model)
+        ref, _ = run(ref_model)
     if any(kernels.launch_counts().values()):
         raise AssertionError(f"the plain run launched kernels: {kernels.launch_counts()}")
     feed = [torch.argmax(lg, -1).to(torch.int32)[:, None] for lg in ref[:-1]]
     model = ref_model if build is None else build(2)
     del ref_model
-    got = run(model, feed)
+    got, got_cache = run(model, feed)
     counts = kernels.launch_counts()
     used = {COUNTER_OF[k] for k in kernel_names}
     if any((v > 0) != (k in used) for k, v in counts.items()):
@@ -554,8 +809,19 @@ def check_reduced_depth(seed: int, serving, kernel_names, gap_tol: float = 0.1, 
     max_err = max(float((a - b).abs().max()) for a, b in zip(ref, got))
     if agree != checked or checked == 0:
         raise AssertionError(f"reduced-depth check: {agree}/{checked} confident tokens agree")
+    vs_b4 = None
+    if attention != "append":
+        b4, b4_cache = run(model, feed, "append")
+        w = T + steps
+        vs_b4 = {"tokens_equal": sum(int((torch.argmax(a, -1) == torch.argmax(b, -1)).sum())
+                                     for a, b in zip(got, b4)),
+                 "codes_differ_by_layer": [
+                     sum(int((getattr(got_cache, n)[layer, :, :, :w]
+                              != getattr(b4_cache, n)[layer, :, :, :w]).sum())
+                         for n in ("k", "v")) for layer in range(cfg.num_layers)],
+                 "codes": 2 * got_cache.k[:, :, :, :w].numel()}
     del model
-    return checked, (steps + 1) * B, max_err
+    return checked, (steps + 1) * B, max_err, vs_b4
 
 
 def _clone_tree(node):
@@ -672,8 +938,14 @@ def check_gptq_beats_rtn(info, cfg, qcfg):
 
 
 def _kernel_class(name: str) -> str:
-    if "decode_attention" in name:
+    if "decode_attention_append" in name:
         return "B4"
+    if "decode_attention_stats" in name:
+        return "B6"
+    if "decode_attention_kernel" in name:
+        return "B7"
+    if "fresh_write" in name:
+        return "B8"
     if "dequant_matmul_kernel" in name:
         return "B5"
     if "w4a8_kernel" in name:  # template argument NW: 2 is the fused gate|up
@@ -722,7 +994,7 @@ def profile_calibration_pass(info):
             "device_ms_other": round(sum(v for _, v in top[8:]), 3)}
 
 
-def profile_decode(params, cfg, qcfg, cache, token, steps: int = 2):
+def profile_decode(params, cfg, qcfg, cache, token, steps: int = 2, attention="append"):
     """Device time per decode step by kernel class, and the device's idle
     share of the wall-clock window, from a ``torch.profiler`` trace of
     ``steps`` greedy steps (the profiler's own host cost is inside the
@@ -734,7 +1006,8 @@ def profile_decode(params, cfg, qcfg, cache, token, steps: int = 2):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        decode_greedy_steps(params, token, cache, n=steps, cfg=cfg, qcfg=qcfg)
+        decode_greedy_steps(params, token, cache, n=steps, cfg=cfg, qcfg=qcfg,
+                            attention=attention)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, by_class = [], {}
@@ -755,21 +1028,24 @@ def profile_decode(params, cfg, qcfg, cache, token, steps: int = 2):
             "device_ms_per_step": {k: round(v, 4) for k, v in sorted(by_class.items())}}
 
 
-def phase_slice(seed: int, serving, kernel_names, model=None):
+def phase_slice(seed: int, serving, kernel_names, model=None, attention="append",
+                per_step=None):
     """The full-depth slice of one serving config, RTN-built unless a
-    ``model`` (cfg, qcfg, params) is given; every kernel of
-    ``kernel_names`` must launch during it (counts set to 0 just before,
-    read just after) and no other kernel may."""
+    ``model`` (cfg, qcfg, params) is given, decoding in the ``attention``
+    mode; every kernel of ``kernel_names`` must launch during it (counts
+    set to 0 just before, read just after) and no other kernel may, and the
+    decode steps must launch ``per_step`` (counter: launches per step)."""
     from llm_compressor_tpu_torch import kernels
 
     cfg, qcfg, params = model or build_model(LAYERS, seed, serving)
     # warm the allocator, cuBLAS and the kernel libraries at a small batch
-    run_slice(params, cfg, qcfg, serving, batch=8, prompt=16, steps=2, max_len=64, seed=seed)
+    run_slice(params, cfg, qcfg, serving, batch=8, prompt=16, steps=2, max_len=64, seed=seed,
+              attention=attention)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
     logits, out, cache, ttft_ms, dec_ms, after_prefill = run_slice(
         params, cfg, qcfg, serving, batch=BATCH, prompt=PROMPT, steps=STEPS, max_len=MAX_LEN,
-        seed=seed)
+        seed=seed, attention=attention)
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     if not bool(torch.isfinite(logits).all()) or logits.shape != (BATCH, cfg.vocab_size):
@@ -785,8 +1061,11 @@ def phase_slice(seed: int, serving, kernel_names, model=None):
     stray = {k: v for k, v in counts.items() if v and k not in used}
     if stray:
         raise AssertionError(f"kernels of another path launched: {stray}")
-    per_step = {k: (counts[k] - after_prefill[k]) / STEPS for k in sorted(used)}
-    prof = profile_decode(params, cfg, qcfg, cache, out[:, -1:])
+    measured = {k: (counts[k] - after_prefill[k]) / STEPS for k in sorted(used)}
+    if per_step is not None and any(measured[k] != v for k, v in per_step.items()):
+        raise AssertionError(f"launches per decode step {measured}, not {per_step}")
+    per_step = measured
+    prof = profile_decode(params, cfg, qcfg, cache, out[:, -1:], attention=attention)
     del cache
     return {"cfg": cfg, "qcfg": qcfg, "params": params, "counts": counts,
             "per_step": per_step, "ttft_ms": ttft_ms, "decode_ms": dec_ms,
@@ -840,9 +1119,34 @@ def phase_spinquant(seed: int, layer0_at_2_layers):
             raise AssertionError(f"layer 0 {slot}: GPTQ at {LAYERS} layers differs from the "
                                  "2-layer run")
     del info["gptq_layer0"]
-    s = phase_slice(seed, W4A8, W4A8_KERNELS, model=(cfg, qcfg, params))
+    s = phase_slice(seed, W4A8, W4A8_KERNELS, model=(cfg, qcfg, params),
+                    per_step=W4A8_APPEND_PER_STEP)
     del params
     return s | info
+
+
+def phase_actq(cfg, qcfg, params, seed: int):
+    """B9 through its entry point, ``w4a8_matmul(..., act_inside=True)``, on
+    the int8-g128 head and layer 0's flat qkv (int4 pair planes) at M = 128
+    raw bf16 rows; each output must equal the host-quantised B3 path's
+    bitwise. Counts set to 0 just before, read just after."""
+    from llm_compressor_tpu_torch import kernels
+    from llm_compressor_tpu_torch.kernels.w4a8_matmul import w4a8_matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    x = torch.randn((BATCH, cfg.hidden_size), generator=gen, device="cuda").to(torch.bfloat16)
+    weights = (params["lm_head"]["weight"],
+               params["layers_stacked"]["attn"]["qkv_cat"]["weight"].layer(0))
+    kernels.reset_counts()
+    outs = [w4a8_matmul(x, qt, act_inside=True) for qt in weights]
+    counts = kernels.launch_counts()
+    for qt, y in zip(weights, outs):
+        if not torch.equal(y, w4a8_matmul(x, qt)):
+            raise AssertionError("B9 through w4a8_matmul(act_inside=True) differs from B3")
+    if counts["w4a8_actq"] != len(weights) or any(
+            v for k, v in counts.items() if k != "w4a8_actq"):
+        raise AssertionError(f"the B9 entry point launched {counts}")
+    return {"counts": counts}
 
 
 def main() -> int:
@@ -878,16 +1182,25 @@ def main() -> int:
         calibrated.update(info, cfg=cfg, qcfg=qcfg)
         return cfg, qcfg, params
 
-    for label, serving, names, build in (
-            ("W4A8", W4A8, W4A8_KERNELS, None),
-            ("weight-only int4-g128 zp", WEIGHT_ONLY, ["B5_dequant_matmul"], None),
-            ("weight-only fp8-e4m3-g128", WEIGHT_ONLY_FP8, ["B5_dequant_matmul"], None),
+    for label, serving, names, build, attention in (
+            ("W4A8", W4A8, W4A8_KERNELS, None, "append"),
+            ("W4A8 side-block two_part", W4A8, W4A8_MATMULS + SIDE_KERNELS["two_part"], None,
+             "two_part"),
+            ("W4A8 side-block hybrid", W4A8, W4A8_MATMULS + SIDE_KERNELS["hybrid"], None,
+             "hybrid"),
+            ("weight-only int4-g128 zp", WEIGHT_ONLY, ["B5_dequant_matmul"], None, "append"),
+            ("weight-only fp8-e4m3-g128", WEIGHT_ONLY_FP8, ["B5_dequant_matmul"], None, "append"),
             ("SpinQuant-Hadamard + GPTQ, W4A8", W4A8, W4A8_KERNELS + ["B10_hadamard"],
-             build_calibrated)):
-        checked, total, max_err = check_reduced_depth(args.seed, serving, names, build=build)
+             build_calibrated, "append")):
+        checked, total, max_err, vs_b4 = check_reduced_depth(args.seed, serving, names,
+                                                             build=build, attention=attention)
         log(f"reduced depth {label} (2 layers, full width): {checked}/{total} kernel-path "
             f"tokens with a plain top-2 gap > 0.1 equal the plain path's; max |logit diff| "
-            f"{max_err:.4g}")
+            f"{max_err:.4g}" + ("" if vs_b4 is None else
+                                f"; against the in-place B4 path on the same tokens: "
+                                f"{vs_b4['tokens_equal']}/{total} argmax tokens equal, "
+                                f"{vs_b4['codes_differ_by_layer']} (by layer) of "
+                                f"{vs_b4['codes']} merged-cache codes differ"))
     ratios = check_gptq_beats_rtn(calibrated, calibrated["cfg"], calibrated["qcfg"])
     log(f"GPTQ vs RTN, layer 0 (same rotated W, quantizer and calibration inputs): "
         f"||(W-Q_gptq)X|| / ||(W-Q_rtn)X|| = {json.dumps(ratios)}")
@@ -899,21 +1212,37 @@ def main() -> int:
     calibrated.clear()
 
     slices = {}
-    for key, label, serving, names in (
-            ("w4a8", "Llama-3.2-1B W4A8, int8 KV cache", W4A8, W4A8_KERNELS),
+    w4a8_model = None
+    for key, label, serving, names, attention, per_step in (
+            ("w4a8", "Llama-3.2-1B W4A8, int8 KV cache", W4A8, W4A8_KERNELS, "append",
+             W4A8_APPEND_PER_STEP),
+            ("w4a8_two_part", "the w4a8 slice's params, side-block two_part decode", W4A8,
+             W4A8_MATMULS + SIDE_KERNELS["two_part"], "two_part",
+             W4A8_PER_STEP | {"decode_attention": LAYERS, "fresh_write": LAYERS}),
+            ("w4a8_hybrid", "the w4a8 slice's params, side-block hybrid decode", W4A8,
+             W4A8_MATMULS + SIDE_KERNELS["hybrid"], "hybrid",
+             W4A8_PER_STEP | {"decode_attention_stats": LAYERS, "fresh_write": LAYERS}),
             ("weight_only", "Llama-3.2-1B weight-only int4-g128 zp + int8-g128 head, bf16 KV "
-             "cache", WEIGHT_ONLY, ["B5_dequant_matmul"])):
-        s = phase_slice(args.seed, serving, names)
+             "cache", WEIGHT_ONLY, ["B5_dequant_matmul"], "append",
+             {"dequant_matmul": B5_PER_STEP})):
+        if key == "weight_only":   # the W4A8 slices and the B9 entry point are done
+            actq = phase_actq(*w4a8_model, args.seed)
+            log(f"B9 entry point w4a8_matmul(..., act_inside=True) (the w4a8 slice's int8 head "
+                f"and layer-0 qkv, M = 128, equal to the host-quantised B3 path bitwise): "
+                f"launches {actq['counts']}")
+            w4a8_model = None
+            torch.cuda.empty_cache()
+        s = phase_slice(args.seed, serving, names, model=w4a8_model, attention=attention,
+                        per_step=per_step)
         log(f"slice {key}: {label}, {LAYERS} layers, batch {BATCH}, prompt {PROMPT}, "
             f"max_len {MAX_LEN}: prefill (TTFT) {s['ttft_ms']:.2f} ms, {STEPS} decode steps "
             f"{s['decode_ms']:.2f} ms = {s['decode_tok_s']:.1f} tok/s, peak memory "
             f"{s['peak_mem_gib']:.2f} GiB on {smi}; launches {s['counts']}, per decode step "
             f"{s['per_step']}")
         log(f"slice {key} decode profile (2 steps, torch.profiler): {json.dumps(s['profile'])}")
+        if key == "w4a8":
+            w4a8_model = (s["cfg"], s["qcfg"], s["params"])
         if key == "weight_only":
-            if s["per_step"]["dequant_matmul"] != B5_PER_STEP:
-                raise AssertionError(f"B5 launched {s['per_step']['dequant_matmul']} times per "
-                                     f"decode step, not {B5_PER_STEP}")
             sampled = check_generate(s["params"], s["cfg"], s["qcfg"], args.seed)
             log(f"generate (weight-only, 4 prompts, top_k 50, temperature 0.8, seed "
                 f"{args.seed}, twice, equal): {sampled}")
@@ -936,12 +1265,14 @@ def main() -> int:
         f"{json.dumps(s['profile'])}")
 
     metrics = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    runs = slices | {"actq_entry": actq}
     kernels = []
     for kname, cs in cases.items():
+        run, field = SLICE_OF[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],
-            "replaces": TPU_KERNELS[kname],
-            "launches": slices[SLICE_OF[kname][0]][SLICE_OF[kname][1]][COUNTER_OF[kname]],
+            "replaces": TPU_KERNELS[kname], "launches": runs[run][field][COUNTER_OF[kname]],
+            "launches_from": LAUNCHES_FROM[run],
             **{k: cs[0][k] for k in metrics}, "case": cs[0]["case"],
             "other_cases": [{"case": c["case"], **{k: c[k] for k in metrics}}
                             for c in cs[1:]],

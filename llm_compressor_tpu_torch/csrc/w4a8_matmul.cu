@@ -1,9 +1,10 @@
-// W4A8 integer matmul family for Hopper (sm_90a): kernels B1, B2, B3.
+// W4A8 integer matmul family for Hopper (sm_90a): kernels B1, B2, B3, B9.
 //
 // Replaces the TPU kernels of llm_compressor_tpu/kernels/w4a8_matmul.py:
 //   B1 _call_stacked     (:405)  stacked weights, one layer per call
 //   B3 _call             (:353)  unstacked weights, incl. the int8 branch
 //   B2 _call_gateup_silu (:517)  fused [gate | up] + activation epilogue
+//   B9 _call_actq        (:621)  B3 with the per-token int8 act quant inside
 //
 //   y[m, n] = sx[m] * sum_g s_w[n, g] * (x_i8[m, g] . w[n, g])
 //
@@ -23,6 +24,16 @@
 // tile (twice at M=128) and does not use the tensor cores; wgmma/TMA is
 // later work.
 //
+// B9 takes the raw bf16 / f32 activations. Each block first quantises its
+// 64 rows into dynamic shared memory (64 x C int8, 128 KB at C = 2048; C
+// up to 3072 fits the 227 KB a block may use): a warp per row takes the
+// absmax, scale = max(absmax * (1/127), 1e-5) (the f32 reciprocal, as XLA
+// computes the JAX quantizer under jit), codes = clip(rint(x / scale)) with
+// an IEEE division, then runs B3's group loop staging from shared memory.
+// Every N-block of a row block quantises the same rows again: at the
+// int8 head (M = 128, 2,004 N-blocks) that is 4,008 passes over 256 KB of
+// L2-resident activations, the price of needing no second launch.
+//
 // Weight layouts (qformats/qtensor.py): int8 codes (N, C); int4 "pair
 // planes" codes (N, C/2) where byte j of group pair t holds element j of
 // group 2t (low nibble) and of group 2t+1 (high nibble); int4 "group
@@ -34,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int BM = 64;
@@ -42,6 +55,7 @@ constexpr int KC = 128;        // K elements staged per step
 constexpr int KW = KC / 4;     // int32 words per staged row
 constexpr int LDS = KW + 1;    // padded shared row stride (bank-conflict free)
 constexpr int THREADS = 256;
+constexpr float kInv127 = 1.0f / 127.0f;
 
 enum WFmt { W_INT8 = 0, W_PAIRS = 1, W_HALVES = 2 };
 enum Act { ACT_SILU = 1, ACT_GELU = 2, ACT_GELU_TANH = 3 };
@@ -117,15 +131,29 @@ __device__ __forceinline__ float activate(int act, float g) {
   return 0.5f * g * (1.0f + tanhf(inner));
 }
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 // NW = 1: plain matmul over N rows. NW = 2: fused gate|up — output column
-// j reads weight rows j (gate) and I + j (up), I = n_out.
-template <int WFMT, typename OutT, int NW>
+// j reads weight rows j (gate) and I + j (up), I = n_out. XT = int8_t: x
+// holds the act codes and sx their scales (B1-B3); XT = float or bf16: x
+// holds the raw acts, quantised here (B9; sx unused).
+template <int WFMT, typename OutT, int NW, typename XT>
 __global__ void __launch_bounds__(THREADS)
-w4a8_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
+w4a8_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
             const float* __restrict__ scales, const float* __restrict__ sx,
             OutT* __restrict__ out, int M, int n_out, int C, int group, int act) {
+  constexpr bool ACTQ = !std::is_same<XT, int8_t>::value;
   __shared__ uint32_t xs[BM * LDS];
   __shared__ uint32_t ws[NW][BN * LDS];
+  extern __shared__ uint4 xq_words[];  // B9: the block's (BM, C) act codes
+  __shared__ float sxs[ACTQ ? BM : 1];
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -133,6 +161,28 @@ w4a8_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
   const int G = C / group;
   const int chunks = group / KC;
   const long row_bytes = (WFMT == W_INT8) ? C : C / 2;
+  int8_t* xq = reinterpret_cast<int8_t*>(xq_words);
+
+  if constexpr (ACTQ) {
+    const int lane = tid % 32;
+    for (int row = tid / 32; row < BM; row += THREADS / 32) {
+      const int m = m0 + row;
+      int8_t* qrow = xq + (long)row * C;
+      if (m >= M) {
+        for (int c = lane; c < C; c += 32) qrow[c] = 0;
+        continue;
+      }
+      const XT* xr = x + (long)m * C;
+      float amax = 0.0f;
+      for (int c = lane; c < C; c += 32) amax = fmaxf(amax, fabsf(to_f32(xr[c])));
+      amax = warp_max(amax);
+      const float s = fmaxf(__fmul_rn(amax, kInv127), 1e-5f);
+      for (int c = lane; c < C; c += 32)
+        qrow[c] = int8_t(fminf(fmaxf(rintf(__fdiv_rn(to_f32(xr[c]), s)), -127.0f), 127.0f));
+      if (lane == 0) sxs[row] = s;
+    }
+    __syncthreads();
+  }
 
   float acc[NW][4][4];
 #pragma unroll
@@ -158,7 +208,9 @@ w4a8_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
         const int idx = tid + rep * THREADS;  // 512 = 64 rows x 8 x 16 bytes
         const int row = idx / 8, q = idx % 8;
         uint4 v = make_uint4(0, 0, 0, 0);
-        if (m0 + row < M)
+        if constexpr (ACTQ)
+          v = *reinterpret_cast<const uint4*>(xq + (long)row * C + k0 + q * 16);
+        else if (m0 + row < M)
           v = *reinterpret_cast<const uint4*>(x + (long)(m0 + row) * C + k0 + q * 16);
         uint32_t* dx = &xs[row * LDS + q * 4];
         dx[0] = v.x; dx[1] = v.y; dx[2] = v.z; dx[3] = v.w;
@@ -200,7 +252,7 @@ w4a8_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + ty + 16 * i;
     if (m >= M) continue;
-    const float sm = sx[m];
+    const float sm = ACTQ ? sxs[ty + 16 * i] : sx[m];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx + 16 * j;
@@ -220,19 +272,27 @@ w4a8_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
   }
 }
 
-template <int NW>
+template <int NW, typename XT>
 int launch(const void* x, const void* w, const void* scales, const void* sx, void* out,
            int M, int n_out, int C, int group, int wfmt, int out_bf16, int act,
            cudaStream_t stream) {
   dim3 grid((n_out + BN - 1) / BN, (M + BM - 1) / BM);
-  const int8_t* xi = static_cast<const int8_t*>(x);
+  const XT* xi = static_cast<const XT*>(x);
   const uint8_t* wi = static_cast<const uint8_t*>(w);
   const float* si = static_cast<const float*>(scales);
   const float* sxi = static_cast<const float*>(sx);
-#define LLMC_W4A8_LAUNCH(WF, T)                                                     \
-  w4a8_kernel<WF, T, NW><<<grid, THREADS, 0, stream>>>(xi, wi, si, sxi,             \
-                                                       static_cast<T*>(out), M,    \
-                                                       n_out, C, group, act)
+  const size_t smem = std::is_same<XT, int8_t>::value ? 0 : size_t(BM) * C;
+#define LLMC_W4A8_LAUNCH(WF, T)                                                         \
+  do {                                                                                  \
+    auto kern = w4a8_kernel<WF, T, NW, XT>;                                             \
+    if (smem > 0) { /* static + dynamic may pass 48 KB */                                \
+      cudaError_t e = cudaFuncSetAttribute(                                             \
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));                \
+      if (e != cudaSuccess) return int(e);                                              \
+    }                                                                                   \
+    kern<<<grid, THREADS, smem, stream>>>(xi, wi, si, sxi, static_cast<T*>(out), M,     \
+                                          n_out, C, group, act);                        \
+  } while (0)
   if (out_bf16) {
     if (wfmt == W_INT8) LLMC_W4A8_LAUNCH(W_INT8, __nv_bfloat16);
     else if (wfmt == W_PAIRS) LLMC_W4A8_LAUNCH(W_PAIRS, __nv_bfloat16);
@@ -253,8 +313,21 @@ int launch(const void* x, const void* w, const void* scales, const void* sx, voi
 extern "C" int llmc_w4a8_matmul(const void* x, const void* w, const void* scales,
                                 const void* sx, void* out, int M, int N, int C,
                                 int group, int wfmt, int out_bf16, void* stream) {
-  return launch<1>(x, w, scales, sx, out, M, N, C, group, wfmt, out_bf16, 0,
-                   static_cast<cudaStream_t>(stream));
+  return launch<1, int8_t>(x, w, scales, sx, out, M, N, C, group, wfmt, out_bf16, 0,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// B9: x (M, C) raw acts, bf16 (x_bf16 = 1) or f32, quantised per row inside
+// the kernel; w, scales, out as for llmc_w4a8_matmul. C * 64 bytes of
+// dynamic shared memory.
+extern "C" int llmc_w4a8_matmul_actq(const void* x, const void* w, const void* scales,
+                                     void* out, int M, int N, int C, int group, int wfmt,
+                                     int out_bf16, int x_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    return launch<1, __nv_bfloat16>(x, w, scales, nullptr, out, M, N, C, group, wfmt,
+                                    out_bf16, 0, st);
+  return launch<1, float>(x, w, scales, nullptr, out, M, N, C, group, wfmt, out_bf16, 0, st);
 }
 
 // Fused gate|up: w holds 2I rows ([gate | up]); out (M, I).
@@ -262,6 +335,6 @@ extern "C" int llmc_w4a8_gateup(const void* x, const void* w, const void* scales
                                 const void* sx, void* out, int M, int I, int C,
                                 int group, int wfmt, int out_bf16, int act,
                                 void* stream) {
-  return launch<2>(x, w, scales, sx, out, M, I, C, group, wfmt, out_bf16, act,
-                   static_cast<cudaStream_t>(stream));
+  return launch<2, int8_t>(x, w, scales, sx, out, M, I, C, group, wfmt, out_bf16, act,
+                           static_cast<cudaStream_t>(stream));
 }

@@ -18,6 +18,15 @@ chooses it:
   SV activation quantizers as configured (JAX :306-363, which runs it
   outside any Pallas kernel).
 
+``decode_greedy_steps(..., attention=...)`` also runs the JAX package's
+side-block decode (its "FreshKV" scan path, :469-653, :760-928), which
+the JAX package selects with import-time switches: ``"two_part"``
+(``LLMC_ATTN_APPEND=0``) and ``"hybrid"`` (``LLMC_ATTN_APPEND=0
+LLMC_FUSED_ATTN=1``). The main cache stays read-only during the steps;
+each step's K/V go to a side block through B8, attention reads ``[main |
+side]`` through B7 (two-part) or B6 plus PyTorch (hybrid), and the block
+is merged into the cache once after the steps.
+
 The decode loop is a Python loop over steps and layers; a CUDA graph is
 later work (ROADMAP.md).
 """
@@ -29,7 +38,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..kernels.decode_attention import decode_attention_append
+from ..kernels.decode_attention import (
+    decode_attention,
+    decode_attention_append,
+    hybrid_decode_attention,
+)
 from ..models.config import ModelConfig
 from ..models.layers import apply_norm, int8_per_token, qlinear, qmatmul_qk, qmatmul_sv
 from ..models.transformer import (
@@ -44,7 +57,20 @@ from ..models.transformer import (
     rope_for_positions,
 )
 from ..qformats import QuantConfig
-from .kvcache import KVCache, _quant_i8, append_decode, append_prefill, init_cache, read
+from .kvcache import (
+    FreshKV,
+    KVCache,
+    _quant_i8,
+    append_decode,
+    append_prefill,
+    init_cache,
+    init_fresh,
+    merge_fresh,
+    read,
+    write_fresh,
+)
+
+ATTENTION_MODES = ("append", "two_part", "hybrid")
 
 
 def acts_mode(qk_op, sv_op):
@@ -183,18 +209,96 @@ def decode_step(params, token: torch.Tensor, cache: KVCache, *, cfg: ModelConfig
     return _decode_one(params, token, cache, cfg, qcfg), cache
 
 
+def fresh_path_ok(params, cfg: ModelConfig, cache: KVCache,
+                  qcfg: Optional[QuantConfig]) -> bool:
+    """Whether the side-block decode can run (JAX :907-928): stacked
+    layers, an int8 cache, and int8 per-token acts on both attention
+    matmuls of every layer."""
+    if params.get("layers_stacked") is None or not cache.quantized:
+        return False
+    return all(ops is not None and acts_mode(ops.qk, ops.sv) is True
+               for ops in (layer_ops(cfg, qcfg, i) for i in range(cfg.num_layers)))
+
+
+def _fresh_attention(lp, cfg: ModelConfig, layer: int, x, cache: KVCache, fresh: FreshKV,
+                     t: int, len0, ops: Optional[LayerOps], cos, sin, mode: str):
+    """Side-block attention of one (B, 1, E) slice (JAX :501-653, the two
+    non-append modes): B8 writes the token's codes at lane ``t``, then B7
+    (``"two_part"``) or B6 with the side part in PyTorch (``"hybrid"``)
+    attends over the read-only main rows ``< len0`` and lanes ``<= t``."""
+    B = x.shape[0]
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = project_qkv(lp, cfg, x, ops, cos, sin)
+    kc, ks = _quant_i8(k)                                  # (B, KV, 1, D), (B, KV, 1)
+    vc, vs = _quant_i8(v)
+    write_fresh(fresh, layer, t, *(a[:, :, 0].contiguous() for a in (kc, vc, ks, vs)))
+    attend = decode_attention if mode == "two_part" else hybrid_decode_attention
+    out = attend(q.reshape(B, KV, H // KV, D).float(), cache.k[layer], cache.v[layer],
+                 cache.k_scale[layer], cache.v_scale[layer], len0, len0 + t, 0, t,
+                 fresh.layer(layer), scale=cfg.attn_scale)
+    out = out.to(x.dtype).reshape(B, 1, H * D)             # head h = kv * r + j
+    return qlinear(out, lp["attn"]["o"]["weight"], None, ops.get("o") if ops else None)
+
+
+def _forward_decode_fresh(params, cfg: ModelConfig, tokens, cache: KVCache, fresh: FreshKV,
+                          t: int, len0, qcfg, mode: str):
+    """Hidden states (B, 1, E) of step ``t`` at positions ``len0 + t``
+    (JAX :760-904, non-append branches)."""
+    positions = len0.long()[:, None] + t
+    h = embed(params, cfg, tokens)
+    cos, sin = rope_for_positions(cfg, positions)
+    for i, lp in iter_layers(params):
+        ops = layer_ops(cfg, qcfg, i)
+        h = _layer(lp, cfg, h, ops, lambda xn: _fresh_attention(
+            lp, cfg, i, xn, cache, fresh, t, len0, ops, cos, sin, mode))
+    return h
+
+
 @torch.inference_mode()
 def decode_greedy_steps(params, token: torch.Tensor, cache: KVCache, *, n: int,
-                        cfg: ModelConfig, qcfg: Optional[QuantConfig] = None):
+                        cfg: ModelConfig, qcfg: Optional[QuantConfig] = None,
+                        attention: str = "append"):
     """``n`` greedy decode steps -> (tokens (B, n) int32, cache).
     ``tokens[:, i]`` is the argmax after consuming ``token`` and ``i``
-    generated predecessors."""
+    generated predecessors.
+
+    ``attention`` is the port's explicit form of the JAX package's
+    import-time switches:
+
+    * ``"append"`` (``LLMC_ATTN_APPEND=1``, the default): each step writes
+      its K/V into the cache in place (B4 for the int8-codes attention);
+    * ``"two_part"`` (``LLMC_ATTN_APPEND=0``): the cache stays read-only,
+      step ``t`` goes to lane ``t`` of an ``n``-lane side block (B8), B7
+      attends over ``[main | side]``, and :func:`merge_fresh` writes the
+      block into the cache after the steps;
+    * ``"hybrid"`` (``LLMC_ATTN_APPEND=0 LLMC_FUSED_ATTN=1``): as
+      ``"two_part"``, but B6 takes the main window and PyTorch the side
+      part and the assembly.
+
+    The side-block modes raise ``ValueError`` where :func:`fresh_path_ok`
+    is False."""
+    if attention not in ATTENTION_MODES:
+        raise ValueError(f"attention must be one of {ATTENTION_MODES}, not {attention!r}")
     _check_decode(cache, n)
     out = []
-    for _ in range(n):
-        logits = _decode_one(params, token, cache, cfg, qcfg)
+    if attention == "append":
+        for _ in range(n):
+            logits = _decode_one(params, token, cache, cfg, qcfg)
+            token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            out.append(token)
+        return torch.cat(out, dim=1), cache
+    if not fresh_path_ok(params, cfg, cache, qcfg):
+        raise ValueError(f"attention={attention!r} needs stacked layers, an int8 cache and "
+                         "int8 per-token acts on both attention matmuls")
+    len0 = cache.lengths.clone()
+    fresh = init_fresh(cfg.num_layers, cache.batch, n, cfg.num_kv_heads, cfg.head_dim,
+                       device=cache.k.device)
+    for t in range(n):
+        h = _forward_decode_fresh(params, cfg, token, cache, fresh, t, len0, qcfg, attention)
+        logits = head(params, cfg, h, qcfg)[:, -1, :]
         token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         out.append(token)
+    merge_fresh(cache, fresh, len0, n)
     return torch.cat(out, dim=1), cache
 
 

@@ -8,8 +8,16 @@ keeps the sequence on the TPU's lane axis, (L, B, KV, D, S) with
 (L, B, KV, 1, S) scales; :func:`to_jax_layout` / :func:`from_jax_layout`
 convert for the tests. Decode writes new tokens in place at each slot's
 length (for the int8 cache with int8 attention acts, the decode kernel B4
-does it); the JAX package's side block for new tokens and its merge are
-TPU workarounds that the port does not need.
+does it) by default.
+
+The side block (:class:`FreshKV`, JAX :150-261) serves the side-block
+decode modes of ``decode_greedy_steps``: the main cache stays read-only
+during the steps, step ``t``'s K/V land at lane ``t`` of a small per-call
+block (kernel B8, :func:`write_fresh`), and :func:`merge_fresh` scatters
+the block into the cache once after the steps. Its codes are (L, B, KV, W,
+D), the JAX side block's own layout, and its scales (L, B, KV, W); the JAX
+package keeps (L, B, KV, 1, W) scales (:func:`fresh_to_jax_layout` /
+:func:`fresh_from_jax_layout`).
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels.decode_attention import fresh_write
 
 
 @dataclass
@@ -137,3 +146,74 @@ def from_jax_layout(k, v, k_scale, v_scale, lengths, device=None) -> KVCache:
         k=t(np.swapaxes(k, -1, -2)), v=t(np.swapaxes(v, -1, -2)),
         k_scale=t(k_scale[..., 0, :]), v_scale=t(v_scale[..., 0, :]), lengths=lens,
     )
+
+
+@dataclass
+class FreshKV:
+    """Per-call side block of an int8 cache: codes (L, B, KV, W, D), one
+    f32 scale per (token, head) (L, B, KV, W); lane ``j`` holds decode step
+    ``j`` of the call."""
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+
+    @property
+    def window(self) -> int:
+        return self.k.shape[3]
+
+    def layer(self, i: int) -> tuple:
+        """Layer ``i``'s (k, v, k_scale, v_scale) views."""
+        return self.k[i], self.v[i], self.k_scale[i], self.v_scale[i]
+
+
+def init_fresh(n_layers: int, batch: int, window: int, n_kv: int, head_dim: int,
+               device=None) -> FreshKV:
+    """A zeroed int8 side block of ``window`` lanes (the port's side-block
+    decode runs over an int8 cache only, as the JAX package's does)."""
+    dev = resolve_device(device)
+    shape = (n_layers, batch, n_kv, window, head_dim)
+    zeros = lambda shp, dt: torch.zeros(shp, dtype=dt, device=dev)
+    return FreshKV(k=zeros(shape, torch.int8), v=zeros(shape, torch.int8),
+                   k_scale=zeros(shape[:-1], torch.float32),
+                   v_scale=zeros(shape[:-1], torch.float32))
+
+
+def write_fresh(fresh: FreshKV, layer: int, t: int, kc, vc, ks, vs) -> None:
+    """Write one step's codes kc/vc (B, KV, D) int8 and scales ks/vs (B, KV)
+    f32 at (layer, lane t), in place: kernel B8 on CUDA tensors, its plain
+    version on CPU tensors."""
+    fresh_write((fresh.k, fresh.v, fresh.k_scale, fresh.v_scale), (kc, vc, ks, vs), layer, t)
+
+
+def merge_fresh(cache: KVCache, fresh: FreshKV, lengths0: torch.Tensor, n: int) -> None:
+    """Scatter side-block steps [0, n) of every layer into the cache at each
+    slot's positions ``lengths0 + j`` and set ``lengths`` to ``lengths0 +
+    n``, in place. Positions past the cache raise."""
+    if n > fresh.window:
+        raise ValueError(f"{n} steps do not fit a side block of {fresh.window} lanes")
+    if int(lengths0.max()) + n > cache.max_len:
+        raise ValueError(f"merging {n} steps overruns the cache (max_len {cache.max_len})")
+    b = torch.arange(cache.batch, device=lengths0.device)[:, None]
+    pos = lengths0.long()[:, None] + torch.arange(n, device=lengths0.device)[None, :]
+    # advanced indices on (B, S) around a slice: the target is (B, n, L, KV[, D])
+    cache.k[:, b, :, pos] = fresh.k[:, :, :, :n].permute(1, 3, 0, 2, 4)
+    cache.v[:, b, :, pos] = fresh.v[:, :, :, :n].permute(1, 3, 0, 2, 4)
+    cache.k_scale[:, b, :, pos] = fresh.k_scale[..., :n].permute(1, 3, 0, 2)
+    cache.v_scale[:, b, :, pos] = fresh.v_scale[..., :n].permute(1, 3, 0, 2)
+    cache.lengths.copy_(lengths0 + n)
+
+
+def fresh_to_jax_layout(fresh: FreshKV) -> dict:
+    """numpy arrays in the JAX side block's layout: codes (L, B, KV, W, D),
+    scales (L, B, KV, 1, W)."""
+    return {"k": fresh.k.cpu().numpy(), "v": fresh.v.cpu().numpy(),
+            "k_scale": fresh.k_scale[..., None, :].cpu().numpy(),
+            "v_scale": fresh.v_scale[..., None, :].cpu().numpy()}
+
+
+def fresh_from_jax_layout(k, v, k_scale, v_scale, device=None) -> FreshKV:
+    """Inverse of :func:`fresh_to_jax_layout` (numpy arrays in)."""
+    dev = resolve_device(device)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return FreshKV(k=t(k), v=t(v), k_scale=t(k_scale[..., 0, :]), v_scale=t(v_scale[..., 0, :]))

@@ -3,8 +3,11 @@
 B1 ``w4a8_matmul.matmul_stacked``, B2 ``w4a8_matmul.gateup_silu``,
 B3 ``w4a8_matmul.matmul_flat``, B4
 ``decode_attention.decode_attention_append``, B5
-``dequant_matmul.dequant_matmul_codes`` and B10
-``hadamard.hadamard_transform``; sources in ``../csrc``.
+``dequant_matmul.dequant_matmul_codes``, B6
+``decode_attention.decode_attention_stats``, B7
+``decode_attention.decode_attention``, B8 ``decode_attention.fresh_write``,
+B9 ``w4a8_matmul.matmul_actq`` and B10 ``hadamard.hadamard_transform``;
+sources in ``../csrc``.
 Importing this package builds nothing: a kernel is compiled at its first
 launch (``_build.py``).
 """
@@ -17,6 +20,10 @@ _WRAPPERS = {
     "w4a8_flat": (w4a8_matmul, "matmul_flat"),
     "decode_attention_append": (decode_attention, "decode_attention_append"),
     "dequant_matmul": (dequant_matmul, "dequant_matmul_codes"),
+    "decode_attention_stats": (decode_attention, "decode_attention_stats"),
+    "decode_attention": (decode_attention, "decode_attention"),
+    "fresh_write": (decode_attention, "fresh_write"),
+    "w4a8_actq": (w4a8_matmul, "matmul_actq"),
     "hadamard": (hadamard, "hadamard_transform"),
 }
 

@@ -2,12 +2,15 @@
 
     y[m, n] = sx[m] * sum_g s_w[n, g] * (x_i8[m, g] . w[n, g])
 
-Three wrappers, each with its own launch counter, over one CUDA kernel
+Four wrappers, each with its own launch counter, over one CUDA kernel
 family (``csrc/w4a8_matmul.cu``):
 
 * :func:`matmul_stacked` — B1, one layer of stacked (L, N, C/2) codes;
 * :func:`matmul_flat` — B3, unstacked codes, int4 or int8 weights;
-* :func:`gateup_silu` — B2, fused [gate | up] + activation.
+* :func:`gateup_silu` — B2, fused [gate | up] + activation;
+* :func:`matmul_actq` — B9, B3 with the per-token act quant inside the
+  kernel (raw bf16 / f32 acts in), reached through
+  ``w4a8_matmul(..., act_inside=True)``.
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain PyTorch version beside it (:func:`w4a8_plain`,
@@ -39,11 +42,12 @@ def quantize_acts_per_token(x: torch.Tensor):
     (M, 1) f32 scale."""
     x32 = x.float()
     absmax = torch.amax(torch.abs(x32), dim=-1, keepdim=True)
-    # PyTorch divides by a Python scalar on the CPU but multiplies by its f32
-    # reciprocal on CUDA, as JAX divides eagerly and multiplies under jit.
-    # The kernels and their plain versions share this prologue, so on one
-    # device both always see the same codes.
-    scale = torch.clamp_min(absmax / 127.0, 1e-5)
+    # The JAX package runs this under ``jit``, where XLA turns the division
+    # by 127 into a multiplication by its f32 reciprocal (PyTorch does the
+    # same on CUDA, but divides on the CPU); the port writes the
+    # multiplication out so that CPU, card and kernel B9 agree with it.
+    # The division by the scale stays a true division.
+    scale = torch.clamp_min(absmax * (1.0 / 127.0), 1e-5)
     q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -150,17 +154,18 @@ def gateup_plain(x_i8, codes, scales, sx, wfmt: int, act: str,
 # ---------------------------------------------------------------------------
 
 
-def _check(x_i8, codes, scales, sx, wfmt, out_dtype):
-    if x_i8.dtype != torch.int8 or x_i8.dim() != 2:
-        raise ValueError("x_i8 must be a 2-D int8 tensor")
+def _check_weights(x, codes, scales, wfmt, out_dtype, tensors):
+    """Checks shared by every wrapper; ``tensors`` are all the inputs."""
+    if x.dim() != 2:
+        raise ValueError("x must be a 2-D tensor")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"unsupported out dtype {out_dtype}")
-    if scales.dtype != torch.float32 or sx.dtype != torch.float32:
-        raise ValueError("scales and sx must be float32")
+    if scales.dtype != torch.float32:
+        raise ValueError("scales must be float32")
     want = torch.int8 if wfmt == W_INT8 else torch.uint8
     if codes.dtype != want:
         raise ValueError(f"codes must be {want} for format {wfmt}")
-    M, C = x_i8.shape
+    M, C = x.shape
     N, G = scales.shape[-2:]
     if C % G or (C // G) % 128:
         raise ValueError(f"group size must be a multiple of 128 (C={C}, G={G})")
@@ -168,23 +173,35 @@ def _check(x_i8, codes, scales, sx, wfmt, out_dtype):
         raise ValueError("pair-planes codes need an even group count")
     if codes.shape[-2:] != (N, C if wfmt == W_INT8 else C // 2):
         raise ValueError(f"codes shape {tuple(codes.shape)} does not match (N={N}, C={C})")
-    if sx.numel() != M:
-        raise ValueError("sx must hold one scale per row")
-    devs = {t.device for t in (x_i8, codes, scales, sx)}
+    devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"tensors on different devices: {devs}")
-    if x_i8.is_cuda:
-        if not all(t.is_contiguous() for t in (x_i8, codes, scales, sx)):
+    if x.is_cuda:
+        if not all(t.is_contiguous() for t in tensors):
             raise ValueError("kernel inputs must be contiguous")
-        if x_i8.data_ptr() % 16 or codes.data_ptr() % 16:
+        if x.data_ptr() % 16 or codes.data_ptr() % 16:
             raise ValueError("the kernel loads x and codes 16 bytes at a time: "
                              "their data must be 16-byte aligned")
+
+
+def _check(x_i8, codes, scales, sx, wfmt, out_dtype):
+    if x_i8.dtype != torch.int8:
+        raise ValueError("x_i8 must be a 2-D int8 tensor")
+    if sx.dtype != torch.float32:
+        raise ValueError("scales and sx must be float32")
+    _check_weights(x_i8, codes, scales, wfmt, out_dtype, (x_i8, codes, scales, sx))
+    if sx.numel() != x_i8.shape[0]:
+        raise ValueError("sx must hold one scale per row")
 
 
 # x, w, scales, sx, out; M, N (I for gateup), C, group, wfmt, out_bf16[, act]
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _matmul_launch = _build.c_launcher("w4a8_matmul", "llmc_w4a8_matmul", [_P] * 5 + [_I] * 6)
 _gateup_launch = _build.c_launcher("w4a8_matmul", "llmc_w4a8_gateup", [_P] * 5 + [_I] * 7)
+# x, w, scales, out; M, N, C, group, wfmt, out_bf16, x_bf16
+_actq_launch = _build.c_launcher("w4a8_matmul", "llmc_w4a8_matmul_actq", [_P] * 4 + [_I] * 7)
+# B9 keeps a block's 64 rows of act codes in shared memory: 64 * C bytes
+ACTQ_MAX_C = 3072
 
 
 def _matmul_kernel(x_i8, codes, scales, sx, wfmt, out_dtype):
@@ -253,22 +270,61 @@ def gateup_silu(x_i8, codes, scales, sx, layer: int, wfmt: int, act: str,
 gateup_silu.launches = 0
 
 
+def actq_plain(x, codes, scales, wfmt: int, out_dtype: torch.dtype):
+    """Plain version of B9: :func:`quantize_acts_per_token`, then B3's."""
+    x_i8, sx = quantize_acts_per_token(x)
+    return w4a8_plain(x_i8, codes, scales, sx, wfmt, out_dtype)
+
+
+def matmul_actq(x, codes, scales, wfmt: int, out_dtype: torch.dtype):
+    """B9: raw acts x (M, C) bf16 or f32, per-token int8 quantized inside
+    the kernel, times unstacked codes (N, C[/2]) / scales (N, G)."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("x must be bfloat16 or float32")
+    _check_weights(x, codes, scales, wfmt, out_dtype, (x, codes, scales))
+    if codes.dim() != 2:
+        raise ValueError("matmul_actq needs 2-D codes")
+    if not x.is_cuda:
+        return actq_plain(x, codes, scales, wfmt, out_dtype)
+    M, C = x.shape
+    if C > ACTQ_MAX_C:
+        raise ValueError(f"B9 holds 64 rows of C int8 codes in shared memory: C <= "
+                         f"{ACTQ_MAX_C} (C={C})")
+    N, G = scales.shape
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    _actq_launch(x.data_ptr(), codes.data_ptr(), scales.data_ptr(), out.data_ptr(), M, N, C,
+                 C // G, wfmt, int(out_dtype == torch.bfloat16), int(x.dtype == torch.bfloat16))
+    matmul_actq.launches += 1
+    return out
+
+
+matmul_actq.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # Entry points used by the model
 # ---------------------------------------------------------------------------
 
 
 def w4a8_matmul(x: torch.Tensor, qt: QTensor, bias=None,
-                layer: Optional[int] = None) -> torch.Tensor:
+                layer: Optional[int] = None, act_inside: bool = False) -> torch.Tensor:
     """y = act_q(x) @ W^T with per-token int8 acts. ``layer`` selects one
-    layer of a stacked QTensor (B1); without it the weights are flat (B3)."""
+    layer of a stacked QTensor (B1); without it the weights are flat (B3),
+    or, with ``act_inside``, the act quantizer runs inside the kernel (B9,
+    flat weights only)."""
     N, C, g = weight_dims(qt)
     lead = x.shape[:-1]
-    x_i8, sx = quantize_acts_per_token(x.reshape(-1, C))
-    if layer is not None:
-        out = matmul_stacked(x_i8, qt.codes, qt.scales, sx, layer, _wfmt(qt), x.dtype)
+    if act_inside:
+        if layer is not None:
+            raise ValueError("act_inside applies to flat weights, not to a stacked layer")
+        out = matmul_actq(x.reshape(-1, C).contiguous(), qt.codes, qt.scales, _wfmt(qt),
+                          x.dtype)
     else:
-        out = matmul_flat(x_i8, qt.codes, qt.scales, sx, _wfmt(qt), x.dtype)
+        x_i8, sx = quantize_acts_per_token(x.reshape(-1, C))
+        if layer is not None:
+            out = matmul_stacked(x_i8, qt.codes, qt.scales, sx, layer, _wfmt(qt), x.dtype)
+        else:
+            out = matmul_flat(x_i8, qt.codes, qt.scales, sx, _wfmt(qt), x.dtype)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out.reshape(*lead, N)

@@ -10,9 +10,16 @@ Tolerances:
   group dots and add the scaled parts in the same order without FMA
   contraction, so f32 outputs are bitwise equal. bf16 outputs may differ
   by one bf16 ulp where the activation (B2) rounds differently.
-* B4: the written cache codes are bitwise equal; the output agrees to a
-  few f32 ulps (the row sum is reduced in another order), plus at most one
+* B4, B7: the written cache codes are bitwise equal; the output agrees to
+  a few f32 ulps (the row sum is reduced in another order), plus at most one
   flipped prob code per row (exp may differ by an ulp at a .5 boundary).
+* B6: m, a and sum_main to rtol 1e-5; o32 (integer dots) equal but for
+  flipped prob codes on at most 1 % of entries; the hybrid output
+  assembled around it as B7's against the assembly around the plain
+  version, and within the JAX test's tolerance of the two-part epilogue.
+* B8: bitwise (a copy).
+* B9: the in-kernel act quantizer gives the codes and scales of
+  ``quantize_acts_per_token``, then B3's exact sums: bitwise.
 * B5: kernel and plain version build the same bf16 weight (checked
   bitwise through x = I) and differ only in the order of the f32 sums: one
   ulp of the output dtype plus 2 * C * 2**-24 * (|x| @ |W|^T).
@@ -102,7 +109,7 @@ def test_decode_attention(cuda, window, softcap):
     caches = [t.clone() for t in (kc, vc, ks, vs)]
     got = da.decode_attention_append(q, nk, nv, nks, nvs, kc, vc, ks, vs, pos,
                                      window=window, scale=0.125, softcap=softcap)
-    want = da.decode_attention_plain(q, nk, nv, nks, nvs, *caches, pos,
+    want = da.decode_attention_append_plain(q, nk, nv, nks, nvs, *caches, pos,
                                      window=window, scale=0.125, softcap=softcap)
     for a, b in zip((kc, vc, ks, vs), caches):
         assert torch.equal(a, b)
@@ -113,6 +120,130 @@ def test_decode_attention(cuda, window, softcap):
     flip = float(torch.maximum(vs.max(), nvs.max()))
     assert bool((err <= ulps + flip).all()), float(err.max())
     assert float((err > ulps).float().mean()) <= 0.01
+
+
+def _attention_inputs(cuda, seed, B=3, KV=2, r=4, D=64, S=128, W=16):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    i8 = lambda *shp: torch.randint(-127, 128, shp, generator=g, dtype=torch.int8).to(cuda)
+    sc = lambda *shp: (torch.rand(*shp, generator=g) * 0.02 + 1e-3).to(cuda)
+    q = torch.randn(B, KV, r, D, generator=g).to(cuda)
+    main = (i8(B, KV, S, D), i8(B, KV, S, D), sc(B, KV, S), sc(B, KV, S))
+    side = (i8(B, KV, W, D), i8(B, KV, W, D), sc(B, KV, W), sc(B, KV, W))
+    return q, main, side
+
+
+def _assert_attention_close(got, want, vmax):
+    err = (got - want).abs()
+    ulps = 4 * torch.finfo(torch.float32).eps * want.abs() + 1e-7
+    assert bool((err <= ulps + vmax).all()), float(err.max())
+    assert float((err > ulps).float().mean()) <= 0.01
+
+
+@pytest.mark.parametrize("side,window,softcap,t", [(True, 0, None, 5), (True, 40, 30.0, 15),
+                                                   (False, 0, None, 0), (False, 9, 20.0, 0)])
+def test_two_part_attention(cuda, side, window, softcap, t):
+    """B7 against its plain version, with and without the side block; slot 0
+    keeps no main row (main_len 0)."""
+    q, main, fresh = _attention_inputs(cuda, 2)
+    mlen = torch.tensor([0, 37, 120], dtype=torch.int32, device=cuda)
+    pos = mlen + t if side else mlen - 1
+    fr = fresh if side else None
+    before = da.decode_attention.launches
+    got = da.decode_attention(q, *main, mlen, pos, window, t, fr, scale=0.125, softcap=softcap)
+    assert da.decode_attention.launches == before + 1
+    want = da.decode_attention_plain(q, *main, mlen, pos, window, t, fr, scale=0.125,
+                                     softcap=softcap)
+    vmax = max(float(main[3].max()), float(fresh[3].max()))
+    assert bool(got.isfinite().all())
+    _assert_attention_close(got, want, vmax)
+
+
+def test_two_part_attention_no_kept_row(cuda):
+    """No main row and no side block: every lane sits at -1e9 and the TPU
+    kernel attends uniformly over the window; so do both versions here."""
+    q, main, _ = _attention_inputs(cuda, 3)
+    mlen = torch.zeros((3,), dtype=torch.int32, device=cuda)
+    got = da.decode_attention(q, *main, mlen, mlen, scale=0.125)
+    want = da.decode_attention_plain(q, *main, mlen, mlen, scale=0.125)
+    _assert_attention_close(got, want, float(main[3].max()))
+
+
+@pytest.mark.parametrize("window,softcap,t", [(0, None, 4), (50, 30.0, 12)])
+def test_stats_attention(cuda, window, softcap, t, monkeypatch):
+    """B6 against its plain version on the same side statistics, and the
+    hybrid output assembled around each."""
+    q, main, fresh = _attention_inputs(cuda, 4)
+    mlen = torch.tensor([0, 64, 127], dtype=torch.int32, device=cuda)
+    pos = mlen + t
+    qi, qs = da.row_quant_i8(q)
+    m_f = torch.randn(qs.shape, device=cuda)
+    wfm = torch.rand(qs.shape, device=cuda) * 0.02
+    before = da.decode_attention_stats.launches
+    got = da.decode_attention_stats(qi, qs, m_f, wfm, *main, mlen, pos, window, scale=0.125,
+                                    softcap=softcap)
+    assert da.decode_attention_stats.launches == before + 1
+    want = da.decode_attention_stats_plain(qi, qs, m_f, wfm, *main, mlen, pos, window,
+                                           scale=0.125, softcap=softcap)
+    # m, a, sum_main: rtol 1e-5 (an ulp of a softcapped score, tanhf against
+    # torch's tanh, moves e = exp(s - m) by |s - m| ulps; the sum runs in
+    # another order)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+    d = (got[0] - want[0]).abs()
+    assert float((d > 0).float().mean()) <= 0.01 and float(d.max()) <= 127 * 127
+    vmax = max(float(main[3].max()), float(fresh[3].max()))
+    args = (q, *main, mlen, pos, window, t, fresh)
+    out = da.hybrid_decode_attention(*args, scale=0.125, softcap=softcap)
+    monkeypatch.setattr(da, "decode_attention_stats", da.decode_attention_stats_plain)
+    _assert_attention_close(out, da.hybrid_decode_attention(*args, scale=0.125, softcap=softcap),
+                            vmax)
+    # against the two-part epilogue: the hybrid assembly rounds exp(m_f - m)
+    # once more, which may move side prob codes (the JAX test's tolerance)
+    ref = da.decode_attention_plain(*args, scale=0.125, softcap=softcap)
+    torch.testing.assert_close(out, ref, rtol=1e-3, atol=2 * float(fresh[3].max()))
+
+
+def test_fresh_write(cuda):
+    g = torch.Generator(device="cpu").manual_seed(5)
+    L, B, KV, W, D = 3, 4, 2, 8, 64
+    fresh = [torch.randint(-127, 128, (L, B, KV, W, D), generator=g, dtype=torch.int8).to(cuda)
+             for _ in range(2)] + [torch.rand(L, B, KV, W, generator=g).to(cuda) for _ in range(2)]
+    new = [torch.randint(-127, 128, (B, KV, D), generator=g, dtype=torch.int8).to(cuda)
+           for _ in range(2)] + [torch.rand(B, KV, generator=g).to(cuda) for _ in range(2)]
+    want = da.fresh_write_plain([a.clone() for a in fresh], new, 2, 7)
+    before = da.fresh_write.launches
+    got = da.fresh_write(tuple(fresh), new, 2, 7)
+    assert da.fresh_write.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("spec,C", [("int4-g[128]-rw", 512), ("int4-g[128]-rw", 640),
+                                    ("int8-g[128]-rw", 640), ("int4-g[128]-rw", 3072)])
+@pytest.mark.parametrize("M", [8, 40, 130])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_w4a8_actq(cuda, spec, C, M, x_dtype):
+    N = 320
+    qt = _packed(spec, N, C, seed=M)[0]
+    codes, scales = qt.codes.to(cuda), qt.scales.to(cuda)
+    x = torch.from_numpy(np.random.default_rng(7).normal(size=(M, C)).astype(np.float32))
+    x = x.to(cuda).to(x_dtype)
+    fmt = wm._wfmt(qt)
+    before = wm.matmul_actq.launches
+    got = wm.matmul_actq(x, codes, scales, fmt, x_dtype)
+    assert wm.matmul_actq.launches == before + 1
+    want = wm.actq_plain(x, codes, scales, fmt, x_dtype)
+    assert got.dtype == x_dtype and torch.equal(got, want)
+    # the same as the act quantizer on the host side, then B3
+    x_i8, sx = wm.quantize_acts_per_token(x)
+    assert torch.equal(got, wm.matmul_flat(x_i8, codes, scales, sx, fmt, x_dtype))
+
+
+def test_w4a8_actq_refuses_wide_rows(cuda):
+    qt = _packed("int4-g[128]-rw", 128, 4096, seed=1)[0]
+    x = torch.zeros((4, 4096), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        wm.matmul_actq(x, qt.codes.to(cuda), qt.scales.to(cuda), wm._wfmt(qt), torch.float32)
 
 
 def test_decode_attention_position_outside_cache(cuda):

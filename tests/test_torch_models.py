@@ -95,7 +95,8 @@ def test_packed_forward(serving, T):
     jcfg, tcfg, jq, tq, p, tp = _packed_pair(serving)
     toks = _tokens(jcfg, (2, T))
     check = _assert_logits if T < 10 else _assert_logits_flips
-    check(jm.forward(p, jcfg, jnp.asarray(toks), jq),
+    # under jit, as serving runs the W4A8 act quantizer
+    check(jax.jit(jm.forward, static_argnums=(1, 3))(p, jcfg, jnp.asarray(toks), jq),
           tm.forward(tp, tcfg, torch.from_numpy(toks), tq))
 
 
