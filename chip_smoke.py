@@ -14,7 +14,10 @@ Phases (each prints a line; any failure exits non-zero):
    kernel's own arithmetic) from the published H100 SXM peaks — int8 at
    1979 TOP/s for B1-B4 and B6-B9, dense bf16 at 989.4 TFLOP/s for B5,
    float32 outside the tensor cores at 67 TFLOP/s for B10; bytes count the
-   rows this run's masks keep;
+   rows this run's masks keep. Each B5 case also gives the K-splits and
+   CTAs of the grid its wrapper launched and the reduce kernel's share of
+   its time (``torch.profiler``); its log line adds the earlier version's
+   time, a constant with its source;
 4. token checks — at 2 layers, full width, the kernel path's greedy tokens
    must equal the plain path's wherever the plain logits' top-2 gap exceeds
    the stated tolerance: W4A8 (in-place B4 decode, and the side-block
@@ -25,7 +28,10 @@ Phases (each prints a line; any failure exits non-zero):
    drawing the rotations, then served W4A8); that pipeline's layer 0 must
    then beat RTN on every linear, ||(W - Q) X||_F on its own calibration
    inputs at most 0.9 x RTN's (GPTQ without its error feedback would give
-   1.0);
+   1.0). Then ``prefill`` of the 2-layer weight-only zp-int4 model runs
+   twice on the same tokens, once with bf16 reduced-precision reduction
+   allowed and once as it runs, under ``full_f32_accumulation``: how many
+   logits and argmax tokens differ is reported, and fails nothing;
 5. slices — full-width, full-depth Llama-3.2-1B (random weights from
    ``--seed``): RTN -> pack -> fuse -> stack, prefill 128 prompts of 128
    tokens into a cache of 256 positions, then 32 greedy decode steps, for
@@ -38,8 +44,10 @@ Phases (each prints a line; any failure exits non-zero):
    of B6-B8. Each slice's counts are set to 0 just before it and read just
    after; each of its kernels must have launched. Two more
    decode steps run under ``torch.profiler`` for the device time by kernel
-   and the idle share. The weight-only params then serve one ``generate``
-   call with top-k sampling from a fixed seed, twice, which must agree.
+   and the idle share. The weight-only params then repeat the prefill
+   comparison above at full depth (TTFT both ways, reported), and serve one
+   ``generate`` call with top-k sampling from a fixed seed, twice, which
+   must agree.
    The third slice, ``spinquant_gptq``, calibrates the model instead of
    RTN: ``spinquant(mode="hadamard")`` on 128 x 512 synthetic tokens (17 B10
    launches and no other kernel; seconds by phase, peak memory), packs it
@@ -129,6 +137,11 @@ W4A8_APPEND_PER_STEP = W4A8_PER_STEP | {"decode_attention_append": LAYERS}
 CALIB_SAMPLES, CALIB_LEN = 128, 512
 # B10 launches while calibrating: R1, then one R2 per layer
 B10_PER_CALIBRATION = 1 + LAYERS
+# per-case fields beyond the contract's: B9's B3 time, B5's launched grid and
+# its reduce kernel's share; then B5's earlier time, a constant, on the log
+# line only
+EXTRA_METRICS = ("b3_ms", "splits", "ctas", "reduce_ms")
+LOG_ONLY = ("earlier_ms",)
 
 
 def log(msg: str) -> None:
@@ -477,12 +490,37 @@ def check_w4a8_actq(gen, label, M, N, C, wfmt):
     return case
 
 
+# B5's times before the split-K redesign, ms at M = 128, measured by this
+# script on an NVIDIA H100 80GB HBM3, 700.00 W (PERF.md section 6)
+B5_EARLIER_MS = {"decode qkv int4-g128 zp": 0.1660, "decode o int4-g128 zp": 0.1669,
+                 "decode gate|up int4-g128 zp": 0.1766, "decode down int4-g128 zp": 0.6524,
+                 "decode qkv int4-g128 symmetric": 0.1667, "decode int8-g128 head": 1.1377,
+                 "decode qkv fp8-e4m3-g128": 0.1340}
+
+
+def _profiled_ms(fn, name: str, reps: int = 5) -> float:
+    """Median device time (ms) of the kernels whose name holds ``name``
+    per call of ``fn``, from a ``torch.profiler`` trace of ``reps`` calls,
+    each after an L2 flush; 0 where ``fn`` launches no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            _FLUSH.fill_(1)
+            fn()
+        torch.cuda.synchronize()
+    d = sorted((e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name)
+    return d[len(d) // 2] if d else 0.0
+
+
 def check_dequant_matmul(gen, label, M, N, C, fmt, zeros: bool, g=128):
     """One B5 case: random packed codes, scales (and zero points) of an
     (N, C) weight, x (M, C) bf16, bf16 out. Tolerance: one bf16 ulp of the
     output plus the f32 summation term 2 * C * 2**-24 * (|x| @ |W|^T) —
     kernel and plain version build the same bf16 weight and differ only in
-    the order of the f32 sums."""
+    the order of the f32 sums (split-K included). Two launches must give
+    the same bits."""
     from llm_compressor_tpu_torch.kernels import dequant_matmul as dm
 
     G = C // g
@@ -502,21 +540,27 @@ def check_dequant_matmul(gen, label, M, N, C, fmt, zeros: bool, g=128):
     run = lambda: dm.dequant_matmul_codes(x, codes, scales, zs, fmt, bf)
     plain = lambda: dm.dequant_matmul_plain(x, codes, scales, zs, fmt, bf)
     got, want = run(), plain()
+    tiles_n, tiles_m, splits = dm.dequant_matmul_codes.last_grid
     torch.cuda.synchronize()
     w = dm.dequant_weight_bf16(codes, scales, zs, fmt)
     mag = x.float().abs() @ w.float().abs().t()
     err = (got.float() - want.float()).abs()
     if not bool((err <= 2.0 ** -7 * want.float().abs() + 2 * C * 2.0 ** -24 * mag).all()):
         raise AssertionError(f"B5 {label}: kernel disagrees with plain (max err {float(err.max())})")
+    if not torch.equal(run(), got):
+        raise AssertionError(f"B5 {label}: two launches on the same inputs differ")
     del mag
     nbytes = (x.numel() * 2 + codes.numel() * codes.element_size() + scales.numel() * 4
               + (0 if zs is None else zs.numel() * 4) + M * N * 2)
     b_ms, b_by = bound(nbytes, 2.0 * M * N * C, BF16_OPS_PER_S)
     case = {"case": label, "M": M, "N": N, "C": C,
-            "tolerance": "1 bf16 ulp + 2*C*2^-24*(|x|@|W|^T)",
+            "tolerance": "1 bf16 ulp + 2*C*2^-24*(|x|@|W|^T); bitwise launch to launch",
             "max_abs_err": float(err.max()), "ms": time_ms(run),
             "plain_ms": time_ms(plain, reps=3, warmup=1), "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": time_ms(lambda: torch.matmul(x, w.t()))}
+            "bound_by": b_by, "library_ms": time_ms(lambda: torch.matmul(x, w.t())),
+            "splits": splits, "ctas": tiles_n * tiles_m * splits,
+            "reduce_ms": _profiled_ms(run, "dequant_matmul_reduce"),
+            "earlier_ms": B5_EARLIER_MS[label]}
     del codes, scales, zs, w
     return case
 
@@ -607,7 +651,7 @@ def phase_kernels(seed: int):
                 f"({c['tolerance']}) ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
                 f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']}) "
                 f"library_ms={c['library_ms']:.4f}"
-                + (f" b3_ms={c['b3_ms']:.4f}" if "b3_ms" in c else ""))
+                + "".join(f" {k}={c[k]}" for k in EXTRA_METRICS + LOG_ONLY if k in c))
     return cases
 
 
@@ -824,6 +868,53 @@ def check_reduced_depth(seed: int, serving, kernel_names, gap_tol: float = 0.1, 
     return checked, (steps + 1) * B, max_err, vs_b4
 
 
+def compare_prefill_reduction(model, serving, batch, prompt, seed):
+    """``prefill`` of one set of tokens, with bf16 reduced-precision
+    reduction allowed (PyTorch's default, prefill's own context lifted) and
+    as prefill runs, under ``full_f32_accumulation``; in turns allowed,
+    f32, f32, allowed. Reports how many logits and last-position argmax
+    tokens differ and the host time of each way (ms, mean of two); fails
+    nothing."""
+    import importlib
+
+    from llm_compressor_tpu_torch.engine import prefill
+
+    gen_mod = importlib.import_module("llm_compressor_tpu_torch.engine.generate")
+    cfg, qcfg, params = model
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    cm = torch.backends.cuda.matmul
+    real = gen_mod.full_f32_accumulation
+
+    def run(allow: bool):
+        cache = new_cache(cfg, batch, prompt, serving)
+        prev = cm.allow_bf16_reduced_precision_reduction
+        cm.allow_bf16_reduced_precision_reduction = True
+        if allow:
+            gen_mod.full_f32_accumulation = contextlib.nullcontext
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = prefill(params, toks, cache, cfg=cfg, qcfg=qcfg)
+            torch.cuda.synchronize()
+            return logits, (time.perf_counter() - t0) * 1e3
+        finally:
+            gen_mod.full_f32_accumulation = real
+            cm.allow_bf16_reduced_precision_reduction = prev
+
+    runs = [run(a) for a in (True, False, False, True)]
+    a, b = runs[0][0], runs[1][0]
+    d = (a - b).abs()
+    return {"batch": batch, "prompt": prompt, "logits": d.numel(),
+            "logits_differ": int((d > 0).sum()), "max_abs_diff": float(d.max()),
+            "argmax_differ": int((a.argmax(-1) != b.argmax(-1)).sum()),
+            "repeats_bitwise": torch.equal(runs[0][0], runs[3][0])
+            and torch.equal(runs[1][0], runs[2][0]),
+            "ms_bf16_reduction": (runs[0][1] + runs[3][1]) / 2,
+            "ms_f32_accumulation": (runs[1][1] + runs[2][1]) / 2}
+
+
 def _clone_tree(node):
     if isinstance(node, dict):
         return {k: _clone_tree(v) for k, v in node.items()}
@@ -946,7 +1037,7 @@ def _kernel_class(name: str) -> str:
         return "B7"
     if "fresh_write" in name:
         return "B8"
-    if "dequant_matmul_kernel" in name:
+    if "dequant_matmul" in name:   # the main kernel and the split-K reduce
         return "B5"
     if "w4a8_kernel" in name:  # template argument NW: 2 is the fused gate|up
         return "B2" if ("Li2EEEv" in name or ", 2>" in name) else "B1/B3"
@@ -1097,6 +1188,10 @@ def _slice_numbers(s):
            "peak_mem_gib": s["peak_mem_gib"],
            "device_busy_ms_per_step": prof.get("device_busy_ms_per_step"),
            "wall_ms_per_step": prof["wall_ms_per_step"]}
+    if "prefill_reduction" in s:
+        pr = s["prefill_reduction"]
+        out.update(ttft_ms_f32_accumulation=pr["ms_f32_accumulation"],
+                   ttft_ms_bf16_reduction=pr["ms_bf16_reduction"])
     if "calib_s" in s:
         out.update(calib_s=s["calib_s"], calib_s_by_phase=s["phases"],
                    calib_peak_mem_gib=s["calib_peak_gib"])
@@ -1210,6 +1305,10 @@ def main() -> int:
     # held on the host, so that the next slices' peak memory does not see it
     layer0_at_2_layers = {k: v.cpu() for k, v in calibrated["gptq_layer0"].items()}
     calibrated.clear()
+    pr = compare_prefill_reduction(build_model(2, args.seed, WEIGHT_ONLY), WEIGHT_ONLY, 16, 32,
+                                   args.seed)
+    log(f"prefill reduction, weight-only int4-g128 zp at 2 layers (bf16 reduced-precision "
+        f"reduction allowed vs full_f32_accumulation, reported only): {json.dumps(pr)}")
 
     slices = {}
     w4a8_model = None
@@ -1243,6 +1342,10 @@ def main() -> int:
         if key == "w4a8":
             w4a8_model = (s["cfg"], s["qcfg"], s["params"])
         if key == "weight_only":
+            s["prefill_reduction"] = compare_prefill_reduction(
+                (s["cfg"], s["qcfg"], s["params"]), serving, BATCH, PROMPT, args.seed)
+            log(f"prefill reduction, slice weight_only at {LAYERS} layers (TTFT both ways, "
+                f"reported only): {json.dumps(s['prefill_reduction'])}")
             sampled = check_generate(s["params"], s["cfg"], s["qcfg"], args.seed)
             log(f"generate (weight-only, 4 prompts, top_k 50, temperature 0.8, seed "
                 f"{args.seed}, twice, equal): {sampled}")
@@ -1265,6 +1368,7 @@ def main() -> int:
         f"{json.dumps(s['profile'])}")
 
     metrics = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    extra = lambda c: {k: c[k] for k in EXTRA_METRICS if k in c}
     runs = slices | {"actq_entry": actq}
     kernels = []
     for kname, cs in cases.items():
@@ -1273,8 +1377,8 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": TPU_KERNELS[kname], "launches": runs[run][field][COUNTER_OF[kname]],
             "launches_from": LAUNCHES_FROM[run],
-            **{k: cs[0][k] for k in metrics}, "case": cs[0]["case"],
-            "other_cases": [{"case": c["case"], **{k: c[k] for k in metrics}}
+            **{k: cs[0][k] for k in metrics}, "case": cs[0]["case"], **extra(cs[0]),
+            "other_cases": [{"case": c["case"], **{k: c[k] for k in metrics}, **extra(c)}
                             for c in cs[1:]],
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,5 +1,5 @@
-"""Device selection and float32 matmul precision, shared by the port's
-entry points."""
+"""Device selection and matmul precision (float32 and the accumulation of
+bf16 products), shared by the port's entry points."""
 
 from __future__ import annotations
 
@@ -35,3 +35,20 @@ def full_f32_matmul():
         yield
     finally:
         torch.set_float32_matmul_precision(prev)
+
+
+@contextlib.contextmanager
+def full_f32_accumulation():
+    """bf16 matmuls accumulate and reduce in float32 inside the block:
+    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    False, the previous setting restored after. PyTorch leaves it True,
+    which lets cuBLAS add split-K partials in bf16; the JAX package asks
+    for float32 accumulation (``preferred_element_type=jnp.float32``), and
+    ``prefill``'s bf16 projections run under this."""
+    cm = torch.backends.cuda.matmul
+    prev = cm.allow_bf16_reduced_precision_reduction
+    cm.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        cm.allow_bf16_reduced_precision_reduction = prev

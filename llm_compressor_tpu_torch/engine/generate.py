@@ -38,6 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..device import full_f32_accumulation
 from ..kernels.decode_attention import (
     decode_attention,
     decode_attention_append,
@@ -181,9 +182,12 @@ def _forward_cached(params, cfg: ModelConfig, tokens, cache: KVCache, qcfg,
 def prefill(params, tokens: torch.Tensor, cache: KVCache, *, cfg: ModelConfig,
             qcfg: Optional[QuantConfig] = None):
     """Encode the prompt (B, T) into ``cache`` (in place); returns the
-    last-position logits (B, V) f32 and the cache."""
-    h = _forward_cached(params, cfg, tokens, cache, qcfg, start=0)
-    logits = head(params, cfg, h[:, -1:, :], qcfg)
+    last-position logits (B, V) f32 and the cache. Its bf16 matmuls
+    accumulate and reduce in float32 (:func:`~..device.full_f32_accumulation`),
+    as the JAX package asks."""
+    with full_f32_accumulation():
+        h = _forward_cached(params, cfg, tokens, cache, qcfg, start=0)
+        logits = head(params, cfg, h[:, -1:, :], qcfg)
     cache.lengths.fill_(tokens.shape[1])
     return logits[:, -1, :], cache
 

@@ -22,6 +22,14 @@ not a fallback on failure. A supported weight goes to
 (or raises) and runs :func:`dequant_matmul_plain` for CPU tensors. The
 plain version builds the same bf16 weight and multiplies f32 copies, so
 kernel and plain version differ only in the f32 summation order.
+
+On the card the K dimension is split over whole groups (whole group pairs
+for int4 pair planes) when the output tiles alone would leave SMs idle:
+:func:`split_plan` picks the number of splits (split z takes units
+[z U / s, (z + 1) U / s), floored, so the splits differ by at most one),
+and with more than one split the kernel writes f32 partials to a workspace
+that a second kernel adds in split order, so the result does not depend on
+scheduling. Any even group size runs on the card.
 """
 
 from __future__ import annotations
@@ -81,6 +89,35 @@ def weight_format(qt: QTensor) -> int:
     if qt.fmt == ElemFormat.int4:
         return F_INT4_PAIRS if qt.pair_planes else F_INT4_HALVES
     return F_FP8_E4M3 if qt.fmt == ElemFormat.fp8_e4m3 else F_FP8_E5M2
+
+
+# ---------------------------------------------------------------------------
+# Split-K plan of the kernel
+# ---------------------------------------------------------------------------
+
+TILE_M, TILE_N = 128, 64   # output tile of one CTA (csrc/dequant_matmul.cu TM, TN)
+MAX_SPLITS = 16
+FILL = 1.5                 # CTAs wanted per SM before K is split
+
+
+def split_units(C: int, g: int, fmt: int) -> int:
+    """What a split walks whole: groups, or group pairs for int4 pair
+    planes (a byte holds one element of each group of its pair)."""
+    G = C // g
+    return G // 2 if fmt == F_INT4_PAIRS else G
+
+
+def split_plan(M: int, N: int, C: int, g: int, fmt: int, sms: int) -> int:
+    """Number of K-splits s: the smallest power of two with
+    tiles(M, N) * s >= FILL * sms, at most the largest power of two within
+    both the unit count (:func:`split_units`) and MAX_SPLITS; 1 when the
+    tiles already fill the card."""
+    tiles = -(-M // TILE_M) * -(-N // TILE_N)
+    cap = min(split_units(C, g, fmt), MAX_SPLITS)
+    s = 1
+    while tiles * s < FILL * sms and 2 * s <= cap:
+        s *= 2
+    return s
 
 
 # ---------------------------------------------------------------------------
@@ -146,35 +183,47 @@ def _check(x_bf16, codes, scales, zeros, fmt, out_dtype):
             raise ValueError(f"the kernel writes float32, bfloat16 or float16, not {out_dtype}")
         if not all(t.is_contiguous() for t in tensors):
             raise ValueError("kernel inputs must be contiguous")
-        if x_bf16.data_ptr() % 4:
-            raise ValueError("the kernel reads x two values at a time: 4-byte alignment")
-        if N % 64:
-            raise ValueError(f"the kernel tiles N by 64 (N={N})")
+        if x_bf16.data_ptr() % 16 or codes.data_ptr() % 16:
+            raise ValueError("the kernel copies x and codes 16 bytes at a time: 16-byte "
+                             "alignment")
+        if N % TILE_N:
+            raise ValueError(f"the kernel tiles N by {TILE_N} (N={N})")
 
 
-# x, codes, scales, zeros (or null), out; M, N, C, group, fmt, out_kind
+# x, codes, scales, zeros (or null), out, workspace (or null); M, N, C,
+# group, fmt, out_kind, splits
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_launch = _build.c_launcher("dequant_matmul", "llmc_dequant_matmul", [_P] * 5 + [_I] * 6)
+_launch = _build.c_launcher("dequant_matmul", "llmc_dequant_matmul", [_P] * 6 + [_I] * 7)
 
 
 def dequant_matmul_codes(x_bf16, codes, scales, zeros: Optional[torch.Tensor], fmt: int,
                          out_dtype: torch.dtype):
     """B5 on flat codes: x (M, C) bf16, codes (N, C[/2]), scales / zeros
-    (N, G) f32 -> (M, N) in ``out_dtype``."""
+    (N, G) f32 -> (M, N) in ``out_dtype``. On the card K is split as
+    :func:`split_plan` says; ``last_grid`` keeps the last launch's grid,
+    (N tiles, M tiles, splits)."""
     _check(x_bf16, codes, scales, zeros, fmt, out_dtype)
     if not x_bf16.is_cuda:
         return dequant_matmul_plain(x_bf16, codes, scales, zeros, fmt, out_dtype)
     M, C = x_bf16.shape
     N, G = scales.shape
     out = torch.empty((M, N), dtype=out_dtype, device=x_bf16.device)
+    g = C // G
+    sms = torch.cuda.get_device_properties(x_bf16.device).multi_processor_count
+    s = split_plan(M, N, C, g, fmt, sms)
+    part = (torch.empty((s, M, N), dtype=torch.float32, device=x_bf16.device)
+            if s > 1 else None)
     _launch(x_bf16.data_ptr(), codes.data_ptr(), scales.data_ptr(),
             None if zeros is None else zeros.data_ptr(), out.data_ptr(),
-            M, N, C, C // G, fmt, _OUT_KINDS[out_dtype])
+            None if part is None else part.data_ptr(),
+            M, N, C, g, fmt, _OUT_KINDS[out_dtype], s)
     dequant_matmul_codes.launches += 1
+    dequant_matmul_codes.last_grid = (N // TILE_N, -(-M // TILE_M), s)
     return out
 
 
 dequant_matmul_codes.launches = 0
+dequant_matmul_codes.last_grid = None
 
 
 # ---------------------------------------------------------------------------

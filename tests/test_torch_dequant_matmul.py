@@ -41,6 +41,8 @@ CASES = [
     ("int4-g[128]-rw", 256, 256, (2, 4), "bfloat16", True, True),     # 3-D x, bias
     ("int4-g[128]-zp-rw", 128, 512, (6,), "float32", False, True),    # f32 x -> f32 out
     ("fp8_e4m3-g[128]-rw", 128, 256, (2, 3), "float32", True, False),
+    ("int8-g[160]-rw", 128, 640, (8,), "bfloat16", False, False),     # g not a multiple of 64
+    ("int4-g[160]-zp-rw", 128, 1280, (8,), "bfloat16", False, True),
 ]
 
 
@@ -132,6 +134,7 @@ def test_plain_version_is_the_cpu_path():
     ("int8-g[128]-rw", 128, 256), ("int8-g[128]-zp-rw", 128, 256),
     ("fp8_e4m3-g[128]-rw", 128, 256), ("fp8_e5m2-g[128]-rw", 128, 256),
     ("fp8_e4m3-g[128]-zp-rw", 128, 256), ("fp8_e5m2-g[128]-zp-rw", 128, 256),
+    ("int4-g[160]-zp-rw", 128, 1280),
 ])
 def test_weight_rounding_bitwise(spec, N, C):
     """The bf16 weight each body builds, read out through x = I (every
@@ -145,3 +148,41 @@ def test_weight_rounding_bitwise(spec, N, C):
     wb = tdm.dequant_weight_bf16(tqt.codes, tqt.scales, tqt.zeros, tdm.weight_format(tqt))
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(wb.float().numpy().T, want)
+
+
+PLAN_CASES = [
+    # (case, M, N, C, g, format, expected splits or None)
+    ("down", 128, 2048, 8192, 128, tdm.F_INT4_PAIRS, 8),
+    ("o", 128, 2048, 2048, 128, tdm.F_INT4_PAIRS, 8),
+    ("qkv", 128, 3072, 2048, 128, tdm.F_INT4_PAIRS, 8),
+    ("gate|up", 128, 16384, 2048, 128, tdm.F_INT4_PAIRS, 1),
+    ("int8 head", 128, 128256, 2048, 128, tdm.F_INT8, 1),
+    ("down M=8", 8, 2048, 8192, 128, tdm.F_INT4_PAIRS, 8),
+    ("down M=130", 130, 2048, 8192, 128, tdm.F_INT4_PAIRS, 4),
+    ("halves, G=3", 8, 192, 768, 256, tdm.F_INT4_HALVES, 2),
+    ("halves, G=5", 130, 192, 1280, 256, tdm.F_INT4_HALVES, 4),
+    ("int4-g[192] pairs", 8, 192, 768, 192, tdm.F_INT4_PAIRS, 2),
+    ("int8 N=192, G=3", 130, 192, 384, 128, tdm.F_INT8, 2),
+    ("fp8 N=192", 8, 192, 512, 128, tdm.F_FP8_E4M3, 4),
+]
+
+
+@pytest.mark.parametrize("case,M,N,C,g,fmt,want", PLAN_CASES, ids=[c[0] for c in PLAN_CASES])
+def test_split_plan(case, M, N, C, g, fmt, want):
+    """The K-split plan on a 132-SM card: a power of two, at most 16 and at
+    most the groups (pairs for pair planes), so every split takes at least
+    one whole unit; none when the tiles already reach 1.5 x 132 CTAs, else
+    the smallest power of two that does (or the most the groups allow).
+    How the kernel cuts the units is checked on the card, against the
+    plain version, by the uneven splits of tests/test_torch_kernels_gpu.py."""
+    sms = 132
+    s = tdm.split_plan(M, N, C, g, fmt, sms)
+    assert s == want and 1 <= s <= tdm.MAX_SPLITS and s & (s - 1) == 0
+    assert s <= tdm.split_units(C, g, fmt)
+    tiles = -(-M // 128) * (N // 64)
+    if tiles >= 1.5 * sms:
+        assert s == 1
+    elif s > 1:
+        assert tiles * (s // 2) < 1.5 * sms
+    if tiles * s < 1.5 * sms:   # short of the fill only where the groups ran out
+        assert 2 * s > min(tdm.split_units(C, g, fmt), tdm.MAX_SPLITS)

@@ -381,3 +381,38 @@ def test_kv_layout_round_trip_bf16():
     jk = np.asarray(jnp.asarray(j["k"], jnp.bfloat16))
     assert torch.equal(tkv.from_jax_layout(jk, jk, None, None, j["lengths"], device="cpu").k,
                        cache.k)
+
+
+def test_full_f32_accumulation_sets_and_restores(monkeypatch):
+    """The context turns off bf16 reduced-precision reduction inside its
+    block and restores the previous value after, also on an exception;
+    ``prefill`` runs its forward and head inside it."""
+    from llm_compressor_tpu_torch.device import full_f32_accumulation
+
+    cm = torch.backends.cuda.matmul
+    prev = cm.allow_bf16_reduced_precision_reduction
+    try:
+        for before in (True, False):
+            cm.allow_bf16_reduced_precision_reduction = before
+            with full_f32_accumulation():
+                assert cm.allow_bf16_reduced_precision_reduction is False
+            assert cm.allow_bf16_reduced_precision_reduction is before
+        cm.allow_bf16_reduced_precision_reduction = True
+        with pytest.raises(RuntimeError, match="inside"):
+            with full_f32_accumulation():
+                raise RuntimeError("inside")
+        assert cm.allow_bf16_reduced_precision_reduction is True
+
+        gen_mod = importlib.import_module("llm_compressor_tpu_torch.engine.generate")
+        seen = []
+
+        def forward(*a, **k):
+            seen.append(cm.allow_bf16_reduced_precision_reduction)
+            raise RuntimeError("stop")
+
+        monkeypatch.setattr(gen_mod, "_forward_cached", forward)
+        with pytest.raises(RuntimeError, match="stop"):
+            gen_mod.prefill({}, torch.zeros((1, 2), dtype=torch.int32), None, cfg=None)
+        assert seen == [False] and cm.allow_bf16_reduced_precision_reduction is True
+    finally:
+        cm.allow_bf16_reduced_precision_reduction = prev

@@ -21,8 +21,9 @@ Tolerances:
 * B9: the in-kernel act quantizer gives the codes and scales of
   ``quantize_acts_per_token``, then B3's exact sums: bitwise.
 * B5: kernel and plain version build the same bf16 weight (checked
-  bitwise through x = I) and differ only in the order of the f32 sums: one
-  ulp of the output dtype plus 2 * C * 2**-24 * (|x| @ |W|^T).
+  bitwise through x = I) and differ only in the order of the f32 sums
+  (split-K included): one ulp of the output dtype plus
+  2 * C * 2**-24 * (|x| @ |W|^T). Two launches give the same bits.
 * B10: the kernel and the plain version take the same float32 adds in the
   same order (butterfly stages h = 1, 2, 4, ..., then the base terms
   l = 0..K-1), scale once and round once: bitwise equal.
@@ -269,16 +270,26 @@ def test_decode_attention_position_outside_cache(cuda):
 
 
 # every body and both int4 layouts: even group counts pack as pair planes,
-# odd ones (g >= 256) as group halves
+# odd ones as group halves. At N = 192 the card's SMs are far from full, so
+# K is split: int4-g[256] at C = 768 (G = 3) takes 2 splits of 2 and 1
+# groups; C = 8192 runs at N = 2048, 8 splits at M = 8, 4 at 130. Group
+# sizes off the 64-element chunk end in a partial chunk (g = 160 and 144;
+# group halves of 80 bytes), and groups off a 16-byte boundary take the
+# plain-load build (int8 and pair planes at g = 136, halves of 72 and of 65
+# bytes, fp8 at g = 130).
 @pytest.mark.parametrize("spec,C", [
     ("int4-g[128]-rw", 512), ("int4-g[128]-zp-rw", 512), ("int4-g[256]-rw", 768),
     ("int4-g[256]-zp-rw", 768), ("int8-g[128]-rw", 384), ("int8-g[128]-zp-rw", 384),
     ("fp8_e4m3-g[128]-rw", 512), ("fp8_e5m2-g[128]-rw", 512), ("fp8_e4m3-g[128]-zp-rw", 512),
-    ("fp8_e5m2-g[128]-zp-rw", 512), ("int4-g[192]-rw", 768)])
+    ("fp8_e5m2-g[128]-zp-rw", 512), ("int4-g[192]-rw", 768), ("int4-g[128]-zp-rw", 8192),
+    ("int8-g[160]-rw", 640), ("int4-g[160]-rw", 640), ("int4-g[160]-zp-rw", 480),
+    ("int8-g[136]-zp-rw", 408), ("int4-g[136]-rw", 544), ("int4-g[144]-rw", 432),
+    ("int4-g[130]-zp-rw", 390), ("fp8_e4m3-g[130]-zp-rw", 390), ("int4-g[144]-rw", 576),
+    ("fp8_e5m2-g[144]-rw", 576)])
 @pytest.mark.parametrize("M", [8, 130])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_dequant_matmul(cuda, spec, C, M, out_dtype):
-    N = 192
+    N = 2048 if C == 8192 else 192
     qt = _packed(spec, N, C, seed=M)[0]
     codes, scales = qt.codes.to(cuda), qt.scales.to(cuda)
     zeros = None if qt.zeros is None else qt.zeros.to(cuda)
@@ -298,6 +309,34 @@ def test_dequant_matmul(cuda, spec, C, M, out_dtype):
     eye = torch.eye(C, device=cuda, dtype=torch.bfloat16)
     wt = dm.dequant_matmul_codes(eye, codes, scales, zeros, fmt, torch.float32)
     assert torch.equal(wt, w.t())
+
+
+def _b5_inputs(cuda, spec, N, C, M, seed=0):
+    qt = _packed(spec, N, C, seed=seed)[0]
+    zeros = None if qt.zeros is None else qt.zeros.to(cuda)
+    x = torch.from_numpy(np.random.default_rng(seed + 1).normal(size=(M, C)).astype(np.float32))
+    return (x.to(torch.bfloat16).to(cuda), qt.codes.to(cuda), qt.scales.to(cuda), zeros,
+            dm.weight_format(qt))
+
+
+# (spec, N, C, M, splits on a 132-SM card): one unsplit case, the rest split
+@pytest.mark.parametrize("spec,N,C,M,want_s", [("int4-g[128]-zp-rw", 16384, 1024, 128, 1),
+                                               ("int4-g[128]-zp-rw", 2048, 8192, 8, 8),
+                                               ("int4-g[256]-rw", 192, 768, 8, 2),
+                                               ("int8-g[128]-rw", 2048, 2048, 130, 4),
+                                               ("int8-g[136]-rw", 192, 408, 8, 2)])
+def test_dequant_matmul_deterministic(cuda, spec, N, C, M, want_s):
+    """Two launches on the same inputs give the same bits, without splits
+    and with them (the partials are added in split order, no atomics)."""
+    xb, codes, scales, zeros, fmt = _b5_inputs(cuda, spec, N, C, M)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if sms == 132:
+        assert dm.split_plan(M, N, C, C // scales.shape[1], fmt, sms) == want_s
+    a = dm.dequant_matmul_codes(xb, codes, scales, zeros, fmt, torch.bfloat16)
+    assert dm.dequant_matmul_codes.last_grid[2] == dm.split_plan(M, N, C, C // scales.shape[1],
+                                                                 fmt, sms)
+    b = dm.dequant_matmul_codes(xb, codes, scales, zeros, fmt, torch.bfloat16)
+    assert torch.equal(a, b)
 
 
 # power-of-two sizes from 2 up (R2 at head_dim 64, R1 at hidden 2048), every
