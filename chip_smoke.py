@@ -14,10 +14,14 @@ Phases (each prints a line; any failure exits non-zero):
    kernel's own arithmetic) from the published H100 SXM peaks — int8 at
    1979 TOP/s for B1-B4 and B6-B9, dense bf16 at 989.4 TFLOP/s for B5,
    float32 outside the tensor cores at 67 TFLOP/s for B10; bytes count the
-   rows this run's masks keep. Each B5 case also gives the K-splits and
-   CTAs of the grid its wrapper launched and the reduce kernel's share of
-   its time (``torch.profiler``); its log line adds the earlier version's
-   time, a constant with its source;
+   rows this run's masks keep. Each B1, B3, B5 and B9 case also gives the
+   K-splits and CTAs of the grid its wrapper launched and the split-K
+   reduce kernel's share of its time (``torch.profiler``); B1 and B3 must
+   equal their plain version summed in the launched splits bitwise, and
+   two launches must give the same bits; B9 gives its act quantizer's
+   share and B3's time on host-quantised acts; a log line adds the earlier
+   design's time, a constant with its source. B3 runs the int8 head and
+   the prefill qkv and o projections (M = 16384);
 4. token checks — at 2 layers, full width, the kernel path's greedy tokens
    must equal the plain path's wherever the plain logits' top-2 gap exceeds
    the stated tolerance: W4A8 (in-place B4 decode, and the side-block
@@ -137,10 +141,10 @@ W4A8_APPEND_PER_STEP = W4A8_PER_STEP | {"decode_attention_append": LAYERS}
 CALIB_SAMPLES, CALIB_LEN = 128, 512
 # B10 launches while calibrating: R1, then one R2 per layer
 B10_PER_CALIBRATION = 1 + LAYERS
-# per-case fields beyond the contract's: B9's B3 time, B5's launched grid and
-# its reduce kernel's share; then B5's earlier time, a constant, on the log
-# line only
-EXTRA_METRICS = ("b3_ms", "splits", "ctas", "reduce_ms")
+# per-case fields beyond the contract's: B9's B3 time and its act quantizer's
+# share, the launched grid of B1, B3, B5 and B9 and their reduce kernel's
+# share; then the earlier design's time, a constant, on the log line only
+EXTRA_METRICS = ("b3_ms", "quant_ms", "splits", "ctas", "reduce_ms")
 LOG_ONLY = ("earlier_ms",)
 
 
@@ -220,8 +224,30 @@ def _rand_codes(gen, shape, wfmt):
     return (lo | (hi << 4)).to(torch.uint8)
 
 
+# B1, B3 and B9 before the tensor-core redesign (the dp4a design), ms,
+# measured by this script on an NVIDIA H100 80GB HBM3, 700.00 W (PERF.md
+# section 6)
+W4A8_EARLIER_MS = {"decode qkv": 0.0597, "decode o": 0.0595, "decode down": 0.2286,
+                   "decode int8 head": 0.7504, "prefill qkv 128x128 rows": 2.4344,
+                   "int8 head, raw bf16 acts": 2.7975,
+                   "flat qkv int4-g128 pair planes, raw bf16 acts": 0.0966}
+
+
+def _grid_fields(wrapper, run, label):
+    """The launched grid (splits, CTAs), the split-K reduce kernel's share
+    of the time and the earlier design's time (log line only)."""
+    tiles_n, tiles_m, splits = wrapper.last_grid
+    out = {"splits": splits, "ctas": tiles_n * tiles_m * splits,
+           "reduce_ms": _profiled_ms(run, "w4a8_reduce")}
+    if label in W4A8_EARLIER_MS:
+        out["earlier_ms"] = W4A8_EARLIER_MS[label]
+    return out
+
+
 def check_w4a8(gen, label, kind, M, N, C, wfmt):
-    """One W4A8 case; ``kind`` is 'stacked', 'flat' or 'gateup' (N = 2I)."""
+    """One W4A8 case; ``kind`` is 'stacked', 'flat' or 'gateup' (N = 2I).
+    B1 and B3 must equal the plain version summed in the splits the wrapper
+    launched, bitwise, and two launches must give the same bits."""
     from llm_compressor_tpu_torch.kernels import w4a8_matmul as wm
 
     G = C // 128
@@ -232,20 +258,25 @@ def check_w4a8(gen, label, kind, M, N, C, wfmt):
     x = torch.randn((M, C), generator=gen, device="cuda").to(torch.bfloat16)
     x_i8, sx = wm.quantize_acts_per_token(x)
     bf = torch.bfloat16
+    wrapper = None
     if kind == "stacked":
+        wrapper = wm.matmul_stacked
         run = lambda: wm.matmul_stacked(x_i8, codes, scales, sx, 1, wfmt, bf)
-        plain = lambda: wm.w4a8_plain(x_i8, codes[1], scales[1], sx, wfmt, bf)
+        plain = lambda: wm.w4a8_plain(x_i8, codes[1], scales[1], sx, wfmt, bf,
+                                      splits=wrapper.last_grid[2])
         n_out = N
     elif kind == "flat":
+        wrapper = wm.matmul_flat
         c0, s0 = codes[0], scales[0]
         run = lambda: wm.matmul_flat(x_i8, c0, s0, sx, wfmt, bf)
-        plain = lambda: wm.w4a8_plain(x_i8, c0, s0, sx, wfmt, bf)
+        plain = lambda: wm.w4a8_plain(x_i8, c0, s0, sx, wfmt, bf, splits=wrapper.last_grid[2])
         n_out = N
     else:
         run = lambda: wm.gateup_silu(x_i8, codes, scales, sx, 1, wfmt, "silu", bf)
         plain = lambda: wm.gateup_plain(x_i8, codes[1], scales[1], sx, wfmt, "silu", bf)
         n_out = N // 2
-    got, want = run(), plain()
+    got = run()
+    want = plain()
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs()
     if kind == "gateup":
@@ -255,7 +286,9 @@ def check_w4a8(gen, label, kind, M, N, C, wfmt):
         tol = "1 bf16 ulp"
     else:
         ok = bool((err == 0).all())
-        tol = "bitwise"
+        tol = "bitwise at the launched split count; bitwise launch to launch"
+        if ok and not torch.equal(run(), got):
+            raise AssertionError(f"{label}: two launches on the same inputs differ")
     if not ok:
         raise AssertionError(f"{label}: kernel disagrees with plain (max err {float(err.max())})")
     wbytes = codes[0].numel() + scales[0].numel() * 4
@@ -270,6 +303,8 @@ def check_w4a8(gen, label, kind, M, N, C, wfmt):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(lambda: torch.matmul(x, w_bf.t())),
     }
+    if wrapper is not None:
+        case.update(_grid_fields(wrapper, run, label))
     del codes, scales, w_bf
     return case
 
@@ -461,8 +496,9 @@ def check_fresh_write(gen, L=LAYERS, B=128, KV=8, W=32, D=64, layer=7, t=16):
 
 def check_w4a8_actq(gen, label, M, N, C, wfmt):
     """One B9 case: raw bf16 acts, bitwise against the act quantizer + B3's
-    plain version; ``b3_ms`` times B3 on host-quantised acts at the same
-    shape, so ms - b3_ms is the price of quantising in every N-block."""
+    plain version at the launched split count; ``b3_ms`` times B3 on
+    host-quantised acts at the same shape and ``quant_ms`` B9's act
+    quantizer kernel (``torch.profiler``), so ms - quant_ms is its core."""
     from llm_compressor_tpu_torch.kernels import w4a8_matmul as wm
 
     cb = C if wfmt == 0 else C // 2
@@ -471,8 +507,9 @@ def check_w4a8_actq(gen, label, M, N, C, wfmt):
     x = torch.randn((M, C), generator=gen, device="cuda").to(torch.bfloat16)
     bf = torch.bfloat16
     run = lambda: wm.matmul_actq(x, codes, scales, wfmt, bf)
-    plain = lambda: wm.actq_plain(x, codes, scales, wfmt, bf)
-    got, want = run(), plain()
+    plain = lambda: wm.actq_plain(x, codes, scales, wfmt, bf, splits=wm.matmul_actq.last_grid[2])
+    got = run()
+    want = plain()
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError(f"B9 {label}: kernel disagrees with plain "
@@ -485,7 +522,9 @@ def check_w4a8_actq(gen, label, M, N, C, wfmt):
             "ms": time_ms(run), "plain_ms": time_ms(plain, reps=3, warmup=1),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(lambda: torch.matmul(x, w_bf.t())),
-            "b3_ms": time_ms(lambda: wm.matmul_flat(x_i8, codes, scales, sx, wfmt, bf))}
+            "b3_ms": time_ms(lambda: wm.matmul_flat(x_i8, codes, scales, sx, wfmt, bf)),
+            "quant_ms": _profiled_ms(run, "w4a8_act_quant"),
+            **_grid_fields(wm.matmul_actq, run, label)}
     del codes, scales, w_bf
     return case
 
@@ -615,7 +654,8 @@ def phase_kernels(seed: int):
         "B2_w4a8_gateup_silu": [check_w4a8(gen, "decode gate|up", "gateup", 128, 2 * I, E, 1)],
         "B3_w4a8_flat": [
             check_w4a8(gen, "decode int8 head", "flat", 128, V, E, 0),
-            check_w4a8(gen, "prefill qkv 128x128 rows", "flat", 128 * 128, 3072, E, 1)],
+            check_w4a8(gen, "prefill qkv 128x128 rows", "flat", 128 * 128, 3072, E, 1),
+            check_w4a8(gen, "prefill o 128x128 rows", "flat", 128 * 128, E, E, 1)],
         "B4_decode_attention_append": [check_decode_attention(gen)],
         "B5_dequant_matmul": [
             check_dequant_matmul(gen, "decode qkv int4-g128 zp", 128, 3072, E, dm.F_INT4_PAIRS, True),
@@ -1039,8 +1079,10 @@ def _kernel_class(name: str) -> str:
         return "B8"
     if "dequant_matmul" in name:   # the main kernel and the split-K reduce
         return "B5"
-    if "w4a8_kernel" in name:  # template argument NW: 2 is the fused gate|up
-        return "B2" if ("Li2EEEv" in name or ", 2>" in name) else "B1/B3"
+    if "w4a8_kernel" in name:   # the dp4a template now serves only the fused gate|up
+        return "B2"
+    if "w4a8_mma_kernel" in name or "w4a8_reduce" in name:   # the core and its split-K reduce
+        return "B1/B3"
     return "other"
 
 

@@ -107,17 +107,23 @@ def split_units(C: int, g: int, fmt: int) -> int:
     return G // 2 if fmt == F_INT4_PAIRS else G
 
 
-def split_plan(M: int, N: int, C: int, g: int, fmt: int, sms: int) -> int:
-    """Number of K-splits s: the smallest power of two with
-    tiles(M, N) * s >= FILL * sms, at most the largest power of two within
-    both the unit count (:func:`split_units`) and MAX_SPLITS; 1 when the
-    tiles already fill the card."""
-    tiles = -(-M // TILE_M) * -(-N // TILE_N)
-    cap = min(split_units(C, g, fmt), MAX_SPLITS)
+def plan_splits(tiles: int, units: int, sms: int) -> int:
+    """Number of K-splits s for a grid of ``tiles`` output tiles over
+    ``units`` K units: the smallest power of two with tiles * s >=
+    FILL * sms, at most the largest power of two within both the unit count
+    and MAX_SPLITS; 1 when the tiles already fill the card. The W4A8 core
+    plans by the same rule."""
+    cap = min(units, MAX_SPLITS)
     s = 1
     while tiles * s < FILL * sms and 2 * s <= cap:
         s *= 2
     return s
+
+
+def split_plan(M: int, N: int, C: int, g: int, fmt: int, sms: int) -> int:
+    """:func:`plan_splits` over this kernel's tiles and units
+    (:func:`split_units`)."""
+    return plan_splits(-(-M // TILE_M) * -(-N // TILE_N), split_units(C, g, fmt), sms)
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,8 @@ family (``csrc/w4a8_matmul.cu``):
 * :func:`matmul_stacked` — B1, one layer of stacked (L, N, C/2) codes;
 * :func:`matmul_flat` — B3, unstacked codes, int4 or int8 weights;
 * :func:`gateup_silu` — B2, fused [gate | up] + activation;
-* :func:`matmul_actq` — B9, B3 with the per-token act quant inside the
-  kernel (raw bf16 / f32 acts in), reached through
+* :func:`matmul_actq` — B9, B3 with the per-token act quant on the card
+  (raw bf16 / f32 acts in), reached through
   ``w4a8_matmul(..., act_inside=True)``.
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
@@ -18,6 +18,16 @@ tensors it runs the plain PyTorch version beside it (:func:`w4a8_plain`,
 kernel's pair-planes path folds a +8 bias into the even groups' dots and
 subtracts it after, so its f32 sums differ from these at the f32-ulp
 level; the int32 per-group dots are exact in both.
+
+On the card B1, B3 and B9 split K over whole groups (whole group pairs for
+int4 pair planes) when the output tiles alone would leave SMs idle:
+:func:`split_plan` picks the number of splits s with B5's rule, split z
+takes units [z U / s, (z + 1) U / s) (:func:`split_bounds`), and the f32
+sums of the splits are added in split order before the act scale.
+``w4a8_plain(..., splits=s)`` sums in that order too, so the kernel is
+bitwise equal to it at every split count; with ``splits=1`` it is the
+unsplit sum. B9 quantizes each row once (a kernel of its own) into scratch
+codes, then runs the same core.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import torch.nn.functional as F
 from ..qformats.formats import ElemFormat
 from ..qformats.qtensor import QTensor
 from . import _build
+from .dequant_matmul import plan_splits
 
 W_INT8, W_PAIRS, W_HALVES = 0, 1, 2
 _ACTS = {"silu": 1, "swish": 1, "gelu": 2, "gelu_python": 2,
@@ -92,6 +103,34 @@ def _wfmt(qt: QTensor) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Split-K plan of the core (B1, B3, B9)
+# ---------------------------------------------------------------------------
+
+TILE_M, TILE_N = 128, 64   # output tile of one CTA (csrc/w4a8_matmul.cu TM, TN)
+
+
+def split_units(C: int, g: int, wfmt: int) -> int:
+    """What a split walks whole: groups, or group pairs for int4 pair
+    planes (a byte holds one element of each group of its pair)."""
+    G = C // g
+    return G // 2 if wfmt == W_PAIRS else G
+
+
+def split_bounds(units: int, splits: int):
+    """The units [u0, u1) of each split, as the kernel cuts them: split z
+    starts at floor(z * units / splits), so the splits differ by at most
+    one unit."""
+    return [(z * units // splits, (z + 1) * units // splits) for z in range(splits)]
+
+
+def split_plan(M: int, N: int, C: int, g: int, wfmt: int, sms: int) -> int:
+    """K-splits of a launch: B5's rule (:func:`~.dequant_matmul.plan_splits`)
+    over this kernel's tiles and units."""
+    tiles = -(-M // TILE_M) * -(-N // TILE_N)
+    return plan_splits(tiles, split_units(C, g, wfmt), sms)
+
+
+# ---------------------------------------------------------------------------
 # Plain PyTorch versions
 # ---------------------------------------------------------------------------
 
@@ -111,8 +150,10 @@ def _int_weights(codes: torch.Tensor, G: int, wfmt: int) -> torch.Tensor:
     return (vals.to(torch.int16) - 8).to(torch.int8).reshape(N, -1)
 
 
-def _scaled_sum(x_i8, codes, scales, wfmt):
-    """sum_g float(x_g . w_g) * s_w[:, g] in group order, f32 (M, N)."""
+def _scaled_sum(x_i8, codes, scales, wfmt, splits: int = 1):
+    """sum_g float(x_g . w_g) * s_w[:, g], f32 (M, N): each split's groups
+    (:func:`split_bounds`) in group order from zero, then the splits' sums
+    in split order."""
     M, C = x_i8.shape
     N, G = scales.shape
     g = C // G
@@ -121,16 +162,22 @@ def _scaled_sum(x_i8, codes, scales, wfmt):
     # always true for g <= 1024 at 8-bit operands; float64 beyond
     ft = torch.float32 if g <= 1024 else torch.float64
     xf, wf = x_i8.to(ft), w.to(ft)
-    acc = torch.zeros((M, N), dtype=torch.float32, device=x_i8.device)
-    for gi in range(G):
-        part = (xf[:, gi * g:(gi + 1) * g] @ wf[:, gi * g:(gi + 1) * g].T).float()
-        acc = acc + part * scales[:, gi]
-    return acc
+    units = split_units(C, g, wfmt)
+    per = G // units   # groups per unit
+    total = None
+    for u0, u1 in split_bounds(units, splits):
+        acc = torch.zeros((M, N), dtype=torch.float32, device=x_i8.device)
+        for gi in range(u0 * per, u1 * per):
+            part = (xf[:, gi * g:(gi + 1) * g] @ wf[:, gi * g:(gi + 1) * g].T).float()
+            acc = acc + part * scales[:, gi]
+        total = acc if total is None else total + acc
+    return total
 
 
-def w4a8_plain(x_i8, codes, scales, sx, wfmt: int, out_dtype: torch.dtype):
-    """Plain version of B1/B3: (M, N) in ``out_dtype``."""
-    return (_scaled_sum(x_i8, codes, scales, wfmt) * sx).to(out_dtype)
+def w4a8_plain(x_i8, codes, scales, sx, wfmt: int, out_dtype: torch.dtype, splits: int = 1):
+    """Plain version of B1/B3: (M, N) in ``out_dtype``, K summed in
+    ``splits`` splits as the kernel sums it."""
+    return (_scaled_sum(x_i8, codes, scales, wfmt, splits) * sx).to(out_dtype)
 
 
 def _activation(act: str, g: torch.Tensor) -> torch.Tensor:
@@ -194,55 +241,85 @@ def _check(x_i8, codes, scales, sx, wfmt, out_dtype):
         raise ValueError("sx must hold one scale per row")
 
 
-# x, w, scales, sx, out; M, N (I for gateup), C, group, wfmt, out_bf16[, act]
+# x, w, scales, sx, out, workspace (or null); M, N, C, group, wfmt, out_bf16, splits
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_matmul_launch = _build.c_launcher("w4a8_matmul", "llmc_w4a8_matmul", [_P] * 5 + [_I] * 6)
+_matmul_launch = _build.c_launcher("w4a8_matmul", "llmc_w4a8_matmul", [_P] * 6 + [_I] * 7)
+# x, w, scales, sx, out; M, I, C, group, wfmt, out_bf16, act
 _gateup_launch = _build.c_launcher("w4a8_matmul", "llmc_w4a8_gateup", [_P] * 5 + [_I] * 7)
-# x, w, scales, out; M, N, C, group, wfmt, out_bf16, x_bf16
-_actq_launch = _build.c_launcher("w4a8_matmul", "llmc_w4a8_matmul_actq", [_P] * 4 + [_I] * 7)
-# B9 keeps a block's 64 rows of act codes in shared memory: 64 * C bytes
-ACTQ_MAX_C = 3072
+# x, w, scales, act codes, act scales, out, workspace (or null); M, N, C,
+# group, wfmt, out_bf16, x_bf16, splits
+_actq_launch = _build.c_launcher("w4a8_matmul", "llmc_w4a8_matmul_actq", [_P] * 7 + [_I] * 8)
 
 
-def _matmul_kernel(x_i8, codes, scales, sx, wfmt, out_dtype):
-    M, C = x_i8.shape
-    N, G = scales.shape
-    out = torch.empty((M, N), dtype=out_dtype, device=x_i8.device)
-    _matmul_launch(x_i8.data_ptr(), codes.data_ptr(), scales.data_ptr(), sx.data_ptr(),
-                   out.data_ptr(), M, N, C, C // G, wfmt, int(out_dtype == torch.bfloat16))
+def _plan(x, scales, wfmt: int, splits: Optional[int]) -> int:
+    """The split count of a call on x (M, C) and scales (N, G): the
+    caller's ``splits`` (1 to the unit count), else :func:`split_plan` for
+    the card's SMs (1 on the CPU)."""
+    (M, C), (N, G) = x.shape, scales.shape
+    g = C // G
+    if splits is not None:
+        units = split_units(C, g, wfmt)
+        if not 1 <= splits <= units:
+            raise ValueError(f"splits must lie in [1, {units}] (the K units), not {splits}")
+        return splits
+    if not x.is_cuda:
+        return 1
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return split_plan(M, N, C, g, wfmt, sms)
+
+
+def _launch(wrapper, launcher, ptrs, x, scales, wfmt, out_dtype, splits, tail=()):
+    """Allocate the output (and the split workspace), launch, count, and
+    keep the grid on ``wrapper.last_grid``: (N tiles, M tiles, splits)."""
+    (M, C), (N, G) = x.shape, scales.shape
+    s = _plan(x, scales, wfmt, splits)
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    part = torch.empty((s, M, N), dtype=torch.float32, device=x.device) if s > 1 else None
+    launcher(*ptrs, out.data_ptr(), None if part is None else part.data_ptr(), M, N, C, C // G,
+             wfmt, int(out_dtype == torch.bfloat16), *tail, s)
+    wrapper.launches += 1
+    wrapper.last_grid = (-(-N // TILE_N), -(-M // TILE_M), s)
     return out
 
 
 def matmul_stacked(x_i8, codes, scales, sx, layer: int, wfmt: int,
-                   out_dtype: torch.dtype):
+                   out_dtype: torch.dtype, splits: Optional[int] = None):
     """B1: layer ``layer`` of stacked codes (L, N, C[/2]) / scales (L, N, G).
-    The kernel reads the layer in place from the stacked buffers."""
+    The kernel reads the layer in place from the stacked buffers. K is
+    split as :func:`split_plan` says, or in ``splits`` splits."""
     _check(x_i8, codes, scales, sx, wfmt, out_dtype)
     if codes.dim() != 3 or not 0 <= layer < codes.shape[0]:
         raise ValueError("matmul_stacked needs stacked codes and a valid layer")
+    cl, sl = codes[layer], scales[layer]
     if not x_i8.is_cuda:
-        return w4a8_plain(x_i8, codes[layer], scales[layer], sx, wfmt, out_dtype)
-    out = _matmul_kernel(x_i8, codes[layer], scales[layer], sx, wfmt, out_dtype)
-    matmul_stacked.launches += 1
-    return out
+        return w4a8_plain(x_i8, cl, sl, sx, wfmt, out_dtype,
+                          splits=_plan(x_i8, sl, wfmt, splits))
+    return _launch(matmul_stacked, _matmul_launch,
+                   (x_i8.data_ptr(), cl.data_ptr(), sl.data_ptr(), sx.data_ptr()),
+                   x_i8, sl, wfmt, out_dtype, splits)
 
 
 matmul_stacked.launches = 0
+matmul_stacked.last_grid = None
 
 
-def matmul_flat(x_i8, codes, scales, sx, wfmt: int, out_dtype: torch.dtype):
-    """B3: unstacked codes (N, C[/2]) / scales (N, G)."""
+def matmul_flat(x_i8, codes, scales, sx, wfmt: int, out_dtype: torch.dtype,
+                splits: Optional[int] = None):
+    """B3: unstacked codes (N, C[/2]) / scales (N, G); ``splits`` as for
+    :func:`matmul_stacked`."""
     _check(x_i8, codes, scales, sx, wfmt, out_dtype)
     if codes.dim() != 2:
         raise ValueError("matmul_flat needs 2-D codes")
     if not x_i8.is_cuda:
-        return w4a8_plain(x_i8, codes, scales, sx, wfmt, out_dtype)
-    out = _matmul_kernel(x_i8, codes, scales, sx, wfmt, out_dtype)
-    matmul_flat.launches += 1
-    return out
+        return w4a8_plain(x_i8, codes, scales, sx, wfmt, out_dtype,
+                          splits=_plan(x_i8, scales, wfmt, splits))
+    return _launch(matmul_flat, _matmul_launch,
+                   (x_i8.data_ptr(), codes.data_ptr(), scales.data_ptr(), sx.data_ptr()),
+                   x_i8, scales, wfmt, out_dtype, splits)
 
 
 matmul_flat.launches = 0
+matmul_flat.last_grid = None
 
 
 def gateup_silu(x_i8, codes, scales, sx, layer: int, wfmt: int, act: str,
@@ -270,35 +347,36 @@ def gateup_silu(x_i8, codes, scales, sx, layer: int, wfmt: int, act: str,
 gateup_silu.launches = 0
 
 
-def actq_plain(x, codes, scales, wfmt: int, out_dtype: torch.dtype):
+def actq_plain(x, codes, scales, wfmt: int, out_dtype: torch.dtype, splits: int = 1):
     """Plain version of B9: :func:`quantize_acts_per_token`, then B3's."""
     x_i8, sx = quantize_acts_per_token(x)
-    return w4a8_plain(x_i8, codes, scales, sx, wfmt, out_dtype)
+    return w4a8_plain(x_i8, codes, scales, sx, wfmt, out_dtype, splits=splits)
 
 
-def matmul_actq(x, codes, scales, wfmt: int, out_dtype: torch.dtype):
-    """B9: raw acts x (M, C) bf16 or f32, per-token int8 quantized inside
-    the kernel, times unstacked codes (N, C[/2]) / scales (N, G)."""
+def matmul_actq(x, codes, scales, wfmt: int, out_dtype: torch.dtype,
+                splits: Optional[int] = None):
+    """B9: raw acts x (M, C) bf16 or f32, per-token int8 quantized on the
+    card (each row once, into scratch codes and scales), times unstacked
+    codes (N, C[/2]) / scales (N, G); ``splits`` as for
+    :func:`matmul_stacked`. One launch count per call."""
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError("x must be bfloat16 or float32")
     _check_weights(x, codes, scales, wfmt, out_dtype, (x, codes, scales))
     if codes.dim() != 2:
         raise ValueError("matmul_actq needs 2-D codes")
     if not x.is_cuda:
-        return actq_plain(x, codes, scales, wfmt, out_dtype)
+        return actq_plain(x, codes, scales, wfmt, out_dtype, splits=_plan(x, scales, wfmt, splits))
     M, C = x.shape
-    if C > ACTQ_MAX_C:
-        raise ValueError(f"B9 holds 64 rows of C int8 codes in shared memory: C <= "
-                         f"{ACTQ_MAX_C} (C={C})")
-    N, G = scales.shape
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    _actq_launch(x.data_ptr(), codes.data_ptr(), scales.data_ptr(), out.data_ptr(), M, N, C,
-                 C // G, wfmt, int(out_dtype == torch.bfloat16), int(x.dtype == torch.bfloat16))
-    matmul_actq.launches += 1
-    return out
+    xq = torch.empty((M, C), dtype=torch.int8, device=x.device)
+    sxq = torch.empty((M,), dtype=torch.float32, device=x.device)
+    return _launch(matmul_actq, _actq_launch,
+                   (x.data_ptr(), codes.data_ptr(), scales.data_ptr(), xq.data_ptr(),
+                    sxq.data_ptr()),
+                   x, scales, wfmt, out_dtype, splits, tail=(int(x.dtype == torch.bfloat16),))
 
 
 matmul_actq.launches = 0
+matmul_actq.last_grid = None
 
 
 # ---------------------------------------------------------------------------

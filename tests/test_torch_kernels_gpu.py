@@ -8,8 +8,10 @@ so every pytest-xdist worker collects the same tests).
 Tolerances:
 * B1/B2/B3: the kernel and the plain version take the same exact int32
   group dots and add the scaled parts in the same order without FMA
-  contraction, so f32 outputs are bitwise equal. bf16 outputs may differ
-  by one bf16 ulp where the activation (B2) rounds differently.
+  contraction (B1/B3 split K as the wrapper launched it, and the plain
+  version sums the same splits), so outputs are bitwise equal. B2's bf16
+  outputs may differ by one bf16 ulp where the activation rounds
+  differently.
 * B4, B7: the written cache codes are bitwise equal; the output agrees to
   a few f32 ulps (the row sum is reduced in another order), plus at most one
   flipped prob code per row (exp may differ by an ulp at a .5 boundary).
@@ -18,8 +20,8 @@ Tolerances:
   assembled around it as B7's against the assembly around the plain
   version, and within the JAX test's tolerance of the two-part epilogue.
 * B8: bitwise (a copy).
-* B9: the in-kernel act quantizer gives the codes and scales of
-  ``quantize_acts_per_token``, then B3's exact sums: bitwise.
+* B9: its act quantizer kernel gives the codes and scales of
+  ``quantize_acts_per_token``, then B3's core: bitwise.
 * B5: kernel and plain version build the same bf16 weight (checked
   bitwise through x = I) and differ only in the order of the f32 sums
   (split-K included): one ulp of the output dtype plus
@@ -57,25 +59,74 @@ def _packed(spec, N, C, seed, stack=1):
     return qts
 
 
-# even group counts pack as pair planes, odd ones as group halves
-@pytest.mark.parametrize("spec,C", [("int4-g[128]-rw", 512), ("int4-g[128]-rw", 640),
-                                    ("int4-g[256]-rw", 1024), ("int8-g[128]-rw", 640)])
-@pytest.mark.parametrize("M", [8, 40, 130])
-@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-def test_w4a8_flat_and_stacked(cuda, spec, C, M, out_dtype):
-    N = 320
-    qts = _packed(spec, N, C, seed=M, stack=2)
-    rng = np.random.default_rng(1)
-    x = torch.from_numpy(rng.normal(size=(M, C)).astype(np.float32)).to(cuda)
-    x_i8, sx = wm.quantize_acts_per_token(x)
+def _w4a8_inputs(cuda, spec, N, C, M, seed=0, stack=2):
+    qts = _packed(spec, N, C, seed=seed, stack=stack)
+    x = torch.from_numpy(np.random.default_rng(seed + 1).normal(size=(M, C)).astype(np.float32))
+    x_i8, sx = wm.quantize_acts_per_token(x.to(cuda))
     codes = torch.stack([q.codes for q in qts]).to(cuda)
     scales = torch.stack([q.scales for q in qts]).to(cuda)
-    fmt = wm._wfmt(qts[0])
+    return x.to(cuda), x_i8, sx, codes, scales, wm._wfmt(qts[0])
+
+
+# even group counts pack as pair planes, odd ones as group halves; at N = 320
+# the plan splits K into 1 (one group), 2, 4, 8 or 16 (C = 4096) parts
+@pytest.mark.parametrize("spec,C", [("int4-g[128]-rw", 512), ("int4-g[128]-rw", 640),
+                                    ("int4-g[256]-rw", 1024), ("int8-g[128]-rw", 640),
+                                    ("int8-g[128]-rw", 128), ("int4-g[128]-rw", 128),
+                                    ("int8-g[128]-rw", 1024), ("int4-g[128]-rw", 4096)])
+@pytest.mark.parametrize("M", [8, 40, 130, 256, 300])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_w4a8_flat_and_stacked(cuda, spec, C, M, out_dtype):
+    """B1 and B3 bitwise against the plain version at the split count the
+    wrapper launched (its plan), and two launches give the same bits."""
+    N = 320
+    _, x_i8, sx, codes, scales, fmt = _w4a8_inputs(cuda, spec, N, C, M, seed=M)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = wm.split_plan(M, N, C, C // scales.shape[-1], fmt, sms)
     for layer in (0, 1):
         got = wm.matmul_stacked(x_i8, codes, scales, sx, layer, fmt, out_dtype)
-        want = wm.w4a8_plain(x_i8, codes[layer], scales[layer], sx, fmt, out_dtype)
+        assert wm.matmul_stacked.last_grid == (5, -(-M // 128), plan)
+        want = wm.w4a8_plain(x_i8, codes[layer], scales[layer], sx, fmt, out_dtype, splits=plan)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     got = wm.matmul_flat(x_i8, codes[1].contiguous(), scales[1].contiguous(), sx, fmt, out_dtype)
+    assert wm.matmul_flat.last_grid[2] == plan
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    again = wm.matmul_flat(x_i8, codes[1].contiguous(), scales[1].contiguous(), sx, fmt,
+                           out_dtype)
+    assert torch.equal(again, got)
+
+
+# K units: int8 8 groups, pair planes 8 group pairs (g = 128 and 256), group
+# halves 9 groups
+@pytest.mark.parametrize("spec,C", [("int8-g[128]-rw", 1024), ("int4-g[128]-rw", 2048),
+                                    ("int4-g[128]-rw", 1152), ("int4-g[256]-rw", 4096)])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_w4a8_forced_splits(cuda, spec, C, splits, out_dtype):
+    """B3 and B9 with the split count forced: bitwise against the plain
+    version summed in the same splits, and launch to launch."""
+    M, N = 40, 192
+    x, x_i8, sx, codes, scales, fmt = _w4a8_inputs(cuda, spec, N, C, M, stack=1)
+    c, s = codes[0], scales[0]
+    got = wm.matmul_flat(x_i8, c, s, sx, fmt, out_dtype, splits=splits)
+    assert wm.matmul_flat.last_grid == (3, 1, splits)
+    want = wm.w4a8_plain(x_i8, c, s, sx, fmt, out_dtype, splits=splits)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert torch.equal(wm.matmul_flat(x_i8, c, s, sx, fmt, out_dtype, splits=splits), got)
+    got = wm.matmul_actq(x, c, s, fmt, out_dtype, splits=splits)
+    assert wm.matmul_actq.last_grid == (3, 1, splits)
+    assert torch.equal(got, wm.actq_plain(x, c, s, fmt, out_dtype, splits=splits))
+
+
+@pytest.mark.parametrize("N", [200, 77])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_w4a8_ragged_n(cuda, N, out_dtype):
+    """Output widths that are not a multiple of the 64-wide tile, odd ones
+    included (single stores)."""
+    x, x_i8, sx, codes, scales, fmt = _w4a8_inputs(cuda, "int4-g[128]-rw", N, 512, 40, stack=1)
+    got = wm.matmul_flat(x_i8, codes[0], scales[0], sx, fmt, out_dtype)
+    want = wm.w4a8_plain(x_i8, codes[0], scales[0], sx, fmt, out_dtype,
+                         splits=wm.matmul_flat.last_grid[2])
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
@@ -220,10 +271,15 @@ def test_fresh_write(cuda):
 
 
 @pytest.mark.parametrize("spec,C", [("int4-g[128]-rw", 512), ("int4-g[128]-rw", 640),
-                                    ("int8-g[128]-rw", 640), ("int4-g[128]-rw", 3072)])
+                                    ("int8-g[128]-rw", 640), ("int4-g[128]-rw", 3072),
+                                    ("int4-g[128]-rw", 4096), ("int4-g[128]-rw", 8192),
+                                    ("int8-g[128]-rw", 8192)])
 @pytest.mark.parametrize("M", [8, 40, 130])
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 def test_w4a8_actq(cuda, spec, C, M, x_dtype):
+    """B9 bitwise against the act quantizer + B3's plain version at the
+    launched split count, and against the host quantizer + B3; any C runs
+    (each row is quantized once, into scratch)."""
     N = 320
     qt = _packed(spec, N, C, seed=M)[0]
     codes, scales = qt.codes.to(cuda), qt.scales.to(cuda)
@@ -233,18 +289,11 @@ def test_w4a8_actq(cuda, spec, C, M, x_dtype):
     before = wm.matmul_actq.launches
     got = wm.matmul_actq(x, codes, scales, fmt, x_dtype)
     assert wm.matmul_actq.launches == before + 1
-    want = wm.actq_plain(x, codes, scales, fmt, x_dtype)
+    want = wm.actq_plain(x, codes, scales, fmt, x_dtype, splits=wm.matmul_actq.last_grid[2])
     assert got.dtype == x_dtype and torch.equal(got, want)
     # the same as the act quantizer on the host side, then B3
     x_i8, sx = wm.quantize_acts_per_token(x)
     assert torch.equal(got, wm.matmul_flat(x_i8, codes, scales, sx, fmt, x_dtype))
-
-
-def test_w4a8_actq_refuses_wide_rows(cuda):
-    qt = _packed("int4-g[128]-rw", 128, 4096, seed=1)[0]
-    x = torch.zeros((4, 4096), device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        wm.matmul_actq(x, qt.codes.to(cuda), qt.scales.to(cuda), wm._wfmt(qt), torch.float32)
 
 
 def test_decode_attention_position_outside_cache(cuda):
