@@ -14,14 +14,15 @@ Phases (each prints a line; any failure exits non-zero):
    kernel's own arithmetic) from the published H100 SXM peaks — int8 at
    1979 TOP/s for B1-B4 and B6-B9, dense bf16 at 989.4 TFLOP/s for B5,
    float32 outside the tensor cores at 67 TFLOP/s for B10; bytes count the
-   rows this run's masks keep. Each B1, B3, B5 and B9 case also gives the
-   K-splits and CTAs of the grid its wrapper launched and the split-K
+   rows this run's masks keep. Each B1, B2, B3, B5 and B9 case also gives
+   the K-splits and CTAs of the grid its wrapper launched and the split-K
    reduce kernel's share of its time (``torch.profiler``); B1 and B3 must
-   equal their plain version summed in the launched splits bitwise, and
-   two launches must give the same bits; B9 gives its act quantizer's
-   share and B3's time on host-quantised acts; a log line adds the earlier
-   design's time, a constant with its source. B3 runs the int8 head and
-   the prefill qkv and o projections (M = 16384);
+   equal their plain version summed in the launched splits bitwise, B2 to
+   one bf16 ulp (its f32 activation), and two launches must give the same
+   bits; B9 gives its act quantizer's share and B3's time on
+   host-quantised acts; a log line adds the earlier design's time, a
+   constant with its source. B2 runs the decode and the prefill gate|up,
+   B3 the int8 head and the prefill qkv and o projections (M = 16384);
 4. token checks — at 2 layers, full width, the kernel path's greedy tokens
    must equal the plain path's wherever the plain logits' top-2 gap exceeds
    the stated tolerance: W4A8 (in-place B4 decode, and the side-block
@@ -48,7 +49,9 @@ Phases (each prints a line; any failure exits non-zero):
    of B6-B8. Each slice's counts are set to 0 just before it and read just
    after; each of its kernels must have launched. Two more
    decode steps run under ``torch.profiler`` for the device time by kernel
-   and the idle share. The weight-only params then repeat the prefill
+   and the idle share; for ``w4a8``, one more prefill too, its device time
+   by kernel family (B2, B3, attention, bf16 matmul, other). The
+   weight-only params then repeat the prefill
    comparison above at full depth (TTFT both ways, reported), and serve one
    ``generate`` call with top-k sampling from a fixed seed, twice, which
    must agree.
@@ -142,7 +145,7 @@ CALIB_SAMPLES, CALIB_LEN = 128, 512
 # B10 launches while calibrating: R1, then one R2 per layer
 B10_PER_CALIBRATION = 1 + LAYERS
 # per-case fields beyond the contract's: B9's B3 time and its act quantizer's
-# share, the launched grid of B1, B3, B5 and B9 and their reduce kernel's
+# share, the launched grid of B1, B2, B3, B5 and B9 and their reduce kernel's
 # share; then the earlier design's time, a constant, on the log line only
 EXTRA_METRICS = ("b3_ms", "quant_ms", "splits", "ctas", "reduce_ms")
 LOG_ONLY = ("earlier_ms",)
@@ -224,21 +227,22 @@ def _rand_codes(gen, shape, wfmt):
     return (lo | (hi << 4)).to(torch.uint8)
 
 
-# B1, B3 and B9 before the tensor-core redesign (the dp4a design), ms,
+# B1, B2, B3 and B9 before the tensor-core redesign (the dp4a design), ms,
 # measured by this script on an NVIDIA H100 80GB HBM3, 700.00 W (PERF.md
-# section 6)
+# section 6; the prefill gate|up on the last tree that had the dp4a B2)
 W4A8_EARLIER_MS = {"decode qkv": 0.0597, "decode o": 0.0595, "decode down": 0.2286,
+                   "decode gate|up": 0.1246, "prefill gate|up 128x128 rows": 13.1083,
                    "decode int8 head": 0.7504, "prefill qkv 128x128 rows": 2.4344,
                    "int8 head, raw bf16 acts": 2.7975,
                    "flat qkv int4-g128 pair planes, raw bf16 acts": 0.0966}
 
 
-def _grid_fields(wrapper, run, label):
+def _grid_fields(wrapper, run, label, reduce="w4a8_reduce"):
     """The launched grid (splits, CTAs), the split-K reduce kernel's share
     of the time and the earlier design's time (log line only)."""
     tiles_n, tiles_m, splits = wrapper.last_grid
     out = {"splits": splits, "ctas": tiles_n * tiles_m * splits,
-           "reduce_ms": _profiled_ms(run, "w4a8_reduce")}
+           "reduce_ms": _profiled_ms(run, reduce)}
     if label in W4A8_EARLIER_MS:
         out["earlier_ms"] = W4A8_EARLIER_MS[label]
     return out
@@ -246,8 +250,9 @@ def _grid_fields(wrapper, run, label):
 
 def check_w4a8(gen, label, kind, M, N, C, wfmt):
     """One W4A8 case; ``kind`` is 'stacked', 'flat' or 'gateup' (N = 2I).
-    B1 and B3 must equal the plain version summed in the splits the wrapper
-    launched, bitwise, and two launches must give the same bits."""
+    Each is held against the plain version summed in the splits the
+    wrapper launched: B1 and B3 bitwise, B2 to one bf16 ulp (its f32
+    activation); two launches must give the same bits."""
     from llm_compressor_tpu_torch.kernels import w4a8_matmul as wm
 
     G = C // 128
@@ -258,7 +263,6 @@ def check_w4a8(gen, label, kind, M, N, C, wfmt):
     x = torch.randn((M, C), generator=gen, device="cuda").to(torch.bfloat16)
     x_i8, sx = wm.quantize_acts_per_token(x)
     bf = torch.bfloat16
-    wrapper = None
     if kind == "stacked":
         wrapper = wm.matmul_stacked
         run = lambda: wm.matmul_stacked(x_i8, codes, scales, sx, 1, wfmt, bf)
@@ -272,8 +276,10 @@ def check_w4a8(gen, label, kind, M, N, C, wfmt):
         plain = lambda: wm.w4a8_plain(x_i8, c0, s0, sx, wfmt, bf, splits=wrapper.last_grid[2])
         n_out = N
     else:
+        wrapper = wm.gateup_silu
         run = lambda: wm.gateup_silu(x_i8, codes, scales, sx, 1, wfmt, "silu", bf)
-        plain = lambda: wm.gateup_plain(x_i8, codes[1], scales[1], sx, wfmt, "silu", bf)
+        plain = lambda: wm.gateup_plain(x_i8, codes[1], scales[1], sx, wfmt, "silu", bf,
+                                        splits=wrapper.last_grid[2])
         n_out = N // 2
     got = run()
     want = plain()
@@ -283,12 +289,12 @@ def check_w4a8(gen, label, kind, M, N, C, wfmt):
         # f32 activation epilogue: expf and torch's exp may round one bf16
         # ulp apart
         ok = bool((err <= want.float().abs() * 2.0 ** -7 + 1e-6).all())
-        tol = "1 bf16 ulp"
+        tol = "1 bf16 ulp at the launched split count; bitwise launch to launch"
     else:
         ok = bool((err == 0).all())
         tol = "bitwise at the launched split count; bitwise launch to launch"
-        if ok and not torch.equal(run(), got):
-            raise AssertionError(f"{label}: two launches on the same inputs differ")
+    if ok and not torch.equal(run(), got):
+        raise AssertionError(f"{label}: two launches on the same inputs differ")
     if not ok:
         raise AssertionError(f"{label}: kernel disagrees with plain (max err {float(err.max())})")
     wbytes = codes[0].numel() + scales[0].numel() * 4
@@ -303,8 +309,8 @@ def check_w4a8(gen, label, kind, M, N, C, wfmt):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(lambda: torch.matmul(x, w_bf.t())),
     }
-    if wrapper is not None:
-        case.update(_grid_fields(wrapper, run, label))
+    case.update(_grid_fields(wrapper, run, label,
+                             "w4a8_gateup_reduce" if kind == "gateup" else "w4a8_reduce"))
     del codes, scales, w_bf
     return case
 
@@ -651,7 +657,9 @@ def phase_kernels(seed: int):
             check_w4a8(gen, "decode qkv", "stacked", 128, 3072, E, 1),
             check_w4a8(gen, "decode o", "stacked", 128, E, E, 1),
             check_w4a8(gen, "decode down", "stacked", 128, E, I, 1)],
-        "B2_w4a8_gateup_silu": [check_w4a8(gen, "decode gate|up", "gateup", 128, 2 * I, E, 1)],
+        "B2_w4a8_gateup_silu": [
+            check_w4a8(gen, "decode gate|up", "gateup", 128, 2 * I, E, 1),
+            check_w4a8(gen, "prefill gate|up 128x128 rows", "gateup", 128 * 128, 2 * I, E, 1)],
         "B3_w4a8_flat": [
             check_w4a8(gen, "decode int8 head", "flat", 128, V, E, 0),
             check_w4a8(gen, "prefill qkv 128x128 rows", "flat", 128 * 128, 3072, E, 1),
@@ -1079,7 +1087,7 @@ def _kernel_class(name: str) -> str:
         return "B8"
     if "dequant_matmul" in name:   # the main kernel and the split-K reduce
         return "B5"
-    if "w4a8_kernel" in name:   # the dp4a template now serves only the fused gate|up
+    if "w4a8_gateup" in name:   # the fused gate|up on the core, and its split-K reduce
         return "B2"
     if "w4a8_mma_kernel" in name or "w4a8_reduce" in name:   # the core and its split-K reduce
         return "B1/B3"
@@ -1161,6 +1169,99 @@ def profile_decode(params, cfg, qcfg, cache, token, steps: int = 2, attention="a
             "device_ms_per_step": {k: round(v, 4) for k, v in sorted(by_class.items())}}
 
 
+ATTENTION_MARK = "chip_smoke.prefill_attention"
+MATMUL_OPS = ("aten::mm", "aten::matmul", "aten::addmm", "aten::linear")
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def profile_prefill(cfg, qcfg, params, serving, seed: int):
+    """Device ms by kernel family of one ``prefill`` of BATCH x PROMPT
+    tokens under ``torch.profiler``, with the device's busy time and idle
+    share of the window. Families: B2, B3 (the core and its reduce: qkv,
+    o), attention (every kernel of ``_float_attention``: the cache read,
+    both einsums, softmax), bf16 matmul (a matmul kernel outside attention:
+    down, after its dequantization), other. ``_float_attention`` runs
+    inside a ``record_function`` range; a kernel is attention if it lies
+    inside one of the range's device spans or its launching CPU op lies
+    inside the range, and a bf16 matmul if its CPU op is a matmul or, where
+    the profiler links it to no op, its name is a GEMM's. ``attribution``
+    says which links the trace had."""
+    import importlib
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from llm_compressor_tpu_torch.engine import prefill
+
+    gen_mod = importlib.import_module("llm_compressor_tpu_torch.engine.generate")
+    inner = gen_mod._float_attention
+
+    def marked(*args, **kw):
+        with record_function(ATTENTION_MARK):
+            return inner(*args, **kw)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    toks = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    cache = new_cache(cfg, BATCH, MAX_LEN, serving)
+    torch.cuda.synchronize()
+    gen_mod._float_attention = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prefill(params, toks, cache, cfg=cfg, qcfg=qcfg)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        gen_mod._float_attention = inner
+    del cache
+    CPU, CUDA = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    marks = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == CUDA and ATTENTION_MARK in e.name)
+    kernels = [e for e in events if e.device_type == CUDA and ATTENTION_MARK not in e.name
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        return {"wall_ms": wall_ms, "device_ms_by_family": "not measured"}
+
+    def ops_of(op):
+        names = []
+        while op is not None:
+            names.append(op.name)
+            op = op.cpu_parent
+        return names
+
+    # (name, duration) of each kernel the profiler links to a CPU op, with
+    # that op's chain
+    linked = {}
+    for e in events:
+        if e.device_type == CPU and getattr(e, "kernels", None):
+            chain = ops_of(e)
+            for k in e.kernels:
+                linked.setdefault((k.name, round(k.duration, 3)), []).append(chain)
+    fam, used = {}, {"device spans": 0, "cpu ops": 0, "names": 0}
+    for e in kernels:
+        a, b = e.time_range.start, e.time_range.end
+        cls = _kernel_class(e.name)
+        chains = linked.get((e.name, round(b - a, 3)))
+        chain = chains.pop() if chains else None
+        if cls in ("B2", "B1/B3"):
+            f = "B2" if cls == "B2" else "B3"
+        elif any(s <= a and b <= t for s, t in marks):
+            f, used["device spans"] = "attention", used["device spans"] + 1
+        elif chain is not None:
+            used["cpu ops"] += 1
+            f = ("attention" if ATTENTION_MARK in chain
+                 else "bf16 matmul" if any(op in MATMUL_OPS for op in chain) else "other")
+        else:
+            used["names"] += 1
+            f = "bf16 matmul" if any(n in e.name.lower() for n in GEMM_NAMES) else "other"
+        fam[f] = fam.get(f, 0.0) + (b - a) / 1e3
+    busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+            "device_ms_by_family": {k: round(v, 3) for k, v in sorted(fam.items())},
+            "kernels": len(kernels), "attention_spans": len(marks), "attribution": used}
+
+
 def phase_slice(seed: int, serving, kernel_names, model=None, attention="append",
                 per_step=None):
     """The full-depth slice of one serving config, RTN-built unless a
@@ -1230,6 +1331,8 @@ def _slice_numbers(s):
            "peak_mem_gib": s["peak_mem_gib"],
            "device_busy_ms_per_step": prof.get("device_busy_ms_per_step"),
            "wall_ms_per_step": prof["wall_ms_per_step"]}
+    if "prefill_profile" in s:
+        out["prefill_device_ms_by_family"] = s["prefill_profile"].get("device_ms_by_family")
     if "prefill_reduction" in s:
         pr = s["prefill_reduction"]
         out.update(ttft_ms_f32_accumulation=pr["ms_f32_accumulation"],
@@ -1383,6 +1486,9 @@ def main() -> int:
         log(f"slice {key} decode profile (2 steps, torch.profiler): {json.dumps(s['profile'])}")
         if key == "w4a8":
             w4a8_model = (s["cfg"], s["qcfg"], s["params"])
+            s["prefill_profile"] = profile_prefill(*w4a8_model, serving, args.seed)
+            log(f"slice w4a8 prefill profile ({BATCH} x {PROMPT} tokens, torch.profiler, "
+                f"device ms by kernel family): {json.dumps(s['prefill_profile'])}")
         if key == "weight_only":
             s["prefill_reduction"] = compare_prefill_reduction(
                 (s["cfg"], s["qcfg"], s["params"]), serving, BATCH, PROMPT, args.seed)

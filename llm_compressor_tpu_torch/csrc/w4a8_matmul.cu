@@ -7,6 +7,8 @@
 //   B2 _call_gateup_silu (:517)  fused [gate | up] + act epilogue       -> llmc_w4a8_gateup
 //
 //   y[m, n] = sx[m] * sum_g s_w[n, g] * (x_i8[m, g] . w[n, g])
+//   B2: h[m, j] = act(y[m, j]) * y[m, I + j], each half rounded through
+//       the out dtype first, one rounding at the store
 //
 // The per-group dot is exact int32; each group's part is scaled in f32 and
 // added in group order, then multiplied by the per-token act scale.
@@ -15,22 +17,32 @@
 // PyTorch version does (kernels/w4a8_matmul.py::w4a8_plain).
 //
 // What bounds each case on this card (H100 SXM: 3.35 TB/s, 1979 TOP/s int8):
-// * decode, M <= 256 rows (B1 qkv / o / down, the B3 int8 head): the bytes
-//   of the weights, read once — qkv 3.1 MB of int4 codes + 0.2 MB of
-//   scales (about 1 us), the int8 head 263 MB (0.09 ms). The first design
-//   (dp4a on the CUDA cores, 64 x 64 tiles) read the head twice and gave B1
+// * decode, M <= 256 rows (B1 qkv / o / down, B2 gate|up, the B3 int8
+//   head): the bytes of the weights, read once — qkv 3.1 MB of int4 codes
+//   + 0.2 MB of scales (about 1 us), gate|up 16.8 MB of codes + 1 MB of
+//   scales (6 us), the int8 head 263 MB (0.09 ms). The first design (dp4a
+//   on the CUDA cores, 64 x 64 tiles) read the head twice and gave B1
 //   only 32-48 CTAs for 132 SMs, each walking all of K.
-// * prefill, M = 16384 (B3 qkv and o, C / g <= 16): the int8 operations,
-//   2 M N C (qkv 206 G, 0.10 ms), which dp4a cannot approach.
+// * prefill, M = 16384 (B3 qkv and o, B2 gate|up: C / g <= 16): the int8
+//   operations, 2 M N C (qkv 206 G, 0.10 ms; gate|up 1.10 T, 0.56 ms),
+//   which dp4a cannot approach.
 //
-// The core of B1, B3 and B9 (w4a8_mma_kernel):
+// The core of B1, B2, B3 and B9 (mma_tile, launched as w4a8_mma_kernel and,
+// for B2, w4a8_gateup_kernel):
 // * int8 tensor cores: mma.sync m16n8k32 s8 x s8 -> s32. A is the act codes
 //   (M, K) row-major and B the weight rows (N, K) row-major, which is the
 //   .col operand as it stands; both reach their fragments through ldmatrix
 //   (32 bytes of K read as 16 b16 columns).
-// * one CTA takes a 128 x 64 output tile (8 warps, 4 along M x 2 along N,
-//   32 x 32 each), so at decode (M <= 128) every weight byte is read from
-//   device memory once;
+// * one CTA takes 128 x rows times 64 weight rows (8 warps, 4 along M x 2
+//   along N, 32 x 32 each), so at decode (M <= 128) every weight byte is
+//   read from device memory once. B1/B3/B9: a 128 x 64 output tile. B2
+//   (the fused [gate | up] + act(g) * u): the 64 rows are 32 gate rows and
+//   the up rows of the same 32 columns, each warp's n-tiles 0, 1 gate and
+//   2, 3 up, so one thread holds the gate and up sums of its outputs and
+//   the epilogue applies sx, rounds each half through the out dtype, runs
+//   the activation and the product in f32 and rounds once at the store: a
+//   128 x 32 output tile, nothing but the row index of the copies and the
+//   epilogue changed;
 // * a chunk is 128 K elements of one group. int8: 128 code bytes. Group
 //   halves: 64 packed bytes whose low nibbles hold elements i and high
 //   nibbles i + g/2, so one ldmatrix of the packed tile feeds the B
@@ -50,10 +62,11 @@
 // * split-K over whole groups (whole group pairs for pair planes, so no two
 //   splits read one byte), planned in Python (kernels/w4a8_matmul.py::
 //   split_plan, B5's rule): with s > 1 splits each CTA writes its f32 sums,
-//   before sx, to an (s, M, N) workspace, and w4a8_reduce_kernel adds them
-//   in split order, applies sx and rounds once. No atomics: two launches
-//   give the same bits, and so does the plain version summed in the same
-//   splits.
+//   before sx, to an (s, M, N) workspace (B2: (s, M, 2I), gate sums at
+//   column j, up at I + j), and w4a8_reduce_kernel (B2: w4a8_gateup_reduce_
+//   kernel, with B2's epilogue) adds them in split order, applies sx and
+//   rounds once. No atomics: two launches give the same bits, and so does
+//   the plain version summed in the same splits.
 // What bounds the core now (PERF.md section 6): the chain of copy, barrier,
 // mma and epilogue inside a CTA; leaving out the mma, the copies or the
 // epilogue each saves a part, none most of it. Tried, bitwise right, and
@@ -67,13 +80,6 @@
 // allocates; then the core reads them. Each row is quantized once, and any
 // C runs (the JAX kernel quantizes once per M tile, at its first N and K
 // step).
-//
-// B2 still runs the first design (w4a8_kernel below, NW = 2): 64 x 64
-// tiles, 128-deep chunks staged synchronously as int8 words, dp4a on the
-// CUDA cores. Its fused act(g) * u epilogue needs the gate and up sums of
-// one output column in one thread; on the core that is a second
-// accumulator pair per thread or a [gate | up] interleaved tile, which is
-// the next step (ROADMAP queue B).
 //
 // Weight layouts (qformats/qtensor.py): int8 codes (N, C); int4 "pair
 // planes" codes (N, C/2) where byte j of group pair t holds element j of
@@ -111,73 +117,6 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// ---------------------------------------------------------------------------
-// B2: the first design (dp4a on the CUDA cores), kept for the fused gate|up
-// ---------------------------------------------------------------------------
-
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int KC2 = 128;       // K elements staged per step
-constexpr int KW = KC2 / 4;    // int32 words per staged row
-constexpr int LDS = KW + 1;    // padded shared row stride (bank-conflict free)
-constexpr int THREADS = 256;
-
-__device__ __forceinline__ uint32_t nib_word(uint32_t bytes4, int hi) {
-  // four packed bytes -> four signed int8 (nibble - 8) in one word
-  uint32_t out = 0;
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    uint32_t v = (bytes4 >> (8 * b)) & 0xffu;
-    int nib = hi ? int(v >> 4) : int(v & 0xfu);
-    out |= (uint32_t(nib - 8) & 0xffu) << (8 * b);
-  }
-  return out;
-}
-
-// Stage 16 K-elements of one weight row (row n, chunk-local q-th 16) into
-// shared words dst[0..3].
-template <int WFMT>
-__device__ __forceinline__ void load_w16(const uint8_t* __restrict__ w, long row_bytes,
-                                         int n, int N, int gi, int group, int c, int q,
-                                         uint32_t* dst) {
-  uint4 v = make_uint4(0, 0, 0, 0);
-  int hi = 0;
-  if (n < N) {
-    const uint8_t* row = w + (long)n * row_bytes;
-    int e0 = c * KC2 + q * 16;  // element offset inside the group
-    if (WFMT == W_INT8) {
-      v = *reinterpret_cast<const uint4*>(row + (long)gi * group + e0);
-    } else if (WFMT == W_PAIRS) {
-      hi = gi & 1;
-      v = *reinterpret_cast<const uint4*>(row + (long)(gi >> 1) * group + e0);
-    } else {
-      int h = group / 2;
-      long base = (long)gi * h;
-      if (e0 < h) {
-        v = *reinterpret_cast<const uint4*>(row + base + e0);
-      } else {
-        hi = 1;
-        v = *reinterpret_cast<const uint4*>(row + base + e0 - h);
-      }
-    }
-  }
-  if (WFMT == W_INT8) {
-    dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
-  } else if (n < N) {
-    // 16 packed bytes hold 16 nibbles of one plane -> 4 words of int8
-    dst[0] = nib_word(v.x, hi); dst[1] = nib_word(v.y, hi);
-    dst[2] = nib_word(v.z, hi); dst[3] = nib_word(v.w, hi);
-  } else {
-    dst[0] = dst[1] = dst[2] = dst[3] = 0;
-  }
-}
-
 __device__ __forceinline__ float activate(int act, float g) {
   if (act == ACT_SILU) return g / (1.0f + expf(-g));
   if (act == ACT_GELU) return 0.5f * g * (1.0f + erff(g * 0.70710678118654752440f));
@@ -188,134 +127,27 @@ __device__ __forceinline__ float activate(int act, float g) {
   return 0.5f * g * (1.0f + tanhf(inner));
 }
 
-// NW = 2: fused gate|up — output column j reads weight rows j (gate) and
-// I + j (up), I = n_out.
-template <int WFMT, typename OutT, int NW>
-__global__ void __launch_bounds__(THREADS)
-w4a8_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
-            const float* __restrict__ scales, const float* __restrict__ sx,
-            OutT* __restrict__ out, int M, int n_out, int C, int group, int act) {
-  __shared__ uint32_t xs[BM * LDS];
-  __shared__ uint32_t ws[NW][BN * LDS];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int G = C / group;
-  const int chunks = group / KC2;
-  const long row_bytes = (WFMT == W_INT8) ? C : C / 2;
-
-  float acc[NW][4][4];
-#pragma unroll
-  for (int h = 0; h < NW; ++h)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[h][i][j] = 0.0f;
-
-  for (int gi = 0; gi < G; ++gi) {
-    int part[NW][4][4];
-#pragma unroll
-    for (int h = 0; h < NW; ++h)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) part[h][i][j] = 0;
-
-    for (int c = 0; c < chunks; ++c) {
-      const int k0 = gi * group + c * KC2;
-#pragma unroll
-      for (int rep = 0; rep < 2; ++rep) {
-        const int idx = tid + rep * THREADS;  // 512 = 64 rows x 8 x 16 bytes
-        const int row = idx / 8, q = idx % 8;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (m0 + row < M)
-          v = *reinterpret_cast<const uint4*>(x + (long)(m0 + row) * C + k0 + q * 16);
-        uint32_t* dx = &xs[row * LDS + q * 4];
-        dx[0] = v.x; dx[1] = v.y; dx[2] = v.z; dx[3] = v.w;
-#pragma unroll
-        for (int h = 0; h < NW; ++h)
-          load_w16<WFMT>(w, row_bytes, n0 + row + h * n_out, (h + 1) * n_out,
-                         gi, group, c, q, &ws[h][row * LDS + q * 4]);
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kw = 0; kw < KW; ++kw) {
-        int a[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = int(xs[(ty + 16 * i) * LDS + kw]);
-#pragma unroll
-        for (int h = 0; h < NW; ++h)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            int b = int(ws[h][(tx + 16 * j) * LDS + kw]);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) part[h][i][j] = __dp4a(a[i], b, part[h][i][j]);
-          }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int h = 0; h < NW; ++h)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + tx + 16 * j;
-        const float s = (n < n_out) ? scales[(long)(n + h * n_out) * G + gi] : 0.0f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          acc[h][i][j] = __fadd_rn(acc[h][i][j], __fmul_rn(float(part[h][i][j]), s));
-      }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-    const float sm = sx[m];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= n_out) continue;
-      // each half rounds through the out dtype, the activation runs in
-      // f32, one rounding at the store (w4a8_matmul.py:504-512)
-      const float g = round_out<OutT>(__fmul_rn(acc[0][i][j], sm));
-      const float u = round_out<OutT>(__fmul_rn(acc[NW - 1][i][j], sm));
-      out[(long)m * n_out + n] = to_out<OutT>(activate(act, g) * u);
-    }
-  }
+// B2's epilogue on one output column: g and u are the gate and up sums
+// times sx; each half rounds through the out dtype, the activation and the
+// product run in f32, and the caller rounds once at the store
+// (llm_compressor_tpu/kernels/w4a8_matmul.py:504-512)
+template <typename OutT>
+__device__ __forceinline__ float gate_up(int act, float g, float u) {
+  return activate(act, round_out<OutT>(g)) * round_out<OutT>(u);
 }
 
-template <int NW>
-int launch(const void* x, const void* w, const void* scales, const void* sx, void* out,
-           int M, int n_out, int C, int group, int wfmt, int out_bf16, int act,
-           cudaStream_t stream) {
-  dim3 grid((n_out + BN - 1) / BN, (M + BM - 1) / BM);
-  const int8_t* xi = static_cast<const int8_t*>(x);
-  const uint8_t* wi = static_cast<const uint8_t*>(w);
-  const float* si = static_cast<const float*>(scales);
-  const float* sxi = static_cast<const float*>(sx);
-#define LLMC_W4A8_LAUNCH(WF, T)                                                          \
-  w4a8_kernel<WF, T, NW><<<grid, THREADS, 0, stream>>>(xi, wi, si, sxi, static_cast<T*>(out), \
-                                                       M, n_out, C, group, act)
-  if (out_bf16) {
-    if (wfmt == W_INT8) LLMC_W4A8_LAUNCH(W_INT8, __nv_bfloat16);
-    else if (wfmt == W_PAIRS) LLMC_W4A8_LAUNCH(W_PAIRS, __nv_bfloat16);
-    else LLMC_W4A8_LAUNCH(W_HALVES, __nv_bfloat16);
-  } else {
-    if (wfmt == W_INT8) LLMC_W4A8_LAUNCH(W_INT8, float);
-    else if (wfmt == W_PAIRS) LLMC_W4A8_LAUNCH(W_PAIRS, float);
-    else LLMC_W4A8_LAUNCH(W_HALVES, float);
-  }
-#undef LLMC_W4A8_LAUNCH
-  return int(cudaGetLastError());
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
 }
 
 // ---------------------------------------------------------------------------
-// B1 / B3 / B9: the int8 tensor-core core
+// B1 / B2 / B3 / B9: the int8 tensor-core core
 // ---------------------------------------------------------------------------
 
 constexpr int TM = 128;              // x rows of a CTA
-constexpr int TN = 64;               // weight rows (output columns) of a CTA
+constexpr int TN = 64;               // weight rows of a CTA (B2: 32 gate + 32 up)
 constexpr int NT = 256;              // 8 warps: 4 along M x 2 along N, 32 x 32 each
 constexpr int KC = 128;              // K elements of a chunk
 constexpr int RUN = 64;              // group halves: a chunk is two runs of 64
@@ -375,13 +207,19 @@ __device__ __forceinline__ uint32_t nib_s8(uint32_t v, int shift) {
   return (((v >> shift) & 0x0F0F0F0Fu) + 0x78787878u) ^ 0x80808080u;
 }
 
-// One CTA: a TM x TN output tile.
-template <int WFMT, typename OutT>
-__global__ void __launch_bounds__(NT, 2)
-w4a8_mma_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
-                const float* __restrict__ scales, const float* __restrict__ sx,
-                OutT* __restrict__ out, float* __restrict__ part, int M, int N, int C,
-                int g) {
+// One CTA: TM x rows times TN weight rows. B1/B3/B9 (GU false): a TM x TN
+// output tile of N columns. B2 (GU true): N = I output columns, 2I weight
+// rows [gate | up]; warp column wc's 32 rows are the gate rows of output
+// columns n0 + 16 wc + [0, 16) (n-tiles 0, 1) and the up rows of the same
+// columns (n-tiles 2, 3), so a thread holds acc[.][nt] and acc[.][nt + 2]
+// of one column and the tile is TM x 32.
+template <int WFMT, typename OutT, bool GU>
+__device__ __forceinline__ void mma_tile(const int8_t* __restrict__ x,
+                                         const uint8_t* __restrict__ w,
+                                         const float* __restrict__ scales,
+                                         const float* __restrict__ sx, OutT* __restrict__ out,
+                                         float* __restrict__ part, int M, int N, int C, int g,
+                                         int act) {
   extern __shared__ __align__(16) uint8_t smem[];
   constexpr int MT = 2;                      // m16 tiles of a warp
   constexpr int CLD = code_ld(WFMT);
@@ -391,7 +229,11 @@ w4a8_mma_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;  // mma fragment coordinates
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int n0 = blockIdx.x * TN, m0 = blockIdx.y * TM;
+  const int n0 = blockIdx.x * (GU ? TN / 2 : TN), m0 = blockIdx.y * TM;
+  // the output column of shared weight row r (it exists if < N), and its
+  // weight row
+  auto col_of = [&](int r) { return GU ? n0 + ((r >> 5) << 4) + (r & 15) : n0 + r; };
+  auto row_of = [&](int r) -> long { return GU && (r & 16) ? N + col_of(r) : col_of(r); };
   const int G = C / g;
   const long row_bytes = WFMT == W_INT8 ? C : C / 2;
 
@@ -458,24 +300,24 @@ w4a8_mma_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
 #pragma unroll
       for (int j = 0; j < TN * 4 / NT; ++j) {
         const int r = (tid >> 2) + j * (NT / 4), p = tid & 3;
-        const bool ok = n0 + r < N;
+        const bool ok = col_of(r) < N;
         cp_async16(cs + r * CLD + p * 16,
-                   ok ? w + (long)(n0 + r) * row_bytes + ch.boff + p * 16 : w, ok ? 16 : 0);
+                   ok ? w + row_of(r) * row_bytes + ch.boff + p * 16 : w, ok ? 16 : 0);
       }
     } else {                       // TN rows x 8 pieces
 #pragma unroll
       for (int j = 0; j < TN * 8 / NT; ++j) {
         const int r = xr + j * (NT / 8);
-        const bool ok = n0 + r < N;
+        const bool ok = col_of(r) < N;
         cp_async16(cs + r * CLD + xp * 16,
-                   ok ? w + (long)(n0 + r) * row_bytes + ch.boff + xp * 16 : w, ok ? 16 : 0);
+                   ok ? w + row_of(r) * row_bytes + ch.boff + xp * 16 : w, ok ? 16 : 0);
       }
     }
 #pragma unroll
     for (int r = tid; r < TN; r += NT) {
-      const bool ok = n0 + r < N;
+      const bool ok = col_of(r) < N;
       cp_async4(reinterpret_cast<float*>(s + SC_AT) + r,
-                ok ? scales + (long)(n0 + r) * G + ch.group : scales, ok ? 4 : 0);
+                ok ? scales + row_of(r) * G + ch.group : scales, ok ? 4 : 0);
     }
   };
 
@@ -593,6 +435,49 @@ w4a8_mma_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
   cp_async_wait<0>();
 
   const bool pairs_ok = (N & 1) == 0;  // two neighbouring outputs, aligned
+  if (GU) {
+    // B2: with one split, sx, each half's rounding, the activation and one
+    // rounding at the store; else the f32 sums before sx, gate at column
+    // j and up at N + j of the (splits, M, 2N) workspace
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + wm + mt * 16 + gid + h * 8;
+          const int j = n0 + (wn >> 1) + nt * 8 + tig * 2;
+          if (m >= M || j >= N) continue;
+          const float g0 = acc[mt][nt][2 * h], g1 = acc[mt][nt][2 * h + 1];
+          const float u0 = acc[mt][nt + 2][2 * h], u1 = acc[mt][nt + 2][2 * h + 1];
+          if (splits == 1) {
+            const float sm = sx[m];
+            const float v0 = gate_up<OutT>(act, __fmul_rn(g0, sm), __fmul_rn(u0, sm));
+            const float v1 = gate_up<OutT>(act, __fmul_rn(g1, sm), __fmul_rn(u1, sm));
+            const long at = (long)m * N + j;
+            if (pairs_ok) {
+              store2(out + at, v0, v1);
+            } else {
+              out[at] = to_out<OutT>(v0);
+              if (j + 1 < N) out[at + 1] = to_out<OutT>(v1);
+            }
+          } else {
+            float* const p = part + ((long)z * M + m) * 2 * N + j;
+            if (pairs_ok) {
+              store2(p, g0, g1);
+              store2(p + N, u0, u1);
+            } else {
+              p[0] = g0;
+              p[N] = u0;
+              if (j + 1 < N) {
+                p[1] = g1;
+                p[N + 1] = u1;
+              }
+            }
+          }
+        }
+    return;
+  }
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -626,6 +511,26 @@ w4a8_mma_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
       }
 }
 
+// The core's two kernels (distinct names for the profiler): B1/B3/B9, and
+// B2 (act: ACT_*)
+template <int WFMT, typename OutT>
+__global__ void __launch_bounds__(NT, 2)
+w4a8_mma_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
+                const float* __restrict__ scales, const float* __restrict__ sx,
+                OutT* __restrict__ out, float* __restrict__ part, int M, int N, int C, int g,
+                int act) {
+  mma_tile<WFMT, OutT, false>(x, w, scales, sx, out, part, M, N, C, g, act);
+}
+
+template <int WFMT, typename OutT>
+__global__ void __launch_bounds__(NT, 2)
+w4a8_gateup_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
+                   const float* __restrict__ scales, const float* __restrict__ sx,
+                   OutT* __restrict__ out, float* __restrict__ part, int M, int N, int C, int g,
+                   int act) {
+  mma_tile<WFMT, OutT, true>(x, w, scales, sx, out, part, M, N, C, g, act);
+}
+
 // out[m, n] = sx[m] * (part[0] + part[1] + ... + part[s - 1]), added in
 // that order, rounded once
 template <typename OutT>
@@ -638,6 +543,27 @@ w4a8_reduce_kernel(const float* __restrict__ part, const float* __restrict__ sx,
   float a = part[i];
   for (int z = 1; z < splits; ++z) a = __fadd_rn(a, part[z * MN + i]);
   out[i] = to_out<OutT>(__fmul_rn(a, sx[i / N]));
+}
+
+// B2's: out[m, j] = to_out(act(g) * u) from part (splits, M, 2I), gate
+// sums at column j and up sums at I + j, each added in split order, times
+// sx, each half rounded through the out dtype (gate_up)
+template <typename OutT>
+__global__ void __launch_bounds__(256)
+w4a8_gateup_reduce_kernel(const float* __restrict__ part, const float* __restrict__ sx,
+                          OutT* __restrict__ out, int M, int I, int splits, int act) {
+  const long MI = (long)M * I;
+  const long i = (long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= MI) return;
+  const long m = i / I;
+  const float* const p = part + i + m * I;  // row m of the (M, 2I) slice
+  float g = p[0], u = p[I];
+  for (int z = 1; z < splits; ++z) {
+    g = __fadd_rn(g, p[z * 2 * MI]);
+    u = __fadd_rn(u, p[z * 2 * MI + I]);
+  }
+  const float sm = sx[m];
+  out[i] = to_out<OutT>(gate_up<OutT>(act, __fmul_rn(g, sm), __fmul_rn(u, sm)));
 }
 
 // value i of a 16-byte load of x, as f32 (bf16: 8 values, f32: 4; the
@@ -687,55 +613,70 @@ w4a8_act_quant_kernel(const XT* __restrict__ x, int8_t* __restrict__ q,
   if (lane == 0) sxq[row] = s;
 }
 
-template <int WFMT, typename OutT>
+template <int WFMT, typename OutT, bool GU>
 cudaError_t launch_mma(const int8_t* x, const uint8_t* w, const float* s, const float* sx,
-                       void* out, float* part, int M, int N, int C, int g, int splits,
+                       void* out, float* part, int M, int N, int C, int g, int splits, int act,
                        cudaStream_t stream) {
-  dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM, splits);
+  constexpr int tile_n = GU ? TN / 2 : TN;
+  dim3 grid((N + tile_n - 1) / tile_n, (M + TM - 1) / TM, splits);
   constexpr int smem = STAGES * stage_bytes(WFMT);
-  auto kern = w4a8_mma_kernel<WFMT, OutT>;
+  auto kern = GU ? &w4a8_gateup_kernel<WFMT, OutT> : &w4a8_mma_kernel<WFMT, OutT>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  kern<<<grid, NT, smem, stream>>>(x, w, s, sx, static_cast<OutT*>(out), part, M, N, C, g);
+  OutT* const o = static_cast<OutT*>(out);
+  kern<<<grid, NT, smem, stream>>>(x, w, s, sx, o, part, M, N, C, g, act);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const long MN = (long)M * N;
-  w4a8_reduce_kernel<OutT><<<(unsigned)((MN + 255) / 256), 256, 0, stream>>>(
-      part, sx, static_cast<OutT*>(out), M, N, splits);
+  const unsigned blocks = (unsigned)((MN + 255) / 256);
+  if (GU)
+    w4a8_gateup_reduce_kernel<OutT><<<blocks, 256, 0, stream>>>(part, sx, o, M, N, splits, act);
+  else
+    w4a8_reduce_kernel<OutT><<<blocks, 256, 0, stream>>>(part, sx, o, M, N, splits);
   return cudaGetLastError();
 }
 
-template <typename OutT>
+template <typename OutT, bool GU>
 cudaError_t launch_core(const void* x, const void* w, const void* scales, const void* sx,
                         void* out, void* part, int M, int N, int C, int g, int wfmt,
-                        int splits, cudaStream_t stream) {
+                        int splits, int act, cudaStream_t stream) {
   const int8_t* xp = static_cast<const int8_t*>(x);
   const uint8_t* wp = static_cast<const uint8_t*>(w);
   const float* sp = static_cast<const float*>(scales);
   const float* sxp = static_cast<const float*>(sx);
   float* pp = static_cast<float*>(part);
   if (wfmt == W_INT8)
-    return launch_mma<W_INT8, OutT>(xp, wp, sp, sxp, out, pp, M, N, C, g, splits, stream);
+    return launch_mma<W_INT8, OutT, GU>(xp, wp, sp, sxp, out, pp, M, N, C, g, splits, act,
+                                        stream);
   if (wfmt == W_PAIRS)
-    return launch_mma<W_PAIRS, OutT>(xp, wp, sp, sxp, out, pp, M, N, C, g, splits, stream);
-  return launch_mma<W_HALVES, OutT>(xp, wp, sp, sxp, out, pp, M, N, C, g, splits, stream);
+    return launch_mma<W_PAIRS, OutT, GU>(xp, wp, sp, sxp, out, pp, M, N, C, g, splits, act,
+                                         stream);
+  return launch_mma<W_HALVES, OutT, GU>(xp, wp, sp, sxp, out, pp, M, N, C, g, splits, act,
+                                        stream);
 }
 
+// gateup: B2 (N = I output columns over 2I weight rows, act an ACT_*)
 cudaError_t launch_matmul(const void* x, const void* w, const void* scales, const void* sx,
                           void* out, void* part, int M, int N, int C, int g, int wfmt,
-                          int out_bf16, int splits, cudaStream_t stream) {
+                          int out_bf16, int splits, bool gateup, int act, cudaStream_t stream) {
   if (M <= 0 || N <= 0 || g <= 0 || g % KC || C % g || wfmt < W_INT8 || wfmt > W_HALVES)
     return cudaErrorInvalidValue;
+  if (gateup && (act < ACT_SILU || act > ACT_GELU_TANH)) return cudaErrorInvalidValue;
   const int G = C / g;
   if (wfmt == W_PAIRS && G % 2) return cudaErrorInvalidValue;
   const int units = wfmt == W_PAIRS ? G / 2 : G;
   if (splits < 1 || splits > units || (splits > 1 && part == nullptr))
     return cudaErrorInvalidValue;
-  if (out_bf16)
-    return launch_core<__nv_bfloat16>(x, w, scales, sx, out, part, M, N, C, g, wfmt, splits,
-                                      stream);
-  return launch_core<float>(x, w, scales, sx, out, part, M, N, C, g, wfmt, splits, stream);
+  if (gateup)
+    return out_bf16 ? launch_core<__nv_bfloat16, true>(x, w, scales, sx, out, part, M, N, C, g,
+                                                       wfmt, splits, act, stream)
+                    : launch_core<float, true>(x, w, scales, sx, out, part, M, N, C, g, wfmt,
+                                               splits, act, stream);
+  return out_bf16 ? launch_core<__nv_bfloat16, false>(x, w, scales, sx, out, part, M, N, C, g,
+                                                      wfmt, splits, 0, stream)
+                  : launch_core<float, false>(x, w, scales, sx, out, part, M, N, C, g, wfmt,
+                                              splits, 0, stream);
 }
 
 }  // namespace
@@ -749,7 +690,7 @@ extern "C" int llmc_w4a8_matmul(const void* x, const void* w, const void* scales
                                 const void* sx, void* out, void* part, int M, int N, int C,
                                 int group, int wfmt, int out_bf16, int splits, void* stream) {
   return int(launch_matmul(x, w, scales, sx, out, part, M, N, C, group, wfmt, out_bf16, splits,
-                           static_cast<cudaStream_t>(stream)));
+                           false, 0, static_cast<cudaStream_t>(stream)));
 }
 
 // B9: x (M, C) raw acts, bf16 (x_bf16 = 1) or f32, 16-byte aligned; xq (M, C)
@@ -773,14 +714,17 @@ extern "C" int llmc_w4a8_matmul_actq(const void* x, const void* w, const void* s
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   return int(launch_matmul(xq, w, scales, sxq, out, part, M, N, C, group, wfmt, out_bf16, splits,
-                           st));
+                           false, 0, st));
 }
 
-// B2, fused gate|up: w holds 2I rows ([gate | up]); out (M, I).
+// B2, fused gate|up + activation: w holds 2I rows ([gate | up]) laid out
+// as for llmc_w4a8_matmul, scales (2I, C/group); out (M, I); act 1 silu,
+// 2 gelu, 3 gelu (tanh); with splits > 1 part an f32 workspace of
+// splits x M x 2I. Returns cudaGetLastError().
 extern "C" int llmc_w4a8_gateup(const void* x, const void* w, const void* scales,
-                                const void* sx, void* out, int M, int I, int C,
-                                int group, int wfmt, int out_bf16, int act,
+                                const void* sx, void* out, void* part, int M, int I, int C,
+                                int group, int wfmt, int out_bf16, int act, int splits,
                                 void* stream) {
-  return launch<2>(x, w, scales, sx, out, M, I, C, group, wfmt, out_bf16, act,
-                   static_cast<cudaStream_t>(stream));
+  return int(launch_matmul(x, w, scales, sx, out, part, M, I, C, group, wfmt, out_bf16, splits,
+                           true, act, static_cast<cudaStream_t>(stream)));
 }

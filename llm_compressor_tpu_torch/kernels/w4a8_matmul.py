@@ -19,15 +19,19 @@ kernel's pair-planes path folds a +8 bias into the even groups' dots and
 subtracts it after, so its f32 sums differ from these at the f32-ulp
 level; the int32 per-group dots are exact in both.
 
-On the card B1, B3 and B9 split K over whole groups (whole group pairs for
-int4 pair planes) when the output tiles alone would leave SMs idle:
-:func:`split_plan` picks the number of splits s with B5's rule, split z
-takes units [z U / s, (z + 1) U / s) (:func:`split_bounds`), and the f32
-sums of the splits are added in split order before the act scale.
-``w4a8_plain(..., splits=s)`` sums in that order too, so the kernel is
-bitwise equal to it at every split count; with ``splits=1`` it is the
-unsplit sum. B9 quantizes each row once (a kernel of its own) into scratch
-codes, then runs the same core.
+All four run one int8 tensor-core core. On the card they split K over
+whole groups (whole group pairs for int4 pair planes) when the output
+tiles alone would leave SMs idle: :func:`split_plan` picks the number of
+splits s with B5's rule, split z takes units [z U / s, (z + 1) U / s)
+(:func:`split_bounds`), and the f32 sums of the splits are added in split
+order before the act scale (B2: before its epilogue, per half).
+``w4a8_plain(..., splits=s)`` and ``gateup_plain(..., splits=s)`` sum in
+that order too, so B1/B3/B9 are bitwise equal to theirs at every split
+count (B2 up to its f32 activation); with ``splits=1`` each is the unsplit
+sum. B2's CTA takes 32 gate rows and the up rows of the same columns: 64
+weight rows like the others', so its plan is the core's over the 2I rows
+(its output tile is 128 x 32). B9 quantizes each row once (a kernel of
+its own) into scratch codes, then runs the core.
 """
 
 from __future__ import annotations
@@ -103,10 +107,10 @@ def _wfmt(qt: QTensor) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Split-K plan of the core (B1, B3, B9)
+# Split-K plan of the core (B1, B2, B3, B9)
 # ---------------------------------------------------------------------------
 
-TILE_M, TILE_N = 128, 64   # output tile of one CTA (csrc/w4a8_matmul.cu TM, TN)
+TILE_M, TILE_N = 128, 64   # x rows and weight rows of one CTA (csrc/w4a8_matmul.cu TM, TN)
 
 
 def split_units(C: int, g: int, wfmt: int) -> int:
@@ -124,8 +128,9 @@ def split_bounds(units: int, splits: int):
 
 
 def split_plan(M: int, N: int, C: int, g: int, wfmt: int, sms: int) -> int:
-    """K-splits of a launch: B5's rule (:func:`~.dequant_matmul.plan_splits`)
-    over this kernel's tiles and units."""
+    """K-splits of a launch over N weight rows (B2: 2I): B5's rule
+    (:func:`~.dequant_matmul.plan_splits`) over this kernel's tiles and
+    units."""
     tiles = -(-M // TILE_M) * -(-N // TILE_N)
     return plan_splits(tiles, split_units(C, g, wfmt), sms)
 
@@ -188,11 +193,14 @@ def _activation(act: str, g: torch.Tensor) -> torch.Tensor:
 
 
 def gateup_plain(x_i8, codes, scales, sx, wfmt: int, act: str,
-                 out_dtype: torch.dtype):
-    """Plain version of B2: codes hold [gate | up] rows; returns (M, I)."""
+                 out_dtype: torch.dtype, splits: int = 1):
+    """Plain version of B2: codes hold [gate | up] rows; returns (M, I).
+    Each half is summed in ``splits`` splits as the kernel sums it, scaled
+    by sx and rounded through ``out_dtype``; act(g) * u in f32, rounded
+    once."""
     I = codes.shape[0] // 2
-    g = (_scaled_sum(x_i8, codes[:I], scales[:I], wfmt) * sx).to(out_dtype).float()
-    u = (_scaled_sum(x_i8, codes[I:], scales[I:], wfmt) * sx).to(out_dtype).float()
+    g = (_scaled_sum(x_i8, codes[:I], scales[:I], wfmt, splits) * sx).to(out_dtype).float()
+    u = (_scaled_sum(x_i8, codes[I:], scales[I:], wfmt, splits) * sx).to(out_dtype).float()
     return (_activation(act, g) * u).to(out_dtype)
 
 
@@ -244,8 +252,8 @@ def _check(x_i8, codes, scales, sx, wfmt, out_dtype):
 # x, w, scales, sx, out, workspace (or null); M, N, C, group, wfmt, out_bf16, splits
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _matmul_launch = _build.c_launcher("w4a8_matmul", "llmc_w4a8_matmul", [_P] * 6 + [_I] * 7)
-# x, w, scales, sx, out; M, I, C, group, wfmt, out_bf16, act
-_gateup_launch = _build.c_launcher("w4a8_matmul", "llmc_w4a8_gateup", [_P] * 5 + [_I] * 7)
+# x, w, scales, sx, out, workspace (or null); M, I, C, group, wfmt, out_bf16, act, splits
+_gateup_launch = _build.c_launcher("w4a8_matmul", "llmc_w4a8_gateup", [_P] * 6 + [_I] * 8)
 # x, w, scales, act codes, act scales, out, workspace (or null); M, N, C,
 # group, wfmt, out_bf16, x_bf16, splits
 _actq_launch = _build.c_launcher("w4a8_matmul", "llmc_w4a8_matmul_actq", [_P] * 7 + [_I] * 8)
@@ -268,15 +276,18 @@ def _plan(x, scales, wfmt: int, splits: Optional[int]) -> int:
     return split_plan(M, N, C, g, wfmt, sms)
 
 
-def _launch(wrapper, launcher, ptrs, x, scales, wfmt, out_dtype, splits, tail=()):
+def _launch(wrapper, launcher, ptrs, x, scales, wfmt, out_dtype, splits, tail=(),
+            fused: bool = False):
     """Allocate the output (and the split workspace), launch, count, and
-    keep the grid on ``wrapper.last_grid``: (N tiles, M tiles, splits)."""
+    keep the grid on ``wrapper.last_grid``: (N tiles, M tiles, splits).
+    ``fused``: B2, whose N = 2I weight rows give I output columns."""
     (M, C), (N, G) = x.shape, scales.shape
+    n_out = N // 2 if fused else N
     s = _plan(x, scales, wfmt, splits)
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    out = torch.empty((M, n_out), dtype=out_dtype, device=x.device)
     part = torch.empty((s, M, N), dtype=torch.float32, device=x.device) if s > 1 else None
-    launcher(*ptrs, out.data_ptr(), None if part is None else part.data_ptr(), M, N, C, C // G,
-             wfmt, int(out_dtype == torch.bfloat16), *tail, s)
+    launcher(*ptrs, out.data_ptr(), None if part is None else part.data_ptr(), M, n_out, C,
+             C // G, wfmt, int(out_dtype == torch.bfloat16), *tail, s)
     wrapper.launches += 1
     wrapper.last_grid = (-(-N // TILE_N), -(-M // TILE_M), s)
     return out
@@ -323,9 +334,11 @@ matmul_flat.last_grid = None
 
 
 def gateup_silu(x_i8, codes, scales, sx, layer: int, wfmt: int, act: str,
-                out_dtype: torch.dtype):
+                out_dtype: torch.dtype, splits: Optional[int] = None):
     """B2: fused [gate | up] of stacked codes (L, 2I, C[/2]) + activation,
-    (M, I) out."""
+    (M, I) out, read in place from the stacked buffers. ``splits`` as for
+    :func:`matmul_stacked`; one launch count per call, the split-K reduce
+    included."""
     _check(x_i8, codes, scales, sx, wfmt, out_dtype)
     if codes.dim() != 3 or not 0 <= layer < codes.shape[0] or codes.shape[1] % 2:
         raise ValueError("gateup_silu needs stacked [gate | up] codes and a valid layer")
@@ -333,18 +346,15 @@ def gateup_silu(x_i8, codes, scales, sx, layer: int, wfmt: int, act: str,
         raise ValueError(f"unsupported activation {act!r}")
     cl, sl = codes[layer], scales[layer]
     if not x_i8.is_cuda:
-        return gateup_plain(x_i8, cl, sl, sx, wfmt, act, out_dtype)
-    M, C = x_i8.shape
-    N2, G = sl.shape
-    out = torch.empty((M, N2 // 2), dtype=out_dtype, device=x_i8.device)
-    _gateup_launch(x_i8.data_ptr(), cl.data_ptr(), sl.data_ptr(), sx.data_ptr(),
-                   out.data_ptr(), M, N2 // 2, C, C // G, wfmt,
-                   int(out_dtype == torch.bfloat16), _ACTS[act])
-    gateup_silu.launches += 1
-    return out
+        return gateup_plain(x_i8, cl, sl, sx, wfmt, act, out_dtype,
+                            splits=_plan(x_i8, sl, wfmt, splits))
+    return _launch(gateup_silu, _gateup_launch,
+                   (x_i8.data_ptr(), cl.data_ptr(), sl.data_ptr(), sx.data_ptr()),
+                   x_i8, sl, wfmt, out_dtype, splits, tail=(_ACTS[act],), fused=True)
 
 
 gateup_silu.launches = 0
+gateup_silu.last_grid = None
 
 
 def actq_plain(x, codes, scales, wfmt: int, out_dtype: torch.dtype, splits: int = 1):

@@ -8,10 +8,11 @@ so every pytest-xdist worker collects the same tests).
 Tolerances:
 * B1/B2/B3: the kernel and the plain version take the same exact int32
   group dots and add the scaled parts in the same order without FMA
-  contraction (B1/B3 split K as the wrapper launched it, and the plain
-  version sums the same splits), so outputs are bitwise equal. B2's bf16
-  outputs may differ by one bf16 ulp where the activation rounds
-  differently.
+  contraction (K split as the wrapper launched it, and the plain version
+  sums the same splits), so B1/B3 outputs are bitwise equal. B2's outputs
+  may differ by one ulp of the out dtype where the f32 activation rounds
+  differently (``expf`` against torch's ``exp``). Two launches give the
+  same bits.
 * B4, B7: the written cache codes are bitwise equal; the output agrees to
   a few f32 ulps (the row sum is reduced in another order), plus at most one
   flipped prob code per row (exp may differ by an ulp at a .5 boundary).
@@ -30,6 +31,8 @@ Tolerances:
   same order (butterfly stages h = 1, 2, 4, ..., then the base terms
   l = 0..K-1), scale once and round once: bitwise equal.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -130,18 +133,76 @@ def test_w4a8_ragged_n(cuda, N, out_dtype):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@functools.lru_cache(maxsize=None)
+def _gateup_weights(spec, I, C):
+    """A packed [gate | up] (2I, C) weight on the card, stacked as one
+    layer: codes, scales and the kernel's layout."""
+    qt = _packed(spec, 2 * I, C, seed=I + C)[0]
+    return qt.codes[None].cuda(), qt.scales[None].cuda(), wm._wfmt(qt)
+
+
+def _gateup_check(cuda, spec, I, C, M, act, out_dtype, splits=None):
+    """B2 against its plain version at the split count it launched: one
+    ulp of the out dtype (the f32 activation, ``expf`` against torch's
+    ``exp``); two launches give the same bits. Returns the launched grid."""
+    codes, scales, fmt = _gateup_weights(spec, I, C)
+    x = torch.from_numpy(np.random.default_rng(M).normal(size=(M, C)).astype(np.float32))
+    x_i8, sx = wm.quantize_acts_per_token(x.to(cuda))
+    got = wm.gateup_silu(x_i8, codes, scales, sx, 0, fmt, act, out_dtype, splits=splits)
+    grid = wm.gateup_silu.last_grid
+    want = wm.gateup_plain(x_i8, codes[0], scales[0], sx, fmt, act, out_dtype, splits=grid[2])
+    ulp = 2.0 ** -7 if out_dtype == torch.bfloat16 else 2.0 ** -22
+    torch.testing.assert_close(got.float(), want.float(), rtol=ulp, atol=1e-6)
+    again = wm.gateup_silu(x_i8, codes, scales, sx, 0, fmt, act, out_dtype, splits=splits)
+    assert torch.equal(again, got)
+    return grid
+
+
 @pytest.mark.parametrize("act", ["silu", "gelu", "gelu_tanh"])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_gateup(cuda, act, out_dtype):
-    I, C, M = 256, 512, 40
-    qts = _packed("int4-g[128]-rw", 2 * I, C, seed=3)
-    x = torch.from_numpy(np.random.default_rng(2).normal(size=(M, C)).astype(np.float32)).to(cuda)
-    x_i8, sx = wm.quantize_acts_per_token(x)
-    codes, scales = qts[0].codes[None].to(cuda), qts[0].scales[None].to(cuda)
-    got = wm.gateup_silu(x_i8, codes, scales, sx, 0, wm.W_PAIRS, act, out_dtype)
-    want = wm.gateup_plain(x_i8, codes[0], scales[0], sx, wm.W_PAIRS, act, out_dtype)
-    ulp = 2.0 ** -7 if out_dtype == torch.bfloat16 else 2.0 ** -22
-    torch.testing.assert_close(got.float(), want.float(), rtol=ulp, atol=1e-6)
+    _gateup_check(cuda, "int4-g[128]-rw", 256, 512, 40, act, out_dtype)
+
+
+# every weight layout at g = 128 and 256: int8, pair planes (even group
+# counts), group halves (odd ones)
+GATEUP_LAYOUTS = [("int8-g[128]-rw", 640), ("int4-g[128]-rw", 512), ("int4-g[128]-rw", 640),
+                  ("int8-g[256]-rw", 1024), ("int4-g[256]-rw", 1024), ("int4-g[256]-rw", 768)]
+
+
+@pytest.mark.parametrize("spec,C", GATEUP_LAYOUTS)
+@pytest.mark.parametrize("M", [1, 40, 128, 300])
+@pytest.mark.parametrize("I", [128, 384, 8192])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_gateup_layouts(cuda, spec, C, M, I, out_dtype):
+    """B2 at the split count its plan picks over 128 x 32 output tiles
+    (ragged M tiles; small I splits K)."""
+    grid = _gateup_check(cuda, spec, I, C, M, "silu", out_dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g = int(spec.split("[")[1].split("]")[0])
+    fmt = _gateup_weights(spec, I, C)[2]
+    assert grid == (-(-I // 32), -(-M // 128), wm.split_plan(M, 2 * I, C, g, fmt, sms))
+
+
+# K units: int8 8 groups, pair planes 8 group pairs (g = 128 and 256), group
+# halves 9 groups
+@pytest.mark.parametrize("spec,C", [("int8-g[128]-rw", 1024), ("int4-g[128]-rw", 2048),
+                                    ("int4-g[128]-rw", 1152), ("int4-g[256]-rw", 4096)])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("act", ["silu", "gelu", "gelu_tanh"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_gateup_forced_splits(cuda, spec, C, splits, act, out_dtype):
+    grid = _gateup_check(cuda, spec, 192, C, 40, act, out_dtype, splits=splits)
+    assert grid == (6, 1, splits)
+
+
+@pytest.mark.parametrize("I", [200, 77])
+@pytest.mark.parametrize("splits", [1, 2])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_gateup_ragged_i(cuda, I, splits, out_dtype):
+    """Output widths that are not a multiple of the 32-wide tile, odd ones
+    included (single stores)."""
+    _gateup_check(cuda, "int4-g[128]-rw", I, 512, 40, "silu", out_dtype, splits=splits)
 
 
 @pytest.mark.parametrize("window,softcap", [(0, None), (5, 30.0)])
