@@ -23,6 +23,8 @@ Phases (each prints a line; any failure exits non-zero):
    host-quantised acts; a log line adds the earlier design's time, a
    constant with its source. B2 runs the decode and the prefill gate|up,
    B3 the int8 head and the prefill qkv and o projections (M = 16384);
+   B4, B6 and B7 also run a long window: 4 slots over a cache of 32K rows
+   at its last position (the first design could not launch it);
 4. token checks — at 2 layers, full width, the kernel path's greedy tokens
    must equal the plain path's wherever the plain logits' top-2 gap exceeds
    the stated tolerance: W4A8 (in-place B4 decode, and the side-block
@@ -140,6 +142,9 @@ SIDE_KERNELS = {"two_part": ["B7_decode_attention", "B8_fresh_write"],
                 "hybrid": ["B6_decode_attention_stats", "B8_fresh_write"]}
 W4A8_PER_STEP = {"w4a8_stacked": 3 * LAYERS, "w4a8_gateup": LAYERS, "w4a8_flat": 1}
 W4A8_APPEND_PER_STEP = W4A8_PER_STEP | {"decode_attention_append": LAYERS}
+# the long-window case of B4, B6 and B7: a cache of 32K rows (4 slots),
+# its last position attending to the whole window
+LONG_S = 32768
 # SpinQuant + GPTQ calibration: the CLI's defaults (samples x tokens)
 CALIB_SAMPLES, CALIB_LEN = 128, 512
 # B10 launches while calibrating: R1, then one R2 per layer
@@ -361,6 +366,19 @@ def check_decode_attention(gen, B=128, KV=8, r=4, D=64, S=256, pos=144):
             "max_abs_err": float(err.max()), "ms": time_ms(run),
             "plain_ms": time_ms(plain, reps=3, warmup=1), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": time_ms(lib)}
+
+
+# B4, B6 and B7 in their first design (shared memory growing with S, dp4a
+# scores and a serial byte-load P.V), ms, measured by this script on the
+# parent tree of the redesign, NVIDIA H100 80GB HBM3, 700.00 W (PERF.md
+# section 6, PR 9); the long-window cases did not launch then
+ATTENTION_EARLIER_MS = {
+    "decode B=128 KV=8 r=4 D=64 S=256 pos=144": 0.0408,
+    "main part B=128 KV=8 r=4 D=64 S=256 len0=128 t=16": 0.0320,
+    "main part B=128 KV=8 r=4 D=64 S=256 len0=128 t=16 window=64 softcap=50.0": 0.0206,
+    "two-part B=128 KV=8 r=4 D=64 S=256 len0=128 t=16 W=32": 0.0406,
+    "two-part B=128 KV=8 r=4 D=64 S=256 len0=128 no side block": 0.0335,
+    "two-part B=128 KV=8 r=4 D=64 S=256 len0=128 t=16 W=32 window=64 softcap=50.0": 0.0288}
 
 
 def _attention_inputs(gen, B, KV, r, D, S, W):
@@ -664,7 +682,9 @@ def phase_kernels(seed: int):
             check_w4a8(gen, "decode int8 head", "flat", 128, V, E, 0),
             check_w4a8(gen, "prefill qkv 128x128 rows", "flat", 128 * 128, 3072, E, 1),
             check_w4a8(gen, "prefill o 128x128 rows", "flat", 128 * 128, E, E, 1)],
-        "B4_decode_attention_append": [check_decode_attention(gen)],
+        "B4_decode_attention_append": [
+            check_decode_attention(gen),
+            check_decode_attention(gen, B=4, S=LONG_S, pos=LONG_S - 1)],
         "B5_dequant_matmul": [
             check_dequant_matmul(gen, "decode qkv int4-g128 zp", 128, 3072, E, dm.F_INT4_PAIRS, True),
             check_dequant_matmul(gen, "decode o int4-g128 zp", 128, E, E, dm.F_INT4_PAIRS, True),
@@ -677,10 +697,12 @@ def phase_kernels(seed: int):
             check_dequant_matmul(gen, "decode qkv fp8-e4m3-g128", 128, 3072, E,
                                  dm.F_FP8_E4M3, True)],
         "B6_decode_attention_stats": [
-            check_stats(gen), check_stats(gen, window=64, softcap=50.0)],
+            check_stats(gen), check_stats(gen, window=64, softcap=50.0),
+            check_stats(gen, B=4, S=LONG_S, len0=LONG_S - 17)],
         "B7_decode_attention": [
             check_two_part(gen, True), check_two_part(gen, False),
-            check_two_part(gen, True, window=64, softcap=50.0)],
+            check_two_part(gen, True, window=64, softcap=50.0),
+            check_two_part(gen, True, B=4, S=LONG_S, len0=LONG_S - 17)],
         "B8_fresh_write": [check_fresh_write(gen)],
         "B9_w4a8_actq": [
             check_w4a8_actq(gen, "int8 head, raw bf16 acts", 128, V, E, 0),
@@ -695,6 +717,8 @@ def phase_kernels(seed: int):
     }
     for name, cs in cases.items():
         for c in cs:
+            if c["case"] in ATTENTION_EARLIER_MS:
+                c["earlier_ms"] = ATTENTION_EARLIER_MS[c["case"]]
             log(f"kernel {name} [{c['case']}]: max_abs_err={c['max_abs_err']} "
                 f"({c['tolerance']}) ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
                 f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']}) "

@@ -12,19 +12,19 @@
 // the side-block decode, which keeps the main cache read-only and the
 // call's new tokens in a side block of W lanes, (B, KV, W, D) per layer.
 //
-// One block per (slot, kv head) for B4, B6 and B7. The block
+// The function. One CTA per (slot, kv head) for B4, B6 and B7. It
 //   1. row-quantises the r query rows of its head group to int8
 //      (absmax * (1/127), clamped at 1e-8, round half to even) — B6 takes
 //      the codes as input,
 //   2. (B4 only) stores the current token's K/V codes and scales at pos,
-//   3. scores the kept rows of each part: int32 dp4a dots, then
+//   3. scores the n kept keys of its window: exact int32 dots, then
 //      ((s32 * qs) * ks) * scale, then the optional softcap,
 //   4. runs the exact two-pass softmax with the normalisation folded into
 //      the output scale: m = rowmax, e = exp(s - m), w = e * v_scale,
 //      a = max(rowmax(w) * (1/127), 1e-8), pi = clip(rint(w / a), +-127);
 //      B6 couples m and a with the side part's statistics (m_f, wfm),
-//   5. takes the int32 P.V dot over every part and writes out = o32 *
-//      (a / sum(e)) — B6 writes o32, m, a and the main part's sum instead.
+//   5. takes the int32 P.V dot and writes out = o32 * (a / sum(e)) — B6
+//      writes o32, m, a and the main part's sum instead.
 // Masked lanes of the TPU kernels (score -1e9) contribute exp(-1e9 - m) =
 // 0 and a zero prob code, so scoring only the kept rows is the same
 // function; the row max starts at -1e9 where a part has masked lanes, as
@@ -33,13 +33,44 @@
 // Built without fast math: rintf, IEEE division and expf keep the int8
 // codes those of the plain version. The scales multiply by the f32
 // reciprocal of 127, as the JAX kernels do under jit (XLA rewrites their
-// division by the constant), and the plain version writes out.
+// division by the constant), and the plain version writes out. The row
+// max, a and every prob code depend on no summation order; only sum(e)
+// does (per-thread, then warp, then warp-order partial sums, fixed).
 //
-// Bound on this card: the bytes of the window, (D + 4) bytes per token for
-// K and again for V per head; at the flagship step (B=128, KV=8, S~160,
-// D=64) about 22 MB a layer, 7 us at 3.35 TB/s. This first design keeps
-// the (r, window) scores in shared memory (r * (S + W) * 5 bytes) and
-// streams K and V rows with plain loads; 1,024 blocks cover the 132 SMs.
+// What bounds it on this card (H100 SXM, 3.35 TB/s): the bytes of the
+// window, (D + 4) * 2 per kept token per kv head (K and V codes, their
+// scales); at the flagship step (B=128, KV=8, D=64, about 145 kept rows)
+// about 20 MB a layer, 6-7 us. The operations (4 r D per key) are two
+// orders below the int8 peak. So the design is about keeping bytes moving:
+//   * one window = a chain of chunks of CK = 64 keys, first K's chunks,
+//     then V's; each chunk's rows go to shared memory by 16-byte cp.async
+//     (each part's rows one contiguous run, rows unpadded: ldmatrix's bank
+//     conflicts cost less than a row-by-row copy loop; 4-byte pieces where
+//     D % 16 != 0), in a ring of STAGES = 4 chunks. The first three chunks are in
+//     flight before the CTA quantises q, and V's chunks stream while Q.K
+//     and the softmax run; one barrier per chunk. Each byte of the window
+//     is read once;
+//   * shared memory is fixed by (r, D), whatever the cache length: the
+//     ring, the q codes and a resident window of cap keys (f32 scores, v
+//     scales, prob codes). A window longer than cap keeps its f32 scores
+//     in a global scratch (r * (S + W) floats per CTA) that the wrapper
+//     allocates only when S + W > cap (kernels/decode_attention.py::plan);
+//     at the flagship shape 25,792 bytes: 8 CTAs per SM, one wave of 1,024;
+//   * Q.K on the int8 tensor cores: mma.sync m16n8k32 s8, 16 keys (one
+//     warp's m-tile of a chunk, through ldmatrix) by the r
+//     query rows padded to 8, k-steps of 32 over D (q codes zero-padded);
+//   * P.V on the int8 tensor cores too: m16n8k32 with 16 columns of V as
+//     M, the query rows as N and 32 keys as K; V's rows are read
+//     transposed by ldmatrix.trans and byte permutes, and the prob codes
+//     are stored in the key order that gives (pi_slot). Each warp owns
+//     whole columns over every key, so no partial sums meet;
+//   * the q rows (and B6's statistics) are copied before the CTA reads its
+//     position, and B4's new token is loaded then too, so the window's
+//     address is the only round trip before the copies start;
+//   * B4 takes its own token's codes straight from new_k / new_v (the same
+//     cp.async), so nothing reads back the row it writes.
+// What holds it now is the CTA's chain of phases and barriers, not bytes
+// (tools/attention_phases.py; PERF.md section 6).
 // B8 moves 2 (D + 4) bytes per (slot, head): a launch.
 
 #include <cuda_runtime.h>
@@ -51,8 +82,40 @@ constexpr int THREADS = 128;
 constexpr int NWARPS = THREADS / 32;
 constexpr int RMAX = 8;
 constexpr int DMAX = 256;
+constexpr int CK = 64;      // keys per chunk: one 16-key m-tile per warp
+constexpr int STAGES = 4;   // chunks in the ring
 constexpr float kInv127 = 1.0f / 127.0f;
 constexpr float kNegInf = -1e9f;  // the TPU kernels' mask value
+
+// Dynamic shared memory of one CTA (byte offsets), for r query rows, head
+// dim D and a resident window of cap keys. kernels/decode_attention.py::
+// plan computes the same total; the launchers check that they agree.
+struct Layout {
+  int pitch;   // bytes per K/V row in a chunk: D rounded up to 16
+  int stage;   // one chunk: CK rows, then CK f32 k scales
+  int qpitch;  // bytes per q-code row: an odd multiple of 16
+  int qi;      // 8 rows of q codes at qpitch, zero past r and D
+  int sc;      // (r, cap) f32 scores, then w = e * v_scale; first the staged
+               // q: (r, D) f32, or B6's codes, then 3 x 8 floats
+  int vs;      // (cap,) f32 v scales of the window
+  int pi;      // (r, pip) int8 prob codes, keys in pi_slot order
+  int pip;     // bytes per prob-code row: cap + 16
+  int total;
+};
+
+__host__ __device__ inline Layout layout(int r, int D, int cap) {
+  Layout L;
+  L.pitch = (D + 15) / 16 * 16;
+  L.stage = CK * (L.pitch + 4);
+  L.qpitch = (D + 31) / 32 * 32 + 16;
+  L.qi = STAGES * L.stage;
+  L.sc = L.qi + 8 * L.qpitch;
+  L.vs = L.sc + (r * cap * 4 > r * D * 4 + 96 ? r * cap * 4 : r * D * 4 + 96);
+  L.pi = L.vs + cap * 4;
+  L.pip = cap + 16;
+  L.total = L.pi + r * L.pip;
+  return L;
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -66,170 +129,463 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// 1. row quant of the r query rows qb (r, D) f32 into codes qi (packed
-// words, row i at word i * D / 4) and scales qs; one warp per row.
-__device__ __forceinline__ void quant_q_rows(const float* __restrict__ qb, int r, int D,
-                                             uint32_t* qi, float* qs) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int i = warp; i < r; i += NWARPS) {
-    float amax = 0.0f;
-    for (int d = lane; d < D; d += 32) amax = fmaxf(amax, fabsf(qb[i * D + d]));
-    amax = warp_max(amax);
-    const float s = fmaxf(amax * kInv127, 1e-8f);
-    if (lane == 0) qs[i] = s;
-    int8_t* qrow = reinterpret_cast<int8_t*>(qi) + i * D;
-    for (int d = lane; d < D; d += 32) {
-      const float c = fminf(fmaxf(rintf(qb[i * D + d] / s), -127.0f), 127.0f);
-      qrow[d] = int8_t(c);
-    }
-  }
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 3. scores of rows [0, n) of one part: key row t at k + t * D, its scale
-// ks[t]; row i of the scores at scores[i * ld + t]. ``all_masked`` writes
-// the mask value everywhere (a block with no kept lane).
-__device__ __forceinline__ void score_part(const uint32_t* qi, const float* qs, int r, int D,
-                                           const int8_t* k, const float* ks, int n,
-                                           float scale, float softcap, int has_softcap,
-                                           bool all_masked, float* scores, int ld) {
-  const int DW = D / 4;
-  for (int t = threadIdx.x; t < n; t += THREADS) {
-    if (all_masked) {
-      for (int i = 0; i < r; ++i) scores[i * ld + t] = kNegInf;
-      continue;
-    }
-    const int* krow = reinterpret_cast<const int*>(k + (long)t * D);
-    int dot[RMAX];
-#pragma unroll
-    for (int i = 0; i < RMAX; ++i) dot[i] = 0;
-    for (int kw = 0; kw < DW; ++kw) {
-      const int kv4 = krow[kw];
-#pragma unroll
-      for (int i = 0; i < RMAX; ++i)
-        if (i < r) dot[i] = __dp4a(int(qi[i * DW + kw]), kv4, dot[i]);
-    }
-    const float kss = ks[t];
-#pragma unroll
-    for (int i = 0; i < RMAX; ++i) {
-      if (i >= r) break;
-      float sc = __fmul_rn(__fmul_rn(__fmul_rn(float(dot[i]), qs[i]), kss), scale);
-      if (has_softcap) sc = softcap * tanhf(sc / softcap);
-      scores[i * ld + t] = sc;
-    }
-  }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
 }
 
-struct RowStats {
-  float m, sum, a;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One part of a window: pointers at its first kept row.
+struct Part {
+  const int8_t* k;
+  const int8_t* v;
+  const float* ks;
+  const float* vs;
 };
 
-// 4. softmax with int8 requantisation of e * v_scale for one row, by one
-// warp: row[0, n) holds the scores (overwritten by w), vs_at(t) is lane
-// t's v scale, pi receives the codes. ``m0`` starts the row max (-1e9 where
-// the row has masked lanes). With ``couple`` (B6) the max also takes m_f
-// and ``a`` the side part's wfm * exp(m_f - m).
-template <typename VS>
-__device__ __forceinline__ RowStats requant_row(float* row, int8_t* pi, int n, VS vs_at,
-                                                float m0, bool couple, float m_f, float wfm) {
-  const int lane = threadIdx.x % 32;
-  float m = m0;
-  for (int t = lane; t < n; t += 32) m = fmaxf(m, row[t]);
-  m = warp_max(m);
-  if (couple) m = fmaxf(m, m_f);
-  float sum = 0.0f, wmax = 0.0f;
-  for (int t = lane; t < n; t += 32) {
-    const float e = expf(row[t] - m);
-    sum += e;
-    const float wv = __fmul_rn(e, vs_at(t));
-    wmax = fmaxf(wmax, wv);
-    row[t] = wv;
+// The n kept keys of one (slot, kv head): keys [0, n1) are the rows of p1,
+// keys [n1, n) the rows of p2 (B7's side block, B4's new token).
+struct Window {
+  Part p1, p2;
+  int n1, n;
+  __device__ const int8_t* row(bool v, int t, int D) const {
+    return t < n1 ? (v ? p1.v : p1.k) + (long)t * D : (v ? p2.v : p2.k) + (long)(t - n1) * D;
   }
-  sum = warp_sum(sum);
-  wmax = warp_max(wmax);
-  if (couple) wmax = fmaxf(wmax, __fmul_rn(wfm, expf(m_f - m)));
-  const float a = fmaxf(wmax * kInv127, 1e-8f);
-  for (int t = lane; t < n; t += 32)
-    pi[t] = int8_t(fminf(fmaxf(rintf(row[t] / a), -127.0f), 127.0f));
-  return {m, sum, a};
+  __device__ const float* scale(bool v, int t) const {
+    return t < n1 ? (v ? p1.vs : p1.ks) + t : (v ? p2.vs : p2.ks) + (t - n1);
+  }
+};
+
+enum Mode { APPEND, TWO_PART, STATS };
+
+// Phase stamps, compiled in only with -DLLMC_ATTN_CLOCKS (tools/
+// attention_phases.py): per CTA its SM, the global timer (ns) at entry and
+// exit, and SM clocks at the phase boundaries and spent in the copy waits.
+enum Stamp { ST_SM, ST_T0, ST_T1, ST_ENTRY, ST_WINDOW, ST_ISSUED, ST_PROLOGUE, ST_QK,
+             ST_QK_WAIT, ST_SOFTMAX, ST_PV, ST_PV_WAIT, ST_END, NSTAMP };
+#ifdef LLMC_ATTN_CLOCKS
+constexpr int MAX_STAMPED = 1 << 16;
+__device__ long long attn_stamps[MAX_STAMPED][NSTAMP];
+__device__ __forceinline__ long long gtimer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define STAMP(k, v) \
+  if (threadIdx.x == 0 && blockIdx.x < MAX_STAMPED) attn_stamps[blockIdx.x][k] = (v)
+#define CLOCK() clock64()
+#else
+#define STAMP(k, v)
+#define CLOCK() 0LL
+#endif
+
+// Per-CTA outputs, at this CTA's offsets.
+struct Io {
+  float* out;                      // (r, D): out, or o32 (B6)
+  float* m; float* a; float* sum;  // (r,) B6
+};
+
+// A 32-key block of prob codes is stored with key 16h + 8q + 2u + v at
+// slot 16h + 4u + 2q + v: the order in which the P.V fragments below see
+// the keys, so that a lane's B word is one 4-byte load.
+__device__ __forceinline__ int pi_slot(int k) {
+  return (k & 16) | ((k & 6) << 1) | ((k & 8) >> 2) | (k & 1);
 }
 
-// 5. sum over t < n of pi[t] * v[t * D] (one output column).
-__device__ __forceinline__ int pv_part(const int8_t* pi, const int8_t* vcol, int n, int D) {
-  int acc = 0;
-  for (int t = 0; t < n; ++t) acc += int(pi[t]) * int(vcol[(long)t * D]);
-  return acc;
+// Copies this CTA's query rows into shared memory (the layout's ``sc``)
+// and commits them as one cp.async group, before the kernel knows its
+// window: (r, D) f32 q, or B6's (r, D) codes, then its scales, m_f and wfm
+// (8 floats each).
+template <Mode MODE>
+__device__ __forceinline__ void stage_q(const void* q, const float* qs, const float* m_f,
+                                        const float* wfm, int r, int D, int cap) {
+  extern __shared__ __align__(16) int8_t smem[];
+  int8_t* qf = smem + layout(r, D, cap).sc;
+  const int8_t* src = static_cast<const int8_t*>(q);
+  if (MODE == STATS) {
+    for (int w = threadIdx.x; w < r * D / 4; w += THREADS) cp_async4(qf + 4 * w, src + 4 * w);
+    if (threadIdx.x < r) {
+      float* f = reinterpret_cast<float*>(qf + r * D * 4);
+      cp_async4(f + threadIdx.x, qs + threadIdx.x);
+      cp_async4(f + 8 + threadIdx.x, m_f + threadIdx.x);
+      cp_async4(f + 16 + threadIdx.x, wfm + threadIdx.x);
+    }
+  } else {
+    for (int w = threadIdx.x; w < r * D / 4; w += THREADS) cp_async16(qf + 16 * w, src + 16 * w);
+  }
+  cp_async_commit();
+}
+
+// Steps 1-5 for one CTA, after stage_q. ``scratch`` is this CTA's (r, ldg)
+// f32 score rows in global memory, used when n > cap (null otherwise);
+// ``m0`` starts the row max; ``none_kept`` scores every key at -1e9.
+template <Mode MODE, int R, int MW>
+__device__ __forceinline__ void attend(const Window& win, const Io& io, int r, int D, int cap,
+                                       bool vec, float* scratch, int ldg, float m0,
+                                       bool none_kept, float scale, float softcap,
+                                       int has_softcap) {
+  extern __shared__ __align__(16) int8_t smem[];
+  __shared__ float qs_s[RMAX], m_s[RMAX], a_s[RMAX], osc_s[RMAX], mf_s[RMAX], wfm_s[RMAX];
+  __shared__ float red0[NWARPS][RMAX], red1[NWARPS][RMAX];
+
+  const Layout L = layout(r, D, cap);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, tg = lane % 4;
+  const int n = win.n, nc = (n + CK - 1) / CK;
+  const bool resident = n <= cap;
+  float* sb = resident ? reinterpret_cast<float*>(smem + L.sc) : scratch;
+  const int ld = resident ? cap : ldg;
+  float* vs_s = reinterpret_cast<float*>(smem + L.vs);
+  int8_t* qi_s = smem + L.qi;
+  int8_t* pi_s = smem + L.pi;
+  const float* qf = reinterpret_cast<const float*>(smem + L.sc);  // stage_q's
+  const float* stat = qf + r * D;  // B6: qs, m_f, wfm at 0, 8, 16
+
+  // item j < nc: K chunk j; nc <= j < 2 nc: V chunk j - nc; into stage j %
+  // STAGES (the P.V loop issues V chunks only, so that K's pointers die
+  // there). With 16-byte copies a chunk's rows of each part are one
+  // contiguous run of bytes; with 4-byte copies a thread takes pieces (row
+  // t, piece p) from (tid / per, tid % per) on, THREADS pieces apart.
+  const int per = D / 4;
+  const int t_first = tid / per, p_first = tid % per;
+  const int t_step = THREADS / per, p_step = THREADS % per;
+  auto chunk = [&](bool isv, int j) {
+    const int t0 = (isv ? j - nc : j) * CK, nv = min(CK, n - t0);
+    int8_t* st = smem + (j % STAGES) * L.stage;
+    if (vec) {
+      const int a = max(0, min(nv, win.n1 - t0));  // rows of part 1
+      const int8_t* s1 = win.row(isv, t0, D);
+      for (int i = tid; i < a * D / 16; i += THREADS) cp_async16(st + 16 * i, s1 + 16 * i);
+      if (a < nv) {
+        const int8_t* s2 = win.row(isv, t0 + a, D);
+        int8_t* d2 = st + a * D;
+        for (int i = tid; i < (nv - a) * D / 16; i += THREADS)
+          cp_async16(d2 + 16 * i, s2 + 16 * i);
+      }
+    } else {
+      for (int t = t_first, p = p_first; t < nv;) {
+        cp_async4(st + t * L.pitch + 4 * p, win.row(isv, t0 + t, D) + 4 * p);
+        t += t_step;
+        p += p_step;
+        if (p >= per) {
+          p -= per;
+          ++t;
+        }
+      }
+    }
+    if (!isv)
+      for (int t = tid; t < nv; t += THREADS)
+        cp_async4(st + CK * L.pitch + 4 * t, win.scale(false, t0 + t));
+  };
+  auto issue = [&](int j) {
+    if (j < nc) chunk(false, j);
+    else if (j < 2 * nc) chunk(true, j);
+  };
+
+  // the window's copies: the resident window's v scales, then STAGES - 1
+  // chunks; each chunk's step refills the stage its predecessor freed, so
+  // one barrier per chunk serves both
+  STAMP(ST_WINDOW, CLOCK());
+  if (resident)
+    for (int t = tid; t < n; t += THREADS) cp_async4(vs_s + t, win.scale(true, t));
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) {
+    issue(j);
+    cp_async_commit();
+  }
+  STAMP(ST_ISSUED, CLOCK());
+  cp_async_wait<STAGES - 1>();  // stage_q's group, the oldest
+  __syncthreads();
+
+  // 1. the q codes, zero past r and D (one warp per row)
+  const int DP = (D + 31) / 32 * 32;
+  for (int i = warp; i < 8; i += NWARPS) {
+    int8_t* row = qi_s + i * L.qpitch;
+    if (i >= r) {
+      for (int d = lane; d < DP; d += 32) row[d] = 0;
+    } else if (MODE == STATS) {
+      const int8_t* qc = reinterpret_cast<const int8_t*>(qf) + i * D;
+      for (int d = lane; d < DP; d += 32) row[d] = d < D ? qc[d] : int8_t(0);
+      if (lane == 0) {
+        qs_s[i] = stat[i];
+        mf_s[i] = stat[8 + i];
+        wfm_s[i] = stat[16 + i];
+      }
+    } else {
+      const float* qr = qf + i * D;
+      float amax = 0.0f;
+      for (int d = lane; d < D; d += 32) amax = fmaxf(amax, fabsf(qr[d]));
+      amax = warp_max(amax);
+      const float s = fmaxf(amax * kInv127, 1e-8f);
+      if (lane == 0) qs_s[i] = s;
+      for (int d = lane; d < DP; d += 32)
+        row[d] = d < D ? int8_t(fminf(fmaxf(rintf(qr[d] / s), -127.0f), 127.0f)) : int8_t(0);
+    }
+  }
+
+  // 3. scores on the tensor cores, chunk by chunk: m16n8k32 with 16 keys
+  // as M (warp w's m-tile is keys 16 w .. 16 w + 15 of the chunk) and the
+  // query rows as N; a lane's fragment rows are keys g and g + 8, its
+  // columns query rows 2 tg, 2 tg + 1
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+  long long waited = 0, c0 = CLOCK();
+  STAMP(ST_PROLOGUE, c0);
+  int j = 0;
+  for (; j < nc; ++j) {
+    c0 = CLOCK();
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    waited += CLOCK() - c0;
+    issue(j + STAGES - 1);
+    cp_async_commit();
+    const int8_t* st = smem + (j % STAGES) * L.stage;
+    const int t0 = j * CK, nv = min(CK, n - t0);
+    if (16 * warp < nv) {
+      int acc[4] = {0, 0, 0, 0};
+      const int8_t* a_at = st + (16 * warp + lane % 16) * L.pitch + (lane / 16) * 16;
+      const int8_t* b_at = qi_s + g * L.qpitch + tg * 4;
+      for (int k0 = 0; k0 < D; k0 += 32) {
+        uint32_t a[4], b[2];
+        ldmatrix_x4(a, a_at + k0);
+        b[0] = *reinterpret_cast<const uint32_t*>(b_at + k0);
+        b[1] = *reinterpret_cast<const uint32_t*>(b_at + k0 + 16);
+        mma_s8(acc, a, b);
+      }
+      const float* ks = reinterpret_cast<const float*>(st + CK * L.pitch);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = 16 * warp + g + 8 * h;
+        if (t >= nv) continue;
+        const float kss = ks[t];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int i = 2 * tg + c;
+          if (i >= r) continue;
+          float s = kNegInf;
+          if (!none_kept) {
+            s = __fmul_rn(__fmul_rn(__fmul_rn(float(acc[2 * h + c]), qs_s[i]), kss), scale);
+            if (has_softcap) s = softcap * tanhf(s / softcap);
+          }
+          sb[i * ld + t0 + t] = s;
+          if (c == 0) mx0 = fmaxf(mx0, s); else mx1 = fmaxf(mx1, s);
+        }
+      }
+    }
+  }
+  STAMP(ST_QK, CLOCK());
+  STAMP(ST_QK_WAIT, waited);
+  waited = 0;
+
+  // 4. the softmax: row max (order-free), then e, sum, w, rowmax(w)
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+  }
+  if (lane < 4) {
+    red0[warp][2 * lane] = mx0;
+    red0[warp][2 * lane + 1] = mx1;
+  }
+  __syncthreads();
+  if (tid < r) {
+    float m = m0;
+    for (int w = 0; w < NWARPS; ++w) m = fmaxf(m, red0[w][tid]);
+    if (MODE == STATS) m = fmaxf(m, mf_s[tid]);
+    m_s[tid] = m;
+  }
+  __syncthreads();
+  {
+    float sum[R], wm[R], mr[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      sum[i] = 0.0f;
+      wm[i] = 0.0f;
+      mr[i] = i < r ? m_s[i] : 0.0f;
+    }
+    // U keys' scores are loaded before any w is stored (the stores would
+    // otherwise hold each load back: a long window's scores are in global
+    // memory); a thread still adds its keys in increasing order
+    constexpr int U = 16 / R;
+    for (int t0 = tid; t0 < n; t0 += U * THREADS) {
+      float v[U], x[U][R];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = t0 + u * THREADS;
+        if (t >= n) break;
+        v[u] = resident ? vs_s[t] : __ldg(win.scale(true, t));
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+          if (i < r) x[u][i] = sb[i * ld + t];
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = t0 + u * THREADS;
+        if (t >= n) break;
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          if (i >= r) break;
+          const float e = expf(x[u][i] - mr[i]);
+          sum[i] += e;
+          const float w = __fmul_rn(e, v[u]);
+          wm[i] = fmaxf(wm[i], w);
+          sb[i * ld + t] = w;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      sum[i] = warp_sum(sum[i]);
+      wm[i] = warp_max(wm[i]);
+      if (lane == 0 && i < r) {
+        red0[warp][i] = sum[i];
+        red1[warp][i] = wm[i];
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < r) {
+    float s = 0.0f, w = 0.0f;
+    for (int k = 0; k < NWARPS; ++k) {
+      s += red0[k][tid];
+      w = fmaxf(w, red1[k][tid]);
+    }
+    const float m = m_s[tid];
+    if (MODE == STATS) w = fmaxf(w, __fmul_rn(wfm_s[tid], expf(mf_s[tid] - m)));
+    const float a = fmaxf(w * kInv127, 1e-8f);
+    a_s[tid] = a;
+    if (MODE == STATS) {
+      io.m[tid] = m;
+      io.a[tid] = a;
+      io.sum[tid] = s;
+    } else {
+      osc_s[tid] = a / s;
+    }
+  }
+  __syncthreads();
+  STAMP(ST_SOFTMAX, CLOCK());
+
+  // 5. P.V on the tensor cores: out^T(d, i) = sum_t V[t, d] pi[i, t] as
+  // m16n8k32 with 16 columns d as M (warp w's m-tiles are w, w + 4, ...),
+  // the query rows as N and 32 keys as K. ldmatrix.trans of 32 V rows
+  // gives a lane, for each 8-key block, the byte pairs (d = 16 mt + 2g,
+  // 2g + 1) of keys 2 tg and 2 tg + 1; byte permutes turn two blocks into
+  // the A rows d = 2g (fragment row g) and 2g + 1 (row g + 8) over keys
+  // {2tg, 2tg + 1, 8 + 2tg, 9 + 2tg} (and + 16), the order pi_slot stores
+  // the prob codes in. The codes of keys [t0, t0 + cap) are made when the
+  // chunks reach t0 (once if resident), zero past the window's end.
+  const int MT = (D + 15) / 16;
+  int acc[MW][4];
+#pragma unroll
+  for (int m = 0; m < MW; ++m) acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0;
+  for (; j < 2 * nc; ++j) {
+    const int t0 = (j - nc) * CK, nv = min(CK, n - t0);
+    if (t0 % cap == 0) {
+      if (t0 > 0) __syncthreads();  // the last super-chunk's codes are read
+      const int hi = min(cap, (n - t0 + 31) / 32 * 32);  // the k-steps' keys
+      float ar[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) ar[i] = i < r ? a_s[i] : 1.0f;
+#pragma unroll 2
+      for (int t = tid; t < hi; t += THREADS) {
+        const int at = (t & ~31) + pi_slot(t & 31);
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          if (i >= r) break;
+          float c = 0.0f;
+          if (t0 + t < n) c = fminf(fmaxf(rintf(sb[i * ld + t0 + t] / ar[i]), -127.0f), 127.0f);
+          pi_s[i * L.pip + at] = int8_t(c);
+        }
+      }
+    }
+    c0 = CLOCK();
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    waited += CLOCK() - c0;
+    if (j + STAGES - 1 < 2 * nc) chunk(true, j + STAGES - 1);
+    cp_async_commit();
+    const int8_t* st = smem + (j % STAGES) * L.stage;
+    const int8_t* pc = pi_s + t0 % cap + g * L.pip + 4 * tg;
+    for (int kb = 0; kb < nv; kb += 32) {
+      uint32_t b[2] = {0u, 0u};
+      if (g < r) {
+        b[0] = *reinterpret_cast<const uint32_t*>(pc + kb);
+        b[1] = *reinterpret_cast<const uint32_t*>(pc + kb + 16);
+      }
+#pragma unroll
+      for (int m = 0; m < MW; ++m) {
+        const int mt = warp + NWARPS * m;
+        if (mt >= MT) break;
+        uint32_t v[4], a[4];
+        ldmatrix_x4_trans(v, st + (kb + lane) * L.pitch + 16 * mt);
+        a[0] = __byte_perm(v[0], v[1], 0x6420);
+        a[1] = __byte_perm(v[0], v[1], 0x7531);
+        a[2] = __byte_perm(v[2], v[3], 0x6420);
+        a[3] = __byte_perm(v[2], v[3], 0x7531);
+        mma_s8(acc[m], a, b);
+      }
+    }
+  }
+  STAMP(ST_PV, CLOCK());
+  STAMP(ST_PV_WAIT, waited);
+
+  // acc[m]: (d = 16 mt + 2g, i = 2tg), (2g, 2tg + 1), (2g + 1, 2tg), (2g + 1, 2tg + 1)
+#pragma unroll
+  for (int m = 0; m < MW; ++m) {
+    const int mt = warp + NWARPS * m;
+    if (mt >= MT) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = 16 * mt + 2 * g + e / 2, i = 2 * tg + e % 2;
+      if (d >= D || i >= r) continue;
+      float o = float(acc[m][e]);
+      if (MODE != STATS) o = __fmul_rn(o, osc_s[i]);
+      io.out[i * D + d] = o;
+    }
+  }
+#ifdef LLMC_ATTN_CLOCKS
+  __syncthreads();
+  unsigned sm;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+  STAMP(ST_SM, sm);
+  STAMP(ST_END, CLOCK());
+  STAMP(ST_T1, gtimer());
+#endif
 }
 
 __device__ __forceinline__ void poison(float* out, int count) {
   for (int idx = threadIdx.x; idx < count; idx += THREADS) out[idx] = __int_as_float(0x7fc00000);
-}
-
-// ---------------------------------------------------------------------------
-// B4
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(THREADS)
-decode_attention_append_kernel(const float* __restrict__ q, const int8_t* __restrict__ new_k,
-                               const int8_t* __restrict__ new_v,
-                               const float* __restrict__ new_ks,
-                               const float* __restrict__ new_vs, int8_t* k_cache,
-                               int8_t* v_cache, float* k_scale, float* v_scale,
-                               const int* __restrict__ pos_arr, float* __restrict__ out,
-                               int KV, int r, int D, int S, int window, float scale,
-                               float softcap, int has_softcap) {
-  extern __shared__ float smem[];
-  __shared__ uint32_t qi[RMAX * DMAX / 4];
-  __shared__ float qs[RMAX];
-  __shared__ float oscale[RMAX];
-
-  const int bk = blockIdx.x;  // b * KV + kv
-  const int b = bk / KV;
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int pos = pos_arr[b];
-  if (pos < 0 || pos >= S) {
-    // outside the cache: write nothing and poison this block's output
-    // (the host checks lengths before decoding; this keeps a bad position
-    // from writing past the layer's buffers)
-    poison(out + (long)bk * r * D, r * D);
-    return;
-  }
-  const int lo = (window > 0 && pos - window + 1 > 0) ? pos - window + 1 : 0;
-  const int n = pos - lo + 1;
-
-  float* scores = smem;                                     // (r, S) f32
-  int8_t* pi = reinterpret_cast<int8_t*>(smem + r * S);     // (r, S) int8
-
-  quant_q_rows(q + (long)bk * r * D, r, D, qi, qs);
-
-  // 2. append the current token in place
-  const long head = (long)bk * S;
-  for (int d = tid; d < D; d += THREADS) {
-    k_cache[(head + pos) * D + d] = new_k[(long)bk * D + d];
-    v_cache[(head + pos) * D + d] = new_v[(long)bk * D + d];
-  }
-  if (tid == 0) {
-    k_scale[head + pos] = new_ks[bk];
-    v_scale[head + pos] = new_vs[bk];
-  }
-  __syncthreads();
-
-  score_part(qi, qs, r, D, k_cache + (head + lo) * D, k_scale + head + lo, n, scale, softcap,
-             has_softcap, false, scores, S);
-  __syncthreads();
-
-  const float* vs = v_scale + head + lo;
-  for (int i = warp; i < r; i += NWARPS) {
-    const RowStats st = requant_row(scores + i * S, pi + i * S, n,
-                                    [&](int t) { return vs[t]; }, -INFINITY, false, 0.0f, 0.0f);
-    if (tid % 32 == 0) oscale[i] = st.a / st.sum;
-  }
-  __syncthreads();
-
-  for (int idx = tid; idx < r * D; idx += THREADS) {
-    const int i = idx / D, d = idx % D;
-    const int acc = pv_part(pi + i * S, v_cache + (head + lo) * D + d, n, D);
-    out[(long)bk * r * D + idx] = __fmul_rn(float(acc), oscale[i]);
-  }
 }
 
 // The kept main rows [lo, hi) of a slot: s < main_len, s > pos - window.
@@ -241,31 +597,84 @@ __device__ __forceinline__ void main_range(int mlen, int pos, int window, int S,
 }
 
 // ---------------------------------------------------------------------------
+// B4
+// ---------------------------------------------------------------------------
+
+template <int R, int MW>
+__global__ void __launch_bounds__(THREADS, R == 4 && MW == 1 ? 8 : 4)
+decode_attention_append_kernel(const float* __restrict__ q, const int8_t* __restrict__ new_k,
+                               const int8_t* __restrict__ new_v,
+                               const float* __restrict__ new_ks,
+                               const float* __restrict__ new_vs, int8_t* k_cache,
+                               int8_t* v_cache, float* k_scale, float* v_scale,
+                               const int* __restrict__ pos_arr, float* __restrict__ out,
+                               float* scratch, int KV, int r, int D, int S, int window, int cap,
+                               int vec, float scale, float softcap, int has_softcap) {
+  STAMP(ST_T0, gtimer());
+  STAMP(ST_ENTRY, CLOCK());
+  const int bk = blockIdx.x, tid = threadIdx.x;  // bk = b * KV + kv
+  // what does not depend on the position first: q, and the current token
+  stage_q<APPEND>(q + (long)bk * r * D, nullptr, nullptr, nullptr, r, D, cap);
+  uint32_t kw = 0, vw = 0;
+  if (tid < D / 4) {
+    kw = reinterpret_cast<const uint32_t*>(new_k + (long)bk * D)[tid];
+    vw = reinterpret_cast<const uint32_t*>(new_v + (long)bk * D)[tid];
+  }
+  const float ksn = new_ks[bk], vsn = new_vs[bk];
+  const int pos = pos_arr[bk / KV];
+  if (pos < 0 || pos >= S) {
+    // outside the cache: write nothing and poison this block's output
+    // (the host checks lengths before decoding; this keeps a bad position
+    // from writing past the layer's buffers)
+    poison(out + (long)bk * r * D, r * D);
+    cp_async_wait<0>();
+    return;
+  }
+  const long head = (long)bk * S;
+  // 2. the current token into the cache, in place (nothing here reads it back)
+  if (tid < D / 4) {
+    reinterpret_cast<uint32_t*>(k_cache + (head + pos) * D)[tid] = kw;
+    reinterpret_cast<uint32_t*>(v_cache + (head + pos) * D)[tid] = vw;
+  }
+  if (tid == 0) {
+    k_scale[head + pos] = ksn;
+    v_scale[head + pos] = vsn;
+  }
+  const int lo = (window > 0 && pos - window + 1 > 0) ? pos - window + 1 : 0;
+  Window win;
+  // rows [lo, pos) from the cache, the current token from new_k / new_v
+  win.p1 = {k_cache + (head + lo) * D, v_cache + (head + lo) * D, k_scale + head + lo,
+            v_scale + head + lo};
+  win.p2 = {new_k + (long)bk * D, new_v + (long)bk * D, new_ks + bk, new_vs + bk};
+  win.n1 = pos - lo;
+  win.n = pos - lo + 1;
+  Io io{};
+  io.out = out + (long)bk * r * D;
+  attend<APPEND, R, MW>(win, io, r, D, cap, vec, scratch ? scratch + (long)bk * r * S : nullptr,
+                        S, -INFINITY, false, scale, softcap, has_softcap);
+}
+
+// ---------------------------------------------------------------------------
 // B7
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS)
+template <int R, int MW>
+__global__ void __launch_bounds__(THREADS, R == 4 && MW == 1 ? 8 : 4)
 decode_attention_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_cache,
                         const int8_t* __restrict__ v_cache, const float* __restrict__ k_scale,
                         const float* __restrict__ v_scale, const int8_t* __restrict__ kf,
                         const int8_t* __restrict__ vf, const float* __restrict__ ksf,
                         const float* __restrict__ vsf, const int* __restrict__ mlen_arr,
-                        const int* __restrict__ pos_arr, float* __restrict__ out, int KV,
-                        int r, int D, int S, int W, int window, int t_side, float scale,
-                        float softcap, int has_softcap) {
-  extern __shared__ float smem[];
-  __shared__ uint32_t qi[RMAX * DMAX / 4];
-  __shared__ float qs[RMAX];
-  __shared__ float oscale[RMAX];
-
+                        const int* __restrict__ pos_arr, float* __restrict__ out,
+                        float* scratch, int KV, int r, int D, int S, int W, int window,
+                        int t_side, int cap, int vec, float scale, float softcap,
+                        int has_softcap) {
+  STAMP(ST_T0, gtimer());
+  STAMP(ST_ENTRY, CLOCK());
   const int bk = blockIdx.x;  // b * KV + kv
   const int b = bk / KV;
-  const int tid = threadIdx.x, warp = tid / 32;
+  stage_q<TWO_PART>(q + (long)bk * r * D, nullptr, nullptr, nullptr, r, D, cap);
   const int mlen = mlen_arr[b], pos = pos_arr[b];
-  const int ld = S + W;
-  float* scores = smem;                                     // (r, S + W) f32
-  int8_t* pi = reinterpret_cast<int8_t*>(smem + r * ld);    // (r, S + W) int8
-
   int lo_m, n_m;
   main_range(mlen, pos, window, S, lo_m, n_m);
   // side lanes j <= t at position mlen + j > pos - window
@@ -280,41 +689,29 @@ decode_attention_kernel(const float* __restrict__ q, const int8_t* __restrict__ 
     lo_m = 0; n_m = S; lo_f = 0; n_f = W;
   }
   const float m0 = (none_kept || n_m < S || n_f < W) ? kNegInf : -INFINITY;
-
-  quant_q_rows(q + (long)bk * r * D, r, D, qi, qs);
-  __syncthreads();
-
   const long head = (long)bk * S, fhead = (long)bk * W;
-  score_part(qi, qs, r, D, k_cache + (head + lo_m) * D, k_scale + head + lo_m, n_m, scale,
-             softcap, has_softcap, none_kept, scores, ld);
-  if (n_f > 0)
-    score_part(qi, qs, r, D, kf + (fhead + lo_f) * D, ksf + fhead + lo_f, n_f, scale, softcap,
-               has_softcap, none_kept, scores + n_m, ld);
-  __syncthreads();
-
-  const float* vs_m = v_scale + head + lo_m;
-  const float* vs_f = vsf + fhead + lo_f;
-  for (int i = warp; i < r; i += NWARPS) {
-    const RowStats st = requant_row(
-        scores + i * ld, pi + i * ld, n_m + n_f,
-        [&](int t) { return t < n_m ? vs_m[t] : vs_f[t - n_m]; }, m0, false, 0.0f, 0.0f);
-    if (tid % 32 == 0) oscale[i] = st.a / st.sum;
-  }
-  __syncthreads();
-
-  for (int idx = tid; idx < r * D; idx += THREADS) {
-    const int i = idx / D, d = idx % D;
-    int acc = pv_part(pi + i * ld, v_cache + (head + lo_m) * D + d, n_m, D);
-    if (n_f > 0) acc += pv_part(pi + i * ld + n_m, vf + (fhead + lo_f) * D + d, n_f, D);
-    out[(long)bk * r * D + idx] = __fmul_rn(float(acc), oscale[i]);
-  }
+  Window win;
+  win.p1 = {k_cache + (head + lo_m) * D, v_cache + (head + lo_m) * D, k_scale + head + lo_m,
+            v_scale + head + lo_m};
+  win.p2 = {nullptr, nullptr, nullptr, nullptr};
+  if (W > 0)
+    win.p2 = {kf + (fhead + lo_f) * D, vf + (fhead + lo_f) * D, ksf + fhead + lo_f,
+              vsf + fhead + lo_f};
+  win.n1 = n_m;
+  win.n = n_m + n_f;
+  Io io{};
+  io.out = out + (long)bk * r * D;
+  attend<TWO_PART, R, MW>(win, io, r, D, cap, vec,
+                          scratch ? scratch + (long)bk * r * (S + W) : nullptr, S + W, m0,
+                          none_kept, scale, softcap, has_softcap);
 }
 
 // ---------------------------------------------------------------------------
 // B6
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS)
+template <int R, int MW>
+__global__ void __launch_bounds__(THREADS, R == 4 && MW == 1 ? 8 : 4)
 decode_attention_stats_kernel(const int8_t* __restrict__ qi_g, const float* __restrict__ qs_g,
                               const float* __restrict__ mf_g, const float* __restrict__ wfm_g,
                               const int8_t* __restrict__ k_cache,
@@ -323,48 +720,28 @@ decode_attention_stats_kernel(const int8_t* __restrict__ qi_g, const float* __re
                               const float* __restrict__ v_scale,
                               const int* __restrict__ mlen_arr, const int* __restrict__ pos_arr,
                               float* __restrict__ o32, float* __restrict__ m_out,
-                              float* __restrict__ a_out, float* __restrict__ sum_out, int KV,
-                              int r, int D, int S, int window, float scale, float softcap,
-                              int has_softcap) {
-  extern __shared__ float smem[];
-  __shared__ uint32_t qi[RMAX * DMAX / 4];
-  __shared__ float qs[RMAX];
-
+                              float* __restrict__ a_out, float* __restrict__ sum_out,
+                              float* scratch, int KV, int r, int D, int S, int window, int cap,
+                              int vec, float scale, float softcap, int has_softcap) {
   const int bk = blockIdx.x;  // b * KV + kv
   const int b = bk / KV;
-  const int tid = threadIdx.x, warp = tid / 32;
+  const long head = (long)bk * S, row = (long)bk * r;
+  stage_q<STATS>(qi_g + row * D, qs_g + row, mf_g + row, wfm_g + row, r, D, cap);
   int lo, n;
   main_range(mlen_arr[b], pos_arr[b], window, S, lo, n);
-  float* scores = smem;                                     // (r, S) f32
-  int8_t* pi = reinterpret_cast<int8_t*>(smem + r * S);     // (r, S) int8
-
-  const uint32_t* qsrc = reinterpret_cast<const uint32_t*>(qi_g + (long)bk * r * D);
-  for (int w = tid; w < r * D / 4; w += THREADS) qi[w] = qsrc[w];
-  if (tid < r) qs[tid] = qs_g[(long)bk * r + tid];
-  __syncthreads();
-
-  const long head = (long)bk * S;
-  score_part(qi, qs, r, D, k_cache + (head + lo) * D, k_scale + head + lo, n, scale, softcap,
-             has_softcap, false, scores, S);
-  __syncthreads();
-
-  const float* vs = v_scale + head + lo;
-  for (int i = warp; i < r; i += NWARPS) {
-    const long row = (long)bk * r + i;
-    const RowStats st = requant_row(scores + i * S, pi + i * S, n, [&](int t) { return vs[t]; },
-                                    n < S ? kNegInf : -INFINITY, true, mf_g[row], wfm_g[row]);
-    if (tid % 32 == 0) {
-      m_out[row] = st.m;
-      a_out[row] = st.a;
-      sum_out[row] = st.sum;
-    }
-  }
-  __syncthreads();
-
-  for (int idx = tid; idx < r * D; idx += THREADS) {
-    const int i = idx / D, d = idx % D;
-    o32[(long)bk * r * D + idx] = float(pv_part(pi + i * S, v_cache + (head + lo) * D + d, n, D));
-  }
+  Window win;
+  win.p1 = {k_cache + (head + lo) * D, v_cache + (head + lo) * D, k_scale + head + lo,
+            v_scale + head + lo};
+  win.p2 = {nullptr, nullptr, nullptr, nullptr};
+  win.n1 = n;
+  win.n = n;
+  Io io{};
+  io.out = o32 + row * D;
+  io.m = m_out + row;
+  io.a = a_out + row;
+  io.sum = sum_out + row;
+  attend<STATS, R, MW>(win, io, r, D, cap, vec, scratch ? scratch + row * S : nullptr, S,
+                       n < S ? kNegInf : -INFINITY, false, scale, softcap, has_softcap);
 }
 
 // ---------------------------------------------------------------------------
@@ -388,39 +765,55 @@ __global__ void fresh_write_kernel(int8_t* __restrict__ kf, int8_t* __restrict__
   }
 }
 
-// Dynamic shared memory above the default: the 48 KB default covers static
-// and dynamic together (the kernels' static arrays take about 2 KB).
-int set_smem(const void* kernel, size_t smem) {
+// Checks the plan the wrapper computed (cap, smem bytes) against this
+// file's layout and lifts the dynamic shared memory limit where needed
+// (the 48 KB default covers static and dynamic together; the static
+// arrays take under 0.5 KB).
+int prepare(const void* kernel, int r, int D, int cap, int smem) {
+  if (r < 1 || r > RMAX || D > DMAX || D % 4 || cap < CK || cap % CK ||
+      layout(r, D, cap).total != smem)
+    return int(cudaErrorInvalidValue);
   if (smem <= 40 * 1024) return 0;
-  return int(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  int(smem)));
+  return int(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
 }
 
+// The instance for r (R = 4 or 8 query rows) and D (MW = 1, 2 or 4 P.V
+// m-tiles of 16 columns per warp), launched by ``launch``.
+#define LLMC_DISPATCH(K)                                                            \
+  (r <= 4 ? (D <= 64 ? launch(K<4, 1>) : D <= 128 ? launch(K<4, 2>) : launch(K<4, 4>)) \
+          : (D <= 64 ? launch(K<8, 1>) : D <= 128 ? launch(K<8, 2>) : launch(K<8, 4>)))
+
 }  // namespace
+
+// Every launcher: ``vec`` selects 16-byte copies (D % 16 == 0 and every
+// K/V pointer 16-byte aligned; else 4-byte), ``cap`` and ``smem`` are the
+// wrapper's plan (kernels/decode_attention.py::plan), ``scratch`` its f32
+// score scratch of r * (S + W) floats per (slot, kv head), or null when
+// S + W <= cap. Each returns cudaGetLastError() after the launch, or the
+// error of a refused plan.
 
 // q (B, KV, r, D) f32; new_k/new_v (B, KV, D) int8; new_ks/new_vs (B, KV)
 // f32; k_cache/v_cache the layer's (B, KV, S, D) int8 codes, k_scale /
 // v_scale its (B, KV, S) f32 scales, all written in place at pos[b];
 // pos (B,) int32; out (B, KV, r, D) f32, NaN for a slot whose pos is
 // outside [0, S). window <= 0 is full attention.
-// Returns cudaGetLastError().
 extern "C" int llmc_decode_attention_append(
     const void* q, const void* new_k, const void* new_v, const void* new_ks,
     const void* new_vs, void* k_cache, void* v_cache, void* k_scale, void* v_scale,
-    const void* pos, void* out, int B, int KV, int r, int D, int S, int window,
-    float scale, float softcap, int has_softcap, void* stream) {
-  if (r > RMAX || D > DMAX || D % 4) return int(cudaErrorInvalidValue);
-  const size_t smem = size_t(r) * S * (sizeof(float) + 1);
-  if (int e = set_smem(reinterpret_cast<const void*>(decode_attention_append_kernel), smem))
-    return e;
-  decode_attention_append_kernel<<<B * KV, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const int8_t*>(new_k),
-      static_cast<const int8_t*>(new_v), static_cast<const float*>(new_ks),
-      static_cast<const float*>(new_vs), static_cast<int8_t*>(k_cache),
-      static_cast<int8_t*>(v_cache), static_cast<float*>(k_scale),
-      static_cast<float*>(v_scale), static_cast<const int*>(pos),
-      static_cast<float*>(out), KV, r, D, S, window, scale, softcap, has_softcap);
-  return int(cudaGetLastError());
+    const void* pos, void* out, void* scratch, int B, int KV, int r, int D, int S, int window,
+    int cap, int smem, int vec, float scale, float softcap, int has_softcap, void* stream) {
+  auto launch = [&](auto kernel) {
+    if (int e = prepare(reinterpret_cast<const void*>(kernel), r, D, cap, smem)) return e;
+    kernel<<<B * KV, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(q), static_cast<const int8_t*>(new_k),
+        static_cast<const int8_t*>(new_v), static_cast<const float*>(new_ks),
+        static_cast<const float*>(new_vs), static_cast<int8_t*>(k_cache),
+        static_cast<int8_t*>(v_cache), static_cast<float*>(k_scale),
+        static_cast<float*>(v_scale), static_cast<const int*>(pos), static_cast<float*>(out),
+        static_cast<float*>(scratch), KV, r, D, S, window, cap, vec, scale, softcap, has_softcap);
+    return int(cudaGetLastError());
+  };
+  return LLMC_DISPATCH(decode_attention_append_kernel);
 }
 
 // q (B, KV, r, D) f32; one layer's main cache k_cache/v_cache (B, KV, S, D)
@@ -431,20 +824,22 @@ extern "C" int llmc_decode_attention_append(
 extern "C" int llmc_decode_attention(
     const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
     const void* v_scale, const void* kf, const void* vf, const void* ksf, const void* vsf,
-    const void* main_len, const void* pos, void* out, int B, int KV, int r, int D, int S,
-    int W, int window, int t, float scale, float softcap, int has_softcap, void* stream) {
-  if (r > RMAX || D > DMAX || D % 4) return int(cudaErrorInvalidValue);
-  const size_t smem = size_t(r) * (S + W) * (sizeof(float) + 1);
-  if (int e = set_smem(reinterpret_cast<const void*>(decode_attention_kernel), smem)) return e;
-  decode_attention_kernel<<<B * KV, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const int8_t*>(k_cache),
-      static_cast<const int8_t*>(v_cache), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<const int8_t*>(kf),
-      static_cast<const int8_t*>(vf), static_cast<const float*>(ksf),
-      static_cast<const float*>(vsf), static_cast<const int*>(main_len),
-      static_cast<const int*>(pos), static_cast<float*>(out), KV, r, D, S, W, window, t, scale,
-      softcap, has_softcap);
-  return int(cudaGetLastError());
+    const void* main_len, const void* pos, void* out, void* scratch, int B, int KV, int r,
+    int D, int S, int W, int window, int t, int cap, int smem, int vec, float scale,
+    float softcap, int has_softcap, void* stream) {
+  auto launch = [&](auto kernel) {
+    if (int e = prepare(reinterpret_cast<const void*>(kernel), r, D, cap, smem)) return e;
+    kernel<<<B * KV, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(q), static_cast<const int8_t*>(k_cache),
+        static_cast<const int8_t*>(v_cache), static_cast<const float*>(k_scale),
+        static_cast<const float*>(v_scale), static_cast<const int8_t*>(kf),
+        static_cast<const int8_t*>(vf), static_cast<const float*>(ksf),
+        static_cast<const float*>(vsf), static_cast<const int*>(main_len),
+        static_cast<const int*>(pos), static_cast<float*>(out), static_cast<float*>(scratch),
+        KV, r, D, S, W, window, t, cap, vec, scale, softcap, has_softcap);
+    return int(cudaGetLastError());
+  };
+  return LLMC_DISPATCH(decode_attention_kernel);
 }
 
 // qi (B, KV, r, D) int8 and qs (B, KV, r, 1) f32, the row-quantised q;
@@ -454,22 +849,33 @@ extern "C" int llmc_decode_attention(
 extern "C" int llmc_decode_attention_stats(
     const void* qi, const void* qs, const void* m_f, const void* wfm, const void* k_cache,
     const void* v_cache, const void* k_scale, const void* v_scale, const void* main_len,
-    const void* pos, void* o32, void* m, void* a, void* sum, int B, int KV, int r, int D,
-    int S, int window, float scale, float softcap, int has_softcap, void* stream) {
-  if (r > RMAX || D > DMAX || D % 4) return int(cudaErrorInvalidValue);
-  const size_t smem = size_t(r) * S * (sizeof(float) + 1);
-  if (int e = set_smem(reinterpret_cast<const void*>(decode_attention_stats_kernel), smem))
-    return e;
-  decode_attention_stats_kernel<<<B * KV, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(qi), static_cast<const float*>(qs),
-      static_cast<const float*>(m_f), static_cast<const float*>(wfm),
-      static_cast<const int8_t*>(k_cache), static_cast<const int8_t*>(v_cache),
-      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-      static_cast<const int*>(main_len), static_cast<const int*>(pos),
-      static_cast<float*>(o32), static_cast<float*>(m), static_cast<float*>(a),
-      static_cast<float*>(sum), KV, r, D, S, window, scale, softcap, has_softcap);
-  return int(cudaGetLastError());
+    const void* pos, void* o32, void* m, void* a, void* sum, void* scratch, int B, int KV, int r,
+    int D, int S, int window, int cap, int smem, int vec, float scale, float softcap,
+    int has_softcap, void* stream) {
+  auto launch = [&](auto kernel) {
+    if (int e = prepare(reinterpret_cast<const void*>(kernel), r, D, cap, smem)) return e;
+    kernel<<<B * KV, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int8_t*>(qi), static_cast<const float*>(qs),
+        static_cast<const float*>(m_f), static_cast<const float*>(wfm),
+        static_cast<const int8_t*>(k_cache), static_cast<const int8_t*>(v_cache),
+        static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+        static_cast<const int*>(main_len), static_cast<const int*>(pos),
+        static_cast<float*>(o32), static_cast<float*>(m), static_cast<float*>(a),
+        static_cast<float*>(sum), static_cast<float*>(scratch), KV, r, D, S, window, cap, vec,
+        scale, softcap, has_softcap);
+    return int(cudaGetLastError());
+  };
+  return LLMC_DISPATCH(decode_attention_stats_kernel);
 }
+
+#ifdef LLMC_ATTN_CLOCKS
+// The first ``count`` CTAs' stamps of the last launch, (count, NSTAMP)
+// int64, into host memory ``dst``.
+extern "C" int llmc_attn_stamps(void* dst, int count) {
+  return int(cudaMemcpyFromSymbol(dst, attn_stamps, size_t(count) * NSTAMP * sizeof(long long)));
+}
+
+#endif
 
 // The side block kf/vf (L, B, KV, W, D) int8, ksf/vsf (L, B, KV, W) f32;
 // one token nk/nv (B, KV, D) int8, nks/nvs (B, KV) f32, written at

@@ -24,13 +24,15 @@ with (B, KV, W) scales. Math, as in the JAX kernels' slim epilogue
 
 Every masked lane has the score -1e9. CUDA tensors launch
 ``csrc/decode_attention.cu`` or raise; CPU tensors run the plain version
-beside each wrapper.
+beside each wrapper. B4, B6 and B7 share one kernel core whose shared
+memory is fixed by (r, D) (:func:`plan`); a cache long enough to hold a
+window past the core's resident ``cap`` keys gets an f32 score scratch.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -39,19 +41,70 @@ from . import _build
 NEG_INF = -1e9
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # q, new_k, new_v, new_ks, new_vs, k_cache, v_cache, k_scale, v_scale, pos,
-# out; B, KV, r, D, S, window; scale, softcap; has_softcap
+# out, scratch; B, KV, r, D, S, window, cap, smem, vec; scale, softcap; has_softcap
 _launch = _build.c_launcher("decode_attention", "llmc_decode_attention_append",
-                            [_P] * 11 + [_I] * 6 + [_F] * 2 + [_I])
-# q, k_cache, v_cache, k_scale, v_scale, kf, vf, ksf, vsf, main_len, pos, out;
-# B, KV, r, D, S, W, window, t; scale, softcap; has_softcap
+                            [_P] * 12 + [_I] * 9 + [_F] * 2 + [_I])
+# q, k_cache, v_cache, k_scale, v_scale, kf, vf, ksf, vsf, main_len, pos, out,
+# scratch; B, KV, r, D, S, W, window, t, cap, smem, vec; scale, softcap; has_softcap
 _launch_two_part = _build.c_launcher("decode_attention", "llmc_decode_attention",
-                                     [_P] * 12 + [_I] * 8 + [_F] * 2 + [_I])
+                                     [_P] * 13 + [_I] * 11 + [_F] * 2 + [_I])
 # qi, qs, m_f, wfm, k_cache, v_cache, k_scale, v_scale, main_len, pos, o32, m,
-# a, sum; B, KV, r, D, S, window; scale, softcap; has_softcap
+# a, sum, scratch; B, KV, r, D, S, window, cap, smem, vec; scale, softcap; has_softcap
 _launch_stats = _build.c_launcher("decode_attention", "llmc_decode_attention_stats",
-                                  [_P] * 14 + [_I] * 6 + [_F] * 2 + [_I])
+                                  [_P] * 15 + [_I] * 9 + [_F] * 2 + [_I])
 # kf, vf, ksf, vsf, nk, nv, nks, nvs; B, KV, D, W, layer, t
 _launch_write = _build.c_launcher("decode_attention", "llmc_fresh_write", [_P] * 8 + [_I] * 6)
+
+# The kernels' shared-memory plan (csrc/decode_attention.cu, ``Layout``):
+# keys go through a ring of STAGES chunks of CHUNK keys, and a window of up
+# to ``cap`` keys keeps its scores, v scales and prob codes resident.
+CHUNK, STAGES = 64, 4
+RESIDENT_BYTES = 8192       # the resident window's bytes, which set ``cap``
+
+
+class Plan(NamedTuple):
+    chunk: int      # keys per copied chunk
+    cap: int        # keys whose scores stay in shared memory
+    scratch: bool   # a longer window is possible: f32 scores in device scratch
+    smem: int       # dynamic shared memory per CTA, bytes
+
+
+def plan(r: int, D: int, S: int, W: int = 0) -> Plan:
+    """The shared-memory plan of B4, B6 and B7 for r query rows per kv
+    head, head dim D, a main cache of S rows and a side block of W lanes.
+    Shared memory depends on r and D only: the ring of K/V chunks (rows of
+    D rounded up to 16 bytes, plus the chunk's f32 k scales), 8 rows of q
+    codes (padded to an odd multiple of 16 bytes), and the resident
+    window: cap keys of r f32 scores (the staged q, (r, D) f32 and 24
+    floats, before them), one f32 v scale and r prob codes each (rows
+    padded by 16 bytes). A window can outgrow cap only when S + W > cap;
+    then the wrapper allocates the f32 score scratch, r * (S + W) floats
+    per (slot, kv head)."""
+    cap = RESIDENT_BYTES // (5 * r + 4) // CHUNK * CHUNK
+    pitch = (D + 15) // 16 * 16
+    qpitch = (D + 31) // 32 * 32 + 16
+    smem = (STAGES * CHUNK * (pitch + 4) + 8 * qpitch + max(r * cap * 4, r * D * 4 + 96)
+            + cap * 4 + r * (cap + 16))
+    return Plan(CHUNK, cap, S + W > cap, smem)
+
+
+def _launch_plan(q, r, D, S, W, codes):
+    """(plan, scratch tensor or None, 16-byte copies?) for one launch:
+    16-byte copies need D % 16 == 0 and 16-byte aligned K/V codes. The
+    kernels copy ``q`` (f32: 16 bytes at a time; B6's int8 codes: 4) and
+    the codes at least 4 bytes at a time."""
+    if q.data_ptr() % (16 if q.dtype == torch.float32 else 4):
+        raise ValueError("q must start on a 16-byte (int8 codes: 4-byte) boundary")
+    for t in codes:
+        if t.data_ptr() % 4:
+            raise ValueError("K/V codes must start on a 4-byte boundary")
+    p = plan(r, D, S, W)
+    scratch = None
+    if p.scratch:
+        scratch = torch.empty(q.shape[0] * q.shape[1] * r * (S + W), dtype=torch.float32,
+                              device=q.device)
+    vec = D % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in codes)
+    return p, scratch, vec
 
 
 def row_quant_i8(x: torch.Tensor):
@@ -124,6 +177,10 @@ def i8_softmax_requant(parts_s, parts_vs):
         a = torch.maximum(a, torch.amax(w, dim=-1, keepdim=True))
     a = torch.clamp_min(a * (1.0 / 127.0), 1e-8)
     return [torch.clamp(torch.round(w / a), -127, 127) for w in ws], a / sum_row
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def _expect(t, shape, dtype, name: str):
@@ -219,11 +276,12 @@ def decode_attention_append(q, new_k, new_v, new_ks, new_vs, k_cache, v_cache,
             pos, window=window, scale=scale, softcap=softcap)
     B, KV, r, D = q.shape
     S = k_cache.shape[2]
+    p, scratch, vec = _launch_plan(q, r, D, S, 0, (new_k, new_v, k_cache, v_cache))
     out = torch.empty_like(q)
     _launch(q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(), new_ks.data_ptr(),
             new_vs.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            B, KV, r, D, S, int(window), float(scale),
+            _ptr(scratch), B, KV, r, D, S, int(window), p.cap, p.smem, int(vec), float(scale),
             float(softcap) if softcap is not None else 0.0, int(softcap is not None))
     decode_attention_append.launches += 1
     return out
@@ -297,11 +355,14 @@ def decode_attention(q, k_cache, v_cache, k_scale, v_scale, main_len, pos, windo
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale, main_len, pos,
                                       window, t, fresh, scale=scale, softcap=softcap)
+    codes = (k_cache, v_cache) + ((fresh[0], fresh[1]) if fresh is not None else ())
+    p, scratch, vec = _launch_plan(q, r, D, S, W, codes)
     out = torch.empty_like(q)
     side = [a.data_ptr() for a in fresh] if fresh is not None else [0, 0, 0, 0]
     _launch_two_part(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
                      v_scale.data_ptr(), *side, main_len.data_ptr(), pos.data_ptr(),
-                     out.data_ptr(), B, KV, r, D, S, W, int(window), int(t), float(scale),
+                     out.data_ptr(), _ptr(scratch), B, KV, r, D, S, W, int(window), int(t),
+                     p.cap, p.smem, int(vec), float(scale),
                      float(softcap) if softcap is not None else 0.0, int(softcap is not None))
     decode_attention.launches += 1
     return out
@@ -357,14 +418,15 @@ def decode_attention_stats(qi, qs, m_f, wfm, k_cache, v_cache, k_scale, v_scale,
         return decode_attention_stats_plain(qi, qs, m_f, wfm, k_cache, v_cache, k_scale,
                                             v_scale, main_len, pos, window, scale=scale,
                                             softcap=softcap)
+    p, scratch, vec = _launch_plan(qi, r, D, S, 0, (k_cache, v_cache))
     o32 = torch.empty((B, KV, r, D), dtype=torch.float32, device=qi.device)
     m, a, sum_m = (torch.empty_like(qs) for _ in range(3))
     _launch_stats(qi.data_ptr(), qs.data_ptr(), m_f.data_ptr(), wfm.data_ptr(),
                   k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
                   v_scale.data_ptr(), main_len.data_ptr(), pos.data_ptr(), o32.data_ptr(),
-                  m.data_ptr(), a.data_ptr(), sum_m.data_ptr(), B, KV, r, D, S, int(window),
-                  float(scale), float(softcap) if softcap is not None else 0.0,
-                  int(softcap is not None))
+                  m.data_ptr(), a.data_ptr(), sum_m.data_ptr(), _ptr(scratch), B, KV, r, D, S,
+                  int(window), p.cap, p.smem, int(vec), float(scale),
+                  float(softcap) if softcap is not None else 0.0, int(softcap is not None))
     decode_attention_stats.launches += 1
     return o32, m, a, sum_m
 

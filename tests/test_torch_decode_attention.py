@@ -1,5 +1,8 @@
 """The plain version of kernel B4 against the JAX fused-append decode
-attention (``decode_attention_append``, Pallas in interpret mode).
+attention (``decode_attention_append``, Pallas in interpret mode), at a
+short cache and at one longer than the kernels' chunk of keys (B4, and
+B7 and B6 against their JAX kernels there too), and the kernels' shared
+memory plan.
 
 Equivalent inputs: JAX's main cache holds positions < mlen, its side block
 holds decode steps 0..t-1 and ``new_kv`` is step t. The port's cache holds
@@ -34,9 +37,22 @@ L, B, KV, r, D, S, W = 2, 2, 2, 4, 64, 128, 8
 @pytest.mark.parametrize("window,softcap", [(0, None), (6, None), (0, 20.0), (4, 30.0)])
 @pytest.mark.parametrize("t", [0, 3])
 def test_plain_matches_jax(window, softcap, t):
-    rng = np.random.default_rng(t + 10 * window)
+    _append_against_jax(S, np.array([5, 9], np.int32), window, softcap, t, t + 10 * window)
+
+
+# S = 1024: windows of 1 to 10 chunks of 64 keys, starting on and off a
+# chunk (and a 4-key) boundary; slot 1's window ends at S - 1
+@pytest.mark.parametrize("mlen,window,softcap,t", [
+    ((100, 700), 0, None, 3), ((63, 1021), 131, None, 2), ((64, 1020), 0, 25.0, 3),
+    ((900, 129), 67, None, 0), ((512, 1023), 1, None, 0), ((0, 1023), 0, None, 0)])
+def test_plain_matches_jax_long(mlen, window, softcap, t):
+    _append_against_jax(1024, np.array(mlen, np.int32) - t, window, softcap, t,
+                        mlen[0] + window)
+
+
+def _append_against_jax(S, mlen, window, softcap, t, seed):
+    rng = np.random.default_rng(seed)
     layer = 1
-    mlen = np.array([5, 9], np.int32)
     i8 = lambda *s: rng.integers(-127, 128, s).astype(np.int8)
     sc = lambda *s: (rng.random(s) * 0.05 + 0.001).astype(np.float32)
     q = rng.normal(size=(B, KV, r, D)).astype(np.float32)
@@ -86,6 +102,99 @@ def test_plain_matches_jax(window, softcap, t):
         np.testing.assert_array_equal(bufs[1][b, :, p].numpy(), np.asarray(vf)[b, :, t])
         np.testing.assert_array_equal(bufs[2][b, :, p].numpy(), np.asarray(ksf)[b, :, 0, t])
         np.testing.assert_array_equal(bufs[3][b, :, p].numpy(), np.asarray(vsf)[b, :, 0, t])
+
+
+def _long_layer(seed, S=1024):
+    """A layer-1 main cache of S rows and a side block of W lanes, in the
+    JAX layout and as the port's (B, KV, S, D) / (B, KV, W, D) tensors."""
+    rng = np.random.default_rng(seed)
+    i8 = lambda *s: rng.integers(-127, 128, s).astype(np.int8)
+    sc = lambda *s: (rng.random(s) * 0.05 + 0.001).astype(np.float32)
+    j = dict(q=rng.normal(size=(B, KV, r, D)).astype(np.float32),
+             kc=i8(L, B, KV, D, S), vc=i8(L, B, KV, D, S), ks=sc(L, B, KV, 1, S),
+             vs=sc(L, B, KV, 1, S), kf=i8(L, B, KV, W, D), vf=i8(L, B, KV, W, D),
+             ksf=sc(L, B, KV, 1, W), vsf=sc(L, B, KV, 1, W))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    main = (t(np.swapaxes(j["kc"][1], -1, -2)), t(np.swapaxes(j["vc"][1], -1, -2)),
+            t(j["ks"][1, :, :, 0]), t(j["vs"][1, :, :, 0]))
+    side = (t(j["kf"][1]), t(j["vf"][1]), t(j["ksf"][1, :, :, 0]), t(j["vsf"][1, :, :, 0]))
+    return j, main, side
+
+
+# S = 1024, main windows of 0 to 16 chunks, on and off chunk boundaries
+@pytest.mark.parametrize("len0,window,t,side", [
+    ((1000, 64), 0, 5, True), ((1017, 300), 131, 7, True), ((1024, 0), 70, 3, True),
+    ((1024, 129), 200, 0, False), ((1023, 1024), 0, 0, False)])
+def test_two_part_plain_matches_jax_long(len0, window, t, side):
+    """B7's plain version against the JAX kernel ``_call`` at S = 1024
+    (rtol 1e-5, atol 1e-6, as ``tests/test_torch_side_block.py``)."""
+    j, main, fresh = _long_layer(sum(len0) + window)
+    len0 = np.array(len0, np.int32)
+    pos = len0 + t if side else len0 - 1
+    want = jda.decode_attention(
+        jnp.asarray(j["q"]), jnp.asarray(j["kc"]), jnp.asarray(j["vc"]), jnp.asarray(j["ks"]),
+        jnp.asarray(j["vs"]), 1, jnp.asarray(len0), jnp.asarray(pos), window, t,
+        fresh=tuple(jnp.asarray(j[k]) for k in ("kf", "vf", "ksf", "vsf")) if side else None,
+        scale=0.125)
+    got = tda.decode_attention(torch.from_numpy(j["q"]), *main, torch.from_numpy(len0),
+                               torch.from_numpy(pos), window, t, fresh if side else None,
+                               scale=0.125)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("len0,window,softcap", [((1000, 64), 0, None), ((1017, 300), 131, 30.0),
+                                                 ((0, 1024), 0, None)])
+def test_stats_plain_matches_jax_long(len0, window, softcap):
+    """B6's plain version against the JAX kernel ``_call_stats`` at S =
+    1024 on the same q codes and side statistics: o32 bitwise, m, a and
+    sum_main to rtol 1e-6 (as ``tests/test_torch_side_block.py``), 1e-5
+    under the softcap: XLA's tanh and PyTorch's round a score near the cap
+    (30) an ulp apart, 30 * 2^-23 = 3.6e-6, which moves that key's
+    exp(s - m), and so a or the sum, by as much relative (the card tests'
+    tolerance for B6)."""
+    j, main, _ = _long_layer(sum(len0) + window + 1)
+    rng = np.random.default_rng(window)
+    len0 = np.array(len0, np.int32)
+    pos = len0 + 4
+    qi, qs = jax.jit(jda._row_quant_i8)(jnp.asarray(j["q"]))
+    m_f = rng.normal(size=(B, KV, r, 1)).astype(np.float32)
+    wfm = (rng.random((B, KV, r, 1)) * 0.02).astype(np.float32)
+    want = jda.decode_attention_stats(
+        qi, qs, jnp.asarray(m_f), jnp.asarray(wfm), jnp.asarray(j["kc"]), jnp.asarray(j["vc"]),
+        jnp.asarray(j["ks"]), jnp.asarray(j["vs"]), 1, jnp.asarray(len0), jnp.asarray(pos),
+        window, scale=0.125, softcap=softcap)
+    got = tda.decode_attention_stats(
+        *(torch.from_numpy(np.array(a)) for a in (qi, qs, m_f, wfm)), *main,
+        torch.from_numpy(len0), torch.from_numpy(pos), window, scale=0.125, softcap=softcap)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6 if softcap is None
+                                   else 1e-5, atol=0)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("r_", range(1, 9))
+def test_plan(r_, D):
+    """The kernels' shared memory depends on (r, D) alone and fits an SM
+    (227 KB a block) at every cache length the JAX kernel serves (S % 128
+    == 0 up to 128K); a score scratch is planned exactly when a window can
+    outgrow the resident cap."""
+    plans = {S: tda.plan(r_, D, S) for S in range(128, 131072 + 1, 128)}
+    assert len({(p.chunk, p.cap, p.smem) for p in plans.values()}) == 1
+    p = plans[128]
+    assert p.smem <= 232448 and p.cap >= p.chunk == 64 and p.cap % p.chunk == 0
+    assert all(p.scratch == (S > p.cap) for S, p in plans.items())
+    assert tda.plan(r_, D, 128, 32) == tda.plan(r_, D, 128)._replace(scratch=160 > p.cap)
+
+
+def test_plan_flagship():
+    """Llama-3.2-1B's decode (r = 4, D = 64, a cache of 256 rows, a side
+    block of 32): at most 28 KB a CTA, so 8 CTAs fit an SM's 228 KB with
+    their 1 KB reserve each, and no scratch: 145 kept keys stay resident."""
+    for W in (0, 32):
+        p = tda.plan(4, 64, 256, W)
+        assert p.smem <= 28 * 1024 and 8 * (p.smem + 1024) <= 228 * 1024
+        assert not p.scratch and p.cap >= 256 + W
 
 
 def test_row_quant_matches_jax():

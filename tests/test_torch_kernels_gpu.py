@@ -16,6 +16,9 @@ Tolerances:
 * B4, B7: the written cache codes are bitwise equal; the output agrees to
   a few f32 ulps (the row sum is reduced in another order), plus at most one
   flipped prob code per row (exp may differ by an ulp at a .5 boundary).
+  At the flagship decode shape B4's prob codes equal the plain version's
+  and two launches of B4 and B7 give the same bits. The same tolerances
+  hold at caches of 16K and 128K rows.
 * B6: m, a and sum_main to rtol 1e-5; o32 (integer dots) equal but for
   flipped prob codes on at most 1 % of entries; the hybrid output
   assembled around it as B7's against the assembly around the plain
@@ -314,6 +317,149 @@ def test_stats_attention(cuda, window, softcap, t, monkeypatch):
     # once more, which may move side prob codes (the JAX test's tolerance)
     ref = da.decode_attention_plain(*args, scale=0.125, softcap=softcap)
     torch.testing.assert_close(out, ref, rtol=1e-3, atol=2 * float(fresh[3].max()))
+
+
+def _long_inputs(cuda, seed, B, KV, r, D, S, W=8):
+    """Random codes and scales generated on the card (a 128K cache is too
+    large for the host generator to be quick)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    i8 = lambda *shp: torch.randint(-127, 128, shp, generator=g, device=cuda,
+                                    dtype=torch.int16).to(torch.int8)
+    sc = lambda *shp: torch.rand(shp, generator=g, device=cuda) * 0.02 + 1e-3
+    q = torch.randn((B, KV, r, D), generator=g, device=cuda)
+    return (q, (i8(B, KV, S, D), i8(B, KV, S, D), sc(B, KV, S), sc(B, KV, S)),
+            (i8(B, KV, W, D), i8(B, KV, W, D), sc(B, KV, W), sc(B, KV, W)))
+
+
+# cache lengths the first design could not launch (its shared memory grew
+# with S: r * S * 5 bytes); a window of 1001 keys ends at S - 1 (starting
+# at S - 1001, not 4-aligned) and at 5002 (starting at 4002), or the full
+# cache; slot 0 sits at position 0. No window is a whole number of chunks.
+LONG = [(S, r, D, window) for S in (16384, 131072) for r in (4, 8) for D in (64, 128)
+        for window in (0, 1001)]
+
+
+@pytest.mark.parametrize("S,r,D,window", LONG)
+def test_decode_attention_long(cuda, S, r, D, window):
+    """B4 at long caches: the written cache bitwise, the output within B4's
+    tolerance (the score scratch holds windows past the resident cap)."""
+    B, KV = 3, 2
+    q, (kc, vc, ks, vs), (nk, nv, nks, nvs) = _long_inputs(cuda, S + r + D, B, KV, r, D, S, 1)
+    nk, nv, nks, nvs = nk[:, :, 0], nv[:, :, 0], nks[:, :, 0], nvs[:, :, 0]
+    pos = torch.tensor([0, S - 1, 5002], dtype=torch.int32, device=cuda)
+    caches = [t.clone() for t in (kc, vc, ks, vs)]
+    before = da.decode_attention_append.launches
+    got = da.decode_attention_append(q, nk, nv, nks, nvs, kc, vc, ks, vs, pos, window=window,
+                                     scale=D ** -0.5)
+    assert da.decode_attention_append.launches == before + 1
+    want = da.decode_attention_append_plain(q, nk, nv, nks, nvs, *caches, pos, window=window,
+                                            scale=D ** -0.5)
+    for a, b in zip((kc, vc, ks, vs), caches):
+        assert torch.equal(a, b)
+    _assert_attention_close(got, want, float(torch.maximum(vs.max(), nvs.max())))
+
+
+@pytest.mark.parametrize("side", [True, False])
+@pytest.mark.parametrize("S,r,D,window", LONG)
+def test_two_part_attention_long(cuda, S, r, D, window, side):
+    """B7 at long caches, with the side block (t = 5; slot 0 keeps no main
+    row) and without (slot 0 at position 0)."""
+    B, KV, t = 3, 2, 5
+    q, main, fresh = _long_inputs(cuda, S + 2 * r + D, B, KV, r, D, S)
+    if side:
+        mlen = torch.tensor([0, S, 4997], dtype=torch.int32, device=cuda)
+        pos, fr = mlen + t, fresh
+    else:
+        mlen = torch.tensor([1, S, 5003], dtype=torch.int32, device=cuda)
+        pos, fr = mlen - 1, None
+    got = da.decode_attention(q, *main, mlen, pos, window, t, fr, scale=D ** -0.5)
+    want = da.decode_attention_plain(q, *main, mlen, pos, window, t, fr, scale=D ** -0.5)
+    _assert_attention_close(got, want, max(float(main[3].max()), float(fresh[3].max())))
+
+
+@pytest.mark.parametrize("S,r,D,window", LONG)
+def test_stats_attention_long(cuda, S, r, D, window):
+    """B6 at long caches, within its tolerance (m, a, sum_main rtol 1e-5;
+    o32 equal but for flipped prob codes on at most 1 % of entries)."""
+    B, KV = 3, 2
+    q, main, _ = _long_inputs(cuda, S + 3 * r + D, B, KV, r, D, S)
+    mlen = torch.tensor([1, S, 5003], dtype=torch.int32, device=cuda)
+    pos = mlen + 4
+    qi, qs = da.row_quant_i8(q)
+    m_f = torch.randn(qs.shape, device=cuda)
+    wfm = torch.rand(qs.shape, device=cuda) * 0.02
+    got = da.decode_attention_stats(qi, qs, m_f, wfm, *main, mlen, pos, window, scale=D ** -0.5)
+    want = da.decode_attention_stats_plain(qi, qs, m_f, wfm, *main, mlen, pos, window,
+                                           scale=D ** -0.5)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+    d = (got[0] - want[0]).abs()
+    assert float((d > 0).float().mean()) <= 0.01
+
+
+def _flagship_append(cuda, seed=11, B=128, KV=8, r=4, D=64, S=256, pos=144):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    i8 = lambda *shp: torch.randint(-127, 128, shp, generator=g, device=cuda,
+                                    dtype=torch.int16).to(torch.int8)
+    sc = lambda *shp: torch.rand(shp, generator=g, device=cuda) * 0.02
+    q = torch.randn((B, KV, r, D), generator=g, device=cuda)
+    cache = [i8(B, KV, S, D), i8(B, KV, S, D), sc(B, KV, S), sc(B, KV, S)]
+    new = [i8(B, KV, D), i8(B, KV, D), sc(B, KV), sc(B, KV)]
+    return q, cache, new, torch.full((B,), pos, dtype=torch.int32, device=cuda)
+
+
+def test_decode_attention_flagship_codes(cuda):
+    """B4 at the flagship decode shape (B=128 KV=8 r=4 D=64 S=256, pos 144):
+    the written cache bitwise; two launches bitwise equal; the output within
+    B4's tolerance; and every prob code equal to the plain version's. The
+    codes are read through V caches of unit rows: with V row t = e_(t - 64k)
+    on keys [64k, 64k + 64) and 0 elsewhere, out[i, d] = pi[i, 64k + d] *
+    (a / sum), and a / sum agrees to f32 ulps, far below the 1/127 that one
+    code step moves it."""
+    q, cache, new, pos = _flagship_append(cuda)
+    B, KV, r, D = q.shape
+    S, n = cache[0].shape[2], int(pos[0]) + 1
+    bufs, ref = [t.clone() for t in cache], [t.clone() for t in cache]
+    got = da.decode_attention_append(q, *new, *bufs, pos, scale=0.125)
+    want = da.decode_attention_append_plain(q, *new, *ref, pos, scale=0.125)
+    for a, b in zip(bufs, ref):
+        assert torch.equal(a, b)
+    _assert_attention_close(got, want, float(torch.maximum(cache[3].max(), new[3].max())))
+    assert torch.equal(da.decode_attention_append(q, *new, *bufs, pos, scale=0.125), got)
+
+    qi, qs = da.row_quant_i8(q)
+    keep = (torch.arange(S, device=cuda) < n)[None, :].expand(B, S)
+    s = da._masked(da._scores(qi, qs, ref[0], ref[2], 0.125, None), keep)
+    (pi,), oscale = da.i8_softmax_requant([s], [ref[3]])
+    eye = torch.eye(D, dtype=torch.int8, device=cuda)
+    for k in range((n + D - 1) // D):
+        vk = torch.zeros((S, D), dtype=torch.int8, device=cuda)
+        vk[k * D:(k + 1) * D] = eye
+        vk = vk.expand(B, KV, S, D).contiguous()
+        nv = vk[:, :, n - 1].contiguous()
+        out = da.decode_attention_append(q, new[0], nv, new[2], new[3], ref[0].clone(), vk,
+                                         ref[2].clone(), ref[3].clone(), pos, scale=0.125)
+        codes = torch.round(out / oscale)[..., :min(D, n - k * D)]
+        assert torch.equal(codes, pi[..., k * D:k * D + codes.shape[-1]])
+
+
+def test_two_part_attention_flagship_repeatable(cuda):
+    """B7 at the flagship two-part shape ([main | side], len0=128 t=16
+    W=32): two launches bitwise equal, within B7's tolerance."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    B, KV, r, D, S, W, t = 128, 8, 4, 64, 256, 32, 16
+    i8 = lambda *shp: torch.randint(-127, 128, shp, generator=g, device=cuda,
+                                    dtype=torch.int16).to(torch.int8)
+    sc = lambda *shp: torch.rand(shp, generator=g, device=cuda) * 0.02
+    q = torch.randn((B, KV, r, D), generator=g, device=cuda)
+    main = (i8(B, KV, S, D), i8(B, KV, S, D), sc(B, KV, S), sc(B, KV, S))
+    fresh = (i8(B, KV, W, D), i8(B, KV, W, D), sc(B, KV, W), sc(B, KV, W))
+    mlen = torch.full((B,), 128, dtype=torch.int32, device=cuda)
+    got = da.decode_attention(q, *main, mlen, mlen + t, 0, t, fresh, scale=0.125)
+    assert torch.equal(da.decode_attention(q, *main, mlen, mlen + t, 0, t, fresh, scale=0.125),
+                       got)
+    want = da.decode_attention_plain(q, *main, mlen, mlen + t, 0, t, fresh, scale=0.125)
+    _assert_attention_close(got, want, max(float(main[3].max()), float(fresh[3].max())))
 
 
 def test_fresh_write(cuda):
