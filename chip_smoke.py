@@ -24,7 +24,9 @@ Phases (each prints a line; any failure exits non-zero):
    constant with its source. B2 runs the decode and the prefill gate|up,
    B3 the int8 head and the prefill qkv and o projections (M = 16384);
    B4, B6 and B7 also run a long window: 4 slots over a cache of 32K rows
-   at its last position (the first design could not launch it);
+   at its last position (the first design could not launch it). An empty
+   launch (``torch.cuda._sleep(0)``) is timed the same way, the launch
+   floor, and printed beside B8 and the R2 draw of B10;
 4. token checks — at 2 layers, full width, the kernel path's greedy tokens
    must equal the plain path's wherever the plain logits' top-2 gap exceeds
    the stated tolerance: W4A8 (in-place B4 decode, and the side-block
@@ -152,7 +154,7 @@ B10_PER_CALIBRATION = 1 + LAYERS
 # per-case fields beyond the contract's: B9's B3 time and its act quantizer's
 # share, the launched grid of B1, B2, B3, B5 and B9 and their reduce kernel's
 # share; then the earlier design's time, a constant, on the log line only
-EXTRA_METRICS = ("b3_ms", "quant_ms", "splits", "ctas", "reduce_ms")
+EXTRA_METRICS = ("b3_ms", "quant_ms", "splits", "ctas", "reduce_ms", "launch_floor_ms")
 LOG_ONLY = ("earlier_ms",)
 
 
@@ -490,6 +492,22 @@ def check_stats(gen, window=0, softcap=None, B=128, KV=8, r=4, D=64, S=256, len0
             "library_ms": time_ms(_sdpa_yardstick(q, [main], keep))}
 
 
+# B8 and B10 in their first design (B8 a CTA of 64 byte copies per (slot,
+# head); B10 every butterfly stage through shared memory), ms, measured by
+# this script on an NVIDIA H100 80GB HBM3, 700.00 W (PERF.md section 6, the
+# kernel table's earlier times)
+B8_B10_EARLIER_MS = {
+    "one token, layer 7 lane 16 of L=16 B=128 KV=8 W=32 D=64": 0.0066,
+    "R1 draw: +-1 diagonal 2048 f32": 0.0283, "R2 draw: +-1 diagonal 64 f32": 0.0065,
+    "4096 x 2048 bf16": 0.0473, "4096 x 8192 bf16": 0.1828,
+    "4096 x 2560 bf16 (K = 20)": 0.1273}
+
+
+def launch_floor_ms() -> float:
+    """Device time of an empty launch, timed as every kernel is."""
+    return time_ms(lambda: torch.cuda._sleep(0))
+
+
 def check_fresh_write(gen, L=LAYERS, B=128, KV=8, W=32, D=64, layer=7, t=16):
     """B8: one token into a layer's side block, bitwise. Bound: the token's
     bytes read once and written once; library: the same four indexed
@@ -665,27 +683,29 @@ def check_hadamard(gen, label, rows, n, dtype, diagonal=False):
     return case
 
 
-def phase_kernels(seed: int):
+def kernel_cases(gen):
+    """Each kernel's cases at the shapes of the main path, by kernel name:
+    a function that runs them in order (inputs drawn from ``gen``), each
+    held against its plain version, and returns their records."""
     from llm_compressor_tpu_torch.kernels import dequant_matmul as dm
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
     E, I, V = 2048, 8192, 128256
-    cases = {
-        "B1_w4a8_stacked": [
+    return {
+        "B1_w4a8_stacked": lambda: [
             check_w4a8(gen, "decode qkv", "stacked", 128, 3072, E, 1),
             check_w4a8(gen, "decode o", "stacked", 128, E, E, 1),
             check_w4a8(gen, "decode down", "stacked", 128, E, I, 1)],
-        "B2_w4a8_gateup_silu": [
+        "B2_w4a8_gateup_silu": lambda: [
             check_w4a8(gen, "decode gate|up", "gateup", 128, 2 * I, E, 1),
             check_w4a8(gen, "prefill gate|up 128x128 rows", "gateup", 128 * 128, 2 * I, E, 1)],
-        "B3_w4a8_flat": [
+        "B3_w4a8_flat": lambda: [
             check_w4a8(gen, "decode int8 head", "flat", 128, V, E, 0),
             check_w4a8(gen, "prefill qkv 128x128 rows", "flat", 128 * 128, 3072, E, 1),
             check_w4a8(gen, "prefill o 128x128 rows", "flat", 128 * 128, E, E, 1)],
-        "B4_decode_attention_append": [
+        "B4_decode_attention_append": lambda: [
             check_decode_attention(gen),
             check_decode_attention(gen, B=4, S=LONG_S, pos=LONG_S - 1)],
-        "B5_dequant_matmul": [
+        "B5_dequant_matmul": lambda: [
             check_dequant_matmul(gen, "decode qkv int4-g128 zp", 128, 3072, E, dm.F_INT4_PAIRS, True),
             check_dequant_matmul(gen, "decode o int4-g128 zp", 128, E, E, dm.F_INT4_PAIRS, True),
             check_dequant_matmul(gen, "decode gate|up int4-g128 zp", 128, 2 * I, E,
@@ -696,29 +716,39 @@ def phase_kernels(seed: int):
             check_dequant_matmul(gen, "decode int8-g128 head", 128, V, E, dm.F_INT8, False),
             check_dequant_matmul(gen, "decode qkv fp8-e4m3-g128", 128, 3072, E,
                                  dm.F_FP8_E4M3, True)],
-        "B6_decode_attention_stats": [
+        "B6_decode_attention_stats": lambda: [
             check_stats(gen), check_stats(gen, window=64, softcap=50.0),
             check_stats(gen, B=4, S=LONG_S, len0=LONG_S - 17)],
-        "B7_decode_attention": [
+        "B7_decode_attention": lambda: [
             check_two_part(gen, True), check_two_part(gen, False),
             check_two_part(gen, True, window=64, softcap=50.0),
             check_two_part(gen, True, B=4, S=LONG_S, len0=LONG_S - 17)],
-        "B8_fresh_write": [check_fresh_write(gen)],
-        "B9_w4a8_actq": [
+        "B8_fresh_write": lambda: [check_fresh_write(gen)],
+        "B9_w4a8_actq": lambda: [
             check_w4a8_actq(gen, "int8 head, raw bf16 acts", 128, V, E, 0),
             check_w4a8_actq(gen, "flat qkv int4-g128 pair planes, raw bf16 acts", 128, 3072, E,
                             1)],
-        "B10_hadamard": [
+        "B10_hadamard": lambda: [
             check_hadamard(gen, "R1 draw: +-1 diagonal 2048 f32", E, E, torch.float32, True),
             check_hadamard(gen, "R2 draw: +-1 diagonal 64 f32", 64, 64, torch.float32, True),
             check_hadamard(gen, "4096 x 2048 bf16", 4096, E, torch.bfloat16),
             check_hadamard(gen, "4096 x 8192 bf16", 4096, I, torch.bfloat16),
             check_hadamard(gen, "4096 x 2560 bf16 (K = 20)", 4096, 2560, torch.bfloat16)],
     }
+
+
+def phase_kernels(seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cases = {name: run() for name, run in kernel_cases(gen).items()}
+    floor = launch_floor_ms()
+    log(f"kernel launch floor: empty launch ms={floor:.4f}")
+    cases["B8_fresh_write"][0]["launch_floor_ms"] = floor
+    cases["B10_hadamard"][1]["launch_floor_ms"] = floor
+    earlier = ATTENTION_EARLIER_MS | B8_B10_EARLIER_MS
     for name, cs in cases.items():
         for c in cs:
-            if c["case"] in ATTENTION_EARLIER_MS:
-                c["earlier_ms"] = ATTENTION_EARLIER_MS[c["case"]]
+            if c["case"] in earlier:
+                c["earlier_ms"] = earlier[c["case"]]
             log(f"kernel {name} [{c['case']}]: max_abs_err={c['max_abs_err']} "
                 f"({c['tolerance']}) ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
                 f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']}) "

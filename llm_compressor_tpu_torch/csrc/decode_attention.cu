@@ -76,6 +76,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "phase_stamps.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;
@@ -190,26 +194,10 @@ struct Window {
 
 enum Mode { APPEND, TWO_PART, STATS };
 
-// Phase stamps, compiled in only with -DLLMC_ATTN_CLOCKS (tools/
-// attention_phases.py): per CTA its SM, the global timer (ns) at entry and
-// exit, and SM clocks at the phase boundaries and spent in the copy waits.
+// Phase stamps (phase_stamps.cuh, tools/attention_phases.py): SM clocks at
+// the phase boundaries and spent in the copy waits.
 enum Stamp { ST_SM, ST_T0, ST_T1, ST_ENTRY, ST_WINDOW, ST_ISSUED, ST_PROLOGUE, ST_QK,
-             ST_QK_WAIT, ST_SOFTMAX, ST_PV, ST_PV_WAIT, ST_END, NSTAMP };
-#ifdef LLMC_ATTN_CLOCKS
-constexpr int MAX_STAMPED = 1 << 16;
-__device__ long long attn_stamps[MAX_STAMPED][NSTAMP];
-__device__ __forceinline__ long long gtimer() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-#define STAMP(k, v) \
-  if (threadIdx.x == 0 && blockIdx.x < MAX_STAMPED) attn_stamps[blockIdx.x][k] = (v)
-#define CLOCK() clock64()
-#else
-#define STAMP(k, v)
-#define CLOCK() 0LL
-#endif
+             ST_QK_WAIT, ST_SOFTMAX, ST_PV, ST_PV_WAIT, ST_END };
 
 // Per-CTA outputs, at this CTA's offsets.
 struct Io {
@@ -574,14 +562,7 @@ __device__ __forceinline__ void attend(const Window& win, const Io& io, int r, i
       io.out[i * D + d] = o;
     }
   }
-#ifdef LLMC_ATTN_CLOCKS
-  __syncthreads();
-  unsigned sm;
-  asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
-  STAMP(ST_SM, sm);
-  STAMP(ST_END, CLOCK());
-  STAMP(ST_T1, gtimer());
-#endif
+  STAMP_FINISH();
 }
 
 __device__ __forceinline__ void poison(float* out, int count) {
@@ -610,8 +591,7 @@ decode_attention_append_kernel(const float* __restrict__ q, const int8_t* __rest
                                const int* __restrict__ pos_arr, float* __restrict__ out,
                                float* scratch, int KV, int r, int D, int S, int window, int cap,
                                int vec, float scale, float softcap, int has_softcap) {
-  STAMP(ST_T0, gtimer());
-  STAMP(ST_ENTRY, CLOCK());
+  STAMP_BEGIN();
   const int bk = blockIdx.x, tid = threadIdx.x;  // bk = b * KV + kv
   // what does not depend on the position first: q, and the current token
   stage_q<APPEND>(q + (long)bk * r * D, nullptr, nullptr, nullptr, r, D, cap);
@@ -669,8 +649,7 @@ decode_attention_kernel(const float* __restrict__ q, const int8_t* __restrict__ 
                         float* scratch, int KV, int r, int D, int S, int W, int window,
                         int t_side, int cap, int vec, float scale, float softcap,
                         int has_softcap) {
-  STAMP(ST_T0, gtimer());
-  STAMP(ST_ENTRY, CLOCK());
+  STAMP_BEGIN();
   const int bk = blockIdx.x;  // b * KV + kv
   const int b = bk / KV;
   stage_q<TWO_PART>(q + (long)bk * r * D, nullptr, nullptr, nullptr, r, D, cap);
@@ -748,20 +727,55 @@ decode_attention_stats_kernel(const int8_t* __restrict__ qi_g, const float* __re
 // B8
 // ---------------------------------------------------------------------------
 
-__global__ void fresh_write_kernel(int8_t* __restrict__ kf, int8_t* __restrict__ vf,
-                                   float* __restrict__ ksf, float* __restrict__ vsf,
-                                   const int8_t* __restrict__ nk, const int8_t* __restrict__ nv,
-                                   const float* __restrict__ nks, const float* __restrict__ nvs,
-                                   int BKV, int D, int W, int layer, int t) {
-  const int bk = blockIdx.x;  // b * KV + kv
-  const long lane = ((long)layer * BKV + bk) * W + t;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    kf[lane * D + d] = nk[(long)bk * D + d];
-    vf[lane * D + d] = nv[(long)bk * D + d];
+// Replaces llm_compressor_tpu/kernels/decode_attention.py::_call_write
+// (:308). The whole job is one token's codes and scales: 2 * B * KV * (D + 4)
+// bytes read and written (278,528 at B = 128, KV = 8, D = 64), so launch
+// latency, not bytes, sets its time, and the kernel is kept short. Thread
+// i < BKV * D / U copies one U-byte piece of a (slot, head) row of the K
+// codes and the same piece of the V codes, both loads issued before the
+// stores (U = 16 where D % 16 == 0 and every code pointer is 16-byte
+// aligned, else 4, else 1: ``width``), so a warp covers 8 rows at D = 64.
+// The threads after them move the scales: 4 pairs' k and v scales each,
+// read as float4 (SVEC: nks, nvs 16-byte aligned and BKV % 4 == 0), else
+// one pair's; written to their lanes, W floats apart. CTAs of one warp
+// spread the copies over the SMs: the flagship is 136 CTAs, about one per
+// SM (CTAs of 256 threads on 17 SMs took 0.0074 ms, of 64 threads 0.0060,
+// of 32 threads 0.0058: tools/kernel_turns.py on an H100).
+constexpr int WRITE_THREADS = 32;
+
+template <int U, bool SVEC>
+__global__ void __launch_bounds__(WRITE_THREADS)
+fresh_write_kernel(int8_t* __restrict__ kf, int8_t* __restrict__ vf, float* __restrict__ ksf,
+                   float* __restrict__ vsf, const int8_t* __restrict__ nk,
+                   const int8_t* __restrict__ nv, const float* __restrict__ nks,
+                   const float* __restrict__ nvs, int BKV, int D, int W, int layer, int t) {
+  using Piece = typename std::conditional<
+      U == 16, uint4, typename std::conditional<U == 4, uint32_t, int8_t>::type>::type;
+  const int per = D / U, pieces = BKV * per;  // < 2^31
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < pieces) {
+    const Piece k = reinterpret_cast<const Piece*>(nk)[i];
+    const Piece v = reinterpret_cast<const Piece*>(nv)[i];
+    const int bk = i / per;
+    const long dst = (((long)layer * BKV + bk) * W + t) * per + (i - bk * per);
+    reinterpret_cast<Piece*>(kf)[dst] = k;
+    reinterpret_cast<Piece*>(vf)[dst] = v;
+    return;
   }
-  if (threadIdx.x == 0) {
-    ksf[lane] = nks[bk];
-    vsf[lane] = nvs[bk];
+  const int g = i - pieces;
+  if constexpr (SVEC) {
+    if (g >= BKV / 4) return;
+    const float4 a = reinterpret_cast<const float4*>(nks)[g];
+    const float4 b = reinterpret_cast<const float4*>(nvs)[g];
+    const long lane = ((long)layer * BKV + 4 * g) * W + t;
+    ksf[lane] = a.x; ksf[lane + W] = a.y; ksf[lane + 2 * W] = a.z; ksf[lane + 3 * W] = a.w;
+    vsf[lane] = b.x; vsf[lane + W] = b.y; vsf[lane + 2 * W] = b.z; vsf[lane + 3 * W] = b.w;
+  } else {
+    if (g >= BKV) return;
+    const float a = nks[g], b = nvs[g];
+    const long lane = ((long)layer * BKV + g) * W + t;
+    ksf[lane] = a;
+    vsf[lane] = b;
   }
 }
 
@@ -868,25 +882,39 @@ extern "C" int llmc_decode_attention_stats(
   return LLMC_DISPATCH(decode_attention_stats_kernel);
 }
 
-#ifdef LLMC_ATTN_CLOCKS
-// The first ``count`` CTAs' stamps of the last launch, (count, NSTAMP)
-// int64, into host memory ``dst``.
-extern "C" int llmc_attn_stamps(void* dst, int count) {
-  return int(cudaMemcpyFromSymbol(dst, attn_stamps, size_t(count) * NSTAMP * sizeof(long long)));
-}
-
-#endif
-
 // The side block kf/vf (L, B, KV, W, D) int8, ksf/vsf (L, B, KV, W) f32;
 // one token nk/nv (B, KV, D) int8, nks/nvs (B, KV) f32, written at
-// (layer, lane t) in place.
+// (layer, lane t) in place. width: bytes per code copy (16, 4 or 1), refused
+// unless D and the four code pointers allow it; svec: float4 scale loads,
+// refused unless nks and nvs start on 16-byte boundaries and B * KV % 4 == 0.
 extern "C" int llmc_fresh_write(void* kf, void* vf, void* ksf, void* vsf, const void* nk,
                                 const void* nv, const void* nks, const void* nvs, int B,
-                                int KV, int D, int W, int layer, int t, void* stream) {
-  fresh_write_kernel<<<B * KV, 64, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int8_t*>(kf), static_cast<int8_t*>(vf), static_cast<float*>(ksf),
-      static_cast<float*>(vsf), static_cast<const int8_t*>(nk),
-      static_cast<const int8_t*>(nv), static_cast<const float*>(nks),
-      static_cast<const float*>(nvs), B * KV, D, W, layer, t);
-  return int(cudaGetLastError());
+                                int KV, int D, int W, int layer, int t, int width, int svec,
+                                void* stream) {
+  auto misaligned = [](const void* p, int a) { return reinterpret_cast<uintptr_t>(p) % a != 0; };
+  const int BKV = B * KV;
+  if ((width != 16 && width != 4 && width != 1) || D < 1 || D % width ||
+      misaligned(kf, width) || misaligned(vf, width) || misaligned(nk, width) ||
+      misaligned(nv, width) ||
+      (svec && (misaligned(nks, 16) || misaligned(nvs, 16) || BKV % 4)))
+    return int(cudaErrorInvalidValue);
+  const long threads = (long)BKV * (D / width) + (svec ? BKV / 4 : BKV);
+  if (threads >= (1L << 31)) return int(cudaErrorInvalidValue);
+  const unsigned grid = unsigned((threads + WRITE_THREADS - 1) / WRITE_THREADS);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto launch = [&](auto kernel) {
+    kernel<<<grid, WRITE_THREADS, 0, st>>>(
+        static_cast<int8_t*>(kf), static_cast<int8_t*>(vf), static_cast<float*>(ksf),
+        static_cast<float*>(vsf), static_cast<const int8_t*>(nk),
+        static_cast<const int8_t*>(nv), static_cast<const float*>(nks),
+        static_cast<const float*>(nvs), BKV, D, W, layer, t);
+    return int(cudaGetLastError());
+  };
+  if (svec)
+    return width == 16 ? launch(fresh_write_kernel<16, true>)
+                       : width == 4 ? launch(fresh_write_kernel<4, true>)
+                                    : launch(fresh_write_kernel<1, true>);
+  return width == 16 ? launch(fresh_write_kernel<16, false>)
+                     : width == 4 ? launch(fresh_write_kernel<4, false>)
+                                  : launch(fresh_write_kernel<1, false>);
 }

@@ -8,8 +8,8 @@ build takes seconds):
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
 The output lands in ``llm_compressor_tpu_torch/_build/`` (listed in
-``.gitignore``), named by a hash of the source and flags, so an edited
-source rebuilds. ``-Xptxas -v`` output (registers, shared memory, spills)
+``.gitignore``), named by a hash of the source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source rebuilds. ``-Xptxas -v`` output (registers, shared memory, spills)
 is kept beside the library as ``<lib>.log``. A missing ``nvcc`` or a failed
 build raises. :func:`c_launcher` gives the wrappers each C function typed
 once.
@@ -49,17 +49,23 @@ def _nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
-def lib_path(name: str) -> Path:
+def lib_path(name: str, defines: Sequence[str] = ()) -> Path:
+    """The library of ``csrc/<name>.cu`` built with ``-D`` ``defines``,
+    named by a hash of the source, the shared headers and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    flags = FLAGS + [f"-D{d}" for d in defines]
+    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:12]
+    variant = "".join(f"_{d.lower()}" for d in defines)
+    return BUILD_DIR / f"lib{name}{variant}-{tag}.so"
 
 
-def build(names=SOURCES) -> Dict[str, Path]:
+def build(names=SOURCES, defines: Sequence[str] = ()) -> Dict[str, Path]:
     """Compile every source in ``names`` that has no up-to-date library,
-    all ``nvcc`` processes at once. Returns name -> library path."""
+    all ``nvcc`` processes at once, with ``-D`` each of ``defines``.
+    Returns name -> library path."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = {n: lib_path(n) for n in names}
+    out = {n: lib_path(n, defines) for n in names}
     todo = [n for n in names if not out[n].exists()]
     if not todo:
         return out
@@ -69,7 +75,8 @@ def build(names=SOURCES) -> Dict[str, Path]:
         for n in todo:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [nvcc, *FLAGS, "-o", tmp, str(CSRC / f"{n}.cu")]
+            cmd = [nvcc, *FLAGS, *(f"-D{d}" for d in defines), "-o", tmp,
+                   str(CSRC / f"{n}.cu")]
             procs.append((n, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         failed = []

@@ -52,8 +52,8 @@ _launch_two_part = _build.c_launcher("decode_attention", "llmc_decode_attention"
 # a, sum, scratch; B, KV, r, D, S, window, cap, smem, vec; scale, softcap; has_softcap
 _launch_stats = _build.c_launcher("decode_attention", "llmc_decode_attention_stats",
                                   [_P] * 15 + [_I] * 9 + [_F] * 2 + [_I])
-# kf, vf, ksf, vsf, nk, nv, nks, nvs; B, KV, D, W, layer, t
-_launch_write = _build.c_launcher("decode_attention", "llmc_fresh_write", [_P] * 8 + [_I] * 6)
+# kf, vf, ksf, vsf, nk, nv, nks, nvs; B, KV, D, W, layer, t, width, svec
+_launch_write = _build.c_launcher("decode_attention", "llmc_fresh_write", [_P] * 8 + [_I] * 8)
 
 # The kernels' shared-memory plan (csrc/decode_attention.cu, ``Layout``):
 # keys go through a ring of STAGES chunks of CHUNK keys, and a window of up
@@ -472,6 +472,20 @@ def fresh_write_plain(fresh, new_kv, layer: int, t: int):
     return fresh
 
 
+def write_widths(fresh, new_kv):
+    """B8's copies: (bytes per code copy, 16-byte scale loads?). 16 where D
+    % 16 == 0 and the four code tensors start on 16-byte boundaries, else 4,
+    else 1; the scales go as float4 where ks and vs start on 16 bytes and
+    B * KV % 4 == 0."""
+    kf, vf, _, _ = fresh
+    kc, vc, ks, vs = new_kv
+    D = kf.shape[-1]
+    width = next(u for u in (16, 4, 1)
+                 if D % u == 0 and all(a.data_ptr() % u == 0 for a in (kf, vf, kc, vc)))
+    return width, (ks.numel() % 4 == 0 and ks.data_ptr() % 16 == 0
+                   and vs.data_ptr() % 16 == 0)
+
+
 def fresh_write(fresh, new_kv, layer: int, t: int):
     """Write one token into the side block at (layer, lane t), in place (B8).
 
@@ -497,7 +511,9 @@ def fresh_write(fresh, new_kv, layer: int, t: int):
     _same_device([*fresh, *new_kv])
     if not kf.is_cuda:
         return fresh_write_plain(fresh, new_kv, layer, t)
-    _launch_write(*(a.data_ptr() for a in (*fresh, *new_kv)), B, KV, D, W, int(layer), int(t))
+    width, svec = write_widths(fresh, new_kv)
+    _launch_write(*(a.data_ptr() for a in (*fresh, *new_kv)), B, KV, D, W, int(layer), int(t),
+                  width, int(svec))
     fresh_write.launches += 1
     return fresh
 

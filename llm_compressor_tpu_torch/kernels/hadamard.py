@@ -16,13 +16,15 @@ applied last and one cast to ``x.dtype``. A CUDA tensor launches
 CPU tensor runs :func:`hadamard_transform_plain`. Kernel and plain version
 do the same float32 operations in the same order (the contraction adds the
 K terms in order l = 0..K-1, each an exact +-x), so they agree bitwise.
+:func:`plan` gives the kernel's layout for a size n; the kernel checks it.
 """
 
 from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import Optional
+from math import gcd
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -32,6 +34,8 @@ from . import _build
 
 _OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_BYTES = 232448   # dynamic shared memory a block may use on the H100
+CTA_THREADS = 256     # threads of a CTA at most
+SMEM_TARGET = 48 * 1024   # a CTA of several rows keeps at most this in shared memory
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +201,81 @@ def default_scale(n: int) -> float:
 
 
 # ---------------------------------------------------------------------------
+# The kernel's layout (csrc/hadamard.cu checks it against its own)
+# ---------------------------------------------------------------------------
+
+
+class Plan(NamedTuple):
+    K: int          # base order
+    m: int          # power-of-two block, n = K * m
+    E: int          # consecutive values a thread holds in registers
+    threads: int    # threads per row
+    rows: int       # rows per CTA
+    passes: int     # register passes of the butterfly (2: one exchange in shared memory)
+    smem: int       # dynamic shared memory per CTA, bytes
+
+
+def sign_bytes(K: int) -> int:
+    """Bytes of H_K's sign bits in shared memory: K columns of ceil(K/32)
+    words (none for K = 1)."""
+    return 0 if K == 1 else K * ((K + 31) // 32) * 4
+
+
+def plan(n: int) -> Plan:
+    """B10's layout for rows of n values.
+
+    A thread holds E consecutive values of the row (E a power of two, at
+    most 4m: H_K's orders are 4 times an odd number). The butterfly stages
+    h < E run in its registers and h = E .. 16E through warp shuffles, so
+    one pass covers log2(E) + 5 stages. A block m > 32E takes a second
+    pass: the row goes to shared memory as f32 and each thread reads the
+    2^r values a, a + 32E, ... (r = log2(m / 32E) <= log2(E)) back into
+    registers. E is the least that keeps the passes at two: 8 up to
+    m = 256 (16, 32 for m = 512, 1024, one pass), and 8, 16, 32 for
+    m <= 2048, 8192, 32768 (two passes). A row of n / E chunks takes
+    gcd(n / E, 256) threads, each taking chunks in turn, and a CTA 256 /
+    threads rows, halved while their shared memory passes 48 KB (never
+    below a warp). Shared memory holds each row as f32 when there is a
+    second pass or K > 1 (the H_K contraction reads whole columns), and
+    then H_K's sign bits. Sizes whose f32 row does not fit in shared
+    memory raise."""
+    K, m = decompose(n)
+    if n * 4 + sign_bytes(K) > SMEM_BYTES:
+        raise ValueError(f"the kernel holds a row of n={n} float32 values in shared memory "
+                         f"(at most {SMEM_BYTES // 4})")
+    b = m.bit_length() - 1
+    if b <= 10:
+        E, passes = 1 << max(3, b - 5), 1
+    else:
+        E, passes = (8 if b <= 11 else 16 if b <= 13 else 32), 2
+    E = min(E, m * (4 if K > 1 else 1))
+    threads = gcd(n // E, CTA_THREADS)
+    row_smem = n * 4 if (passes == 2 or K > 1) else 0
+    rows = CTA_THREADS // threads
+    while rows > 1 and rows * row_smem > SMEM_TARGET and (rows // 2) * threads >= 32:
+        rows //= 2
+    return Plan(K, m, E, threads, rows, passes, rows * row_smem + sign_bytes(K))
+
+
+@lru_cache(maxsize=None)
+def sign_words(K: int) -> np.ndarray:
+    """H_K's signs as bits, (K, ceil(K/32)) int32: bit c of word w of row
+    l is set where H_K[32w + c, l] = -1 (column l of H_K, the term l of
+    every output k)."""
+    neg = base_hadamard(K) < 0
+    nw = (K + 31) // 32
+    words = np.zeros((K, nw), np.uint64)
+    for k in range(K):
+        words[:, k // 32] |= neg[k, :].astype(np.uint64) << np.uint64(k % 32)
+    return words.astype(np.uint32).view(np.int32)
+
+
+@lru_cache(maxsize=None)
+def _signs(K: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(sign_words(K).copy()).to(device)
+
+
+# ---------------------------------------------------------------------------
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
 
@@ -237,32 +316,33 @@ def hadamard_transform_plain(x: torch.Tensor, scale: Optional[float] = None) -> 
 # Kernel wrapper
 # ---------------------------------------------------------------------------
 
-# x, out, base (int8 K x K or null); rows, n, m, K; scale; out_kind
+# x, out, signs (H_K's sign words or null); rows, n, m, K; the plan's E,
+# threads, rows, passes, smem; vec; scale; out_kind
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _launch = _build.c_launcher("hadamard", "llmc_hadamard",
-                            [_P] * 3 + [_I] * 4 + [ctypes.c_float, _I])
+                            [_P] * 3 + [_I] * 10 + [ctypes.c_float, _I])
 
 
 def hadamard_transform(x: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
     """y = x H_n * scale along the last axis (default scale: the float32
     1/sqrt(n)); float32 or bfloat16 ``x`` on the card, any float dtype on
-    the CPU. Sizes without a base construction raise ``ValueError``."""
+    the CPU. Sizes without a base construction raise ``ValueError``, and
+    on the card so do rows whose f32 values do not fit in shared memory."""
     n = x.shape[-1]
-    K, m = decompose(n)
     if not x.is_cuda:
         return hadamard_transform_plain(x, scale)
     if x.dtype not in _OUT_KINDS:
         raise ValueError(f"the kernel takes float32 or bfloat16, not {x.dtype}")
-    if n * 4 > SMEM_BYTES:
-        raise ValueError(f"the kernel holds a row of n={n} float32 values in shared memory "
-                         f"(at most {SMEM_BYTES // 4})")
+    p = plan(n)
     s = default_scale(n) if scale is None else float(scale)
     x2 = x.reshape(-1, n).contiguous()
     out = torch.empty_like(x2)
-    base = _base(K, torch.int8, x.device) if K > 1 else None
+    signs = _signs(p.K, x.device) if p.K > 1 else None
+    vec = int(x2.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     if x2.shape[0]:
-        _launch(x2.data_ptr(), out.data_ptr(), None if base is None else base.data_ptr(),
-                x2.shape[0], n, m, K, s, _OUT_KINDS[x.dtype])
+        _launch(x2.data_ptr(), out.data_ptr(), None if signs is None else signs.data_ptr(),
+                x2.shape[0], n, p.m, p.K, p.E, p.threads, p.rows, p.passes, p.smem, vec, s,
+                _OUT_KINDS[x.dtype])
         hadamard_transform.launches += 1
     return out.reshape(x.shape)
 

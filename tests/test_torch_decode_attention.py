@@ -217,3 +217,33 @@ def test_wrapper_checks_inputs():
     with pytest.raises(ValueError, match="caches"):
         tda.decode_attention_append(q, n, n, ns, ns, c.float(), c, s, s,
                                     torch.zeros((B,), dtype=torch.int32), scale=1.0)
+
+
+@pytest.mark.parametrize("D,code_off,scale_off,BKV,want", [
+    (64, 0, 0, (2, 2), (16, True)), (128, 0, 0, (2, 2), (16, True)),
+    (64, 4, 0, (2, 2), (4, True)), (64, 1, 0, (2, 2), (1, True)),
+    (38, 0, 0, (2, 2), (1, True)), (36, 0, 1, (2, 2), (4, False)),
+    (64, 0, 0, (3, 2), (16, False))])
+def test_fresh_write_widths(D, code_off, scale_off, BKV, want):
+    """B8's copy widths from D and the tensors' alignment (views that start
+    off a 16-byte boundary take narrower copies; float4 scale loads need
+    B * KV % 4 == 0); the CPU write stays the plain version's."""
+    def view(shape, dtype, off):
+        n = int(np.prod(shape))
+        buf = torch.zeros(n + off + 16, dtype=dtype)
+        base = (-buf.data_ptr() % 16) // buf.element_size()   # a 16-byte boundary
+        return buf[base + off:base + off + n].view(shape)
+
+    L, (B, KV), W = 2, BKV, 4
+    fresh = (view((L, B, KV, W, D), torch.int8, code_off), view((L, B, KV, W, D), torch.int8,
+                                                                 code_off),
+             view((L, B, KV, W), torch.float32, scale_off),
+             view((L, B, KV, W), torch.float32, scale_off))
+    new = (view((B, KV, D), torch.int8, code_off), view((B, KV, D), torch.int8, code_off),
+           view((B, KV), torch.float32, scale_off), view((B, KV), torch.float32, scale_off))
+    for a in new:
+        a.copy_(torch.arange(a.numel()).reshape(a.shape).to(a.dtype) + 1)
+    assert tda.write_widths(fresh, new) == want
+    tda.fresh_write(fresh, new, 1, 3)
+    for buf, a in zip(fresh, new):
+        assert torch.equal(buf[1, :, :, 3], a) and not buf[0].any()

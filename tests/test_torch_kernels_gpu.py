@@ -477,6 +477,56 @@ def test_fresh_write(cuda):
         assert torch.equal(a, b)
 
 
+def _offset_view(t, offset):
+    """A contiguous copy of ``t`` that starts ``offset`` elements into its
+    storage (so off a 16-byte boundary)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# D 64 and 128, the first and the last lane, every copy width: whole
+# 16-byte pieces, 4-byte pieces (codes 4 bytes off), bytes (D = 38, or codes
+# 1 byte off), scales off a 16-byte boundary or B * KV not a multiple of 4
+# (one scale a thread instead of a float4 of four)
+@pytest.mark.parametrize("D,code_off,scale_off,BKV,want", [
+    (64, 0, 0, (4, 3), (16, True)), (128, 0, 0, (4, 3), (16, True)),
+    (64, 4, 0, (4, 3), (4, True)), (64, 1, 0, (4, 3), (1, True)),
+    (38, 0, 0, (4, 3), (1, True)), (36, 0, 1, (4, 3), (4, False)),
+    (128, 4, 3, (4, 3), (4, False)), (64, 0, 0, (5, 3), (16, False))])
+@pytest.mark.parametrize("t", [0, 7])
+def test_fresh_write_widths(cuda, D, code_off, scale_off, BKV, want, t):
+    g = torch.Generator(device="cpu").manual_seed(D + t)
+    L, (B, KV), W = 3, BKV, 8
+    codes = lambda *shp: _offset_view(torch.randint(-127, 128, shp, generator=g,
+                                                    dtype=torch.int8).to(cuda), code_off)
+    scales = lambda *shp: _offset_view(torch.rand(*shp, generator=g).to(cuda), scale_off)
+    fresh = [codes(L, B, KV, W, D), codes(L, B, KV, W, D), scales(L, B, KV, W),
+             scales(L, B, KV, W)]
+    new = [codes(B, KV, D), codes(B, KV, D), scales(B, KV), scales(B, KV)]
+    assert da.write_widths(fresh, new) == want
+    want_bufs = da.fresh_write_plain([a.clone() for a in fresh], new, 1, t)
+    got = da.fresh_write(tuple(fresh), new, 1, t)
+    for a, b in zip(got, want_bufs):
+        assert torch.equal(a, b)
+
+
+def test_fresh_write_flagship(cuda):
+    """B = 128, KV = 8, D = 64, L = 16, W = 32 at lanes 0 and W - 1."""
+    g = torch.Generator(device="cpu").manual_seed(9)
+    L, B, KV, W, D = 16, 128, 8, 32, 64
+    fresh = [torch.randint(-127, 128, (L, B, KV, W, D), generator=g, dtype=torch.int8).to(cuda)
+             for _ in range(2)] + [torch.rand(L, B, KV, W, generator=g).to(cuda) for _ in range(2)]
+    for layer, t in ((0, 0), (15, W - 1)):
+        new = [torch.randint(-127, 128, (B, KV, D), generator=g, dtype=torch.int8).to(cuda)
+               for _ in range(2)] + [torch.rand(B, KV, generator=g).to(cuda) for _ in range(2)]
+        want = da.fresh_write_plain([a.clone() for a in fresh], new, layer, t)
+        da.fresh_write(tuple(fresh), new, layer, t)
+        for a, b in zip(fresh, want):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("spec,C", [("int4-g[128]-rw", 512), ("int4-g[128]-rw", 640),
                                     ("int8-g[128]-rw", 640), ("int4-g[128]-rw", 3072),
                                     ("int4-g[128]-rw", 4096), ("int4-g[128]-rw", 8192),
@@ -628,3 +678,48 @@ def test_hadamard_refuses(cuda):
         hd.hadamard_transform(torch.zeros(2, 64, device=cuda, dtype=torch.float16))
     with pytest.raises(ValueError, match="shared memory"):
         hd.hadamard_transform(torch.zeros(1, 1 << 16, device=cuda))
+
+
+# every change of the layout (kernels/hadamard.py::plan): E = 1, 2, 4 (tiny
+# rows), E = 8 -> 16 -> 32 in one pass (m 256, 512, 1024), two passes at
+# E = 8, 16, 32 (m 2048, 4096 / 8192, 16384 / 32768), and the largest rows
+# of several bases; row counts around the rows per CTA
+LAYOUT_SIZES = [1, 2, 4, 8, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768,
+                28 * 2048, 108 * 512, 12 * 4096]
+
+
+@pytest.mark.parametrize("n", LAYOUT_SIZES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hadamard_layout_boundaries(cuda, n, dtype):
+    p = hd.plan(n)
+    for rows in sorted({1, 3, p.rows - 1 or 1, p.rows + 1, 2 * p.rows + 3}):
+        x = torch.from_numpy(np.random.default_rng(n + rows).normal(size=(rows, n))
+                             .astype(np.float32)).to(cuda).to(dtype)
+        got = hd.hadamard_transform(x)
+        assert got.dtype == dtype and torch.equal(got, hd.hadamard_transform_plain(x)), rows
+
+
+# every base K at its smallest m (E > m), a middle m and its largest m
+@pytest.mark.parametrize("K", [12, 20, 28, 36, 44, 52, 60, 108, 140])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hadamard_every_base(cuda, K, dtype):
+    sizes = [K, 2 * K, 4 * K, 16 * K, 128 * K]
+    m = 1
+    while K * m * 2 * 4 + hd.sign_bytes(K) <= hd.SMEM_BYTES:
+        m *= 2
+    sizes.append(K * m)
+    for n in sizes:
+        rows = hd.plan(n).rows + 1
+        x = torch.from_numpy(np.random.default_rng(n).normal(size=(rows, n))
+                             .astype(np.float32)).to(cuda).to(dtype)
+        assert torch.equal(hd.hadamard_transform(x), hd.hadamard_transform_plain(x)), n
+
+
+@pytest.mark.parametrize("n", [64, 2560, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hadamard_unaligned_rows(cuda, n, dtype):
+    """x starting off a 16-byte boundary takes the kernel's scalar loads."""
+    x = _offset_view(torch.from_numpy(np.random.default_rng(n).normal(size=(5, n))
+                                      .astype(np.float32)).to(cuda).to(dtype), 1)
+    assert x.data_ptr() % 16
+    assert torch.equal(hd.hadamard_transform(x), hd.hadamard_transform_plain(x))

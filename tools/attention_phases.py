@@ -2,9 +2,9 @@
 
     python3 tools/attention_phases.py
 
-Builds ``csrc/decode_attention.cu`` a second time with -DLLMC_ATTN_CLOCKS
-(each CTA then stamps its SM, the global timer at entry and exit, and SM
-clocks at its phase boundaries), launches B4 at the flagship decode shape
+Builds ``csrc/decode_attention.cu`` a second time with -DLLMC_CLOCKS
+(``tools/phase_stamps.py``: each CTA then stamps its SM, the global timer
+at entry and exit, and SM clocks at its phase boundaries), launches B4 at the flagship decode shape
 (B=128 KV=8 r=4 D=64 S=256, pos 144) and at the long-window case (B=4,
 S=32768, the last position) after an L2 flush, and prints one JSON line
 per case: the launch's span on the global timer, the SMs used and the
@@ -19,34 +19,19 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import os
-import subprocess
 import sys
 
-import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from llm_compressor_tpu_torch.kernels import _build  # noqa: E402
+import phase_stamps as ps  # noqa: E402
 from llm_compressor_tpu_torch.kernels import decode_attention as da  # noqa: E402
 
 STAMPS = ("sm", "t0", "t1", "entry", "window", "issued", "prologue", "qk", "qk_wait", "softmax",
           "pv", "pv_wait", "end")
-
-
-def build_stamped() -> ctypes.CDLL:
-    flags = _build.FLAGS + ["-DLLMC_ATTN_CLOCKS"]
-    src = _build.CSRC / "decode_attention.cu"
-    tag = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
-    out = _build.BUILD_DIR / f"libdecode_attention_clocks-{tag}.so"
-    if not out.exists():
-        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([_build._nvcc(), *flags, "-o", str(out), str(src)], check=True,
-                       capture_output=True, text=True)
-    return ctypes.CDLL(str(out))
 
 
 def inputs(gen, B, KV=8, r=4, D=64, S=256):
@@ -69,7 +54,6 @@ def run_case(lib, gen, label, B, S, pos):
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + \
         [ctypes.c_int, ctypes.c_void_p]
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
 
     def launch():
         err = fn(q.data_ptr(), *(t.data_ptr() for t in new), *(t.data_ptr() for t in cache),
@@ -79,33 +63,10 @@ def run_case(lib, gen, label, B, S, pos):
         if err:
             raise RuntimeError(f"launch failed: CUDA error {err}")
 
-    launch()
-    flush.fill_(1)
-    torch.cuda.synchronize()
-    launch()
-    torch.cuda.synchronize()
-    n = B * KV
-    st = np.zeros((n, len(STAMPS)), np.int64)
-    if lib.llmc_attn_stamps(ctypes.c_void_p(st.ctypes.data), n):
-        raise RuntimeError("reading the stamps failed")
-    col = {k: st[:, i] for i, k in enumerate(STAMPS)}
-    span_ns = col["t1"].max() - col["t0"].min()
-    cyc_per_ns = float(np.mean((col["end"] - col["entry"]) / np.maximum(col["t1"] - col["t0"], 1)))
-    us = lambda cyc: float(np.mean(cyc)) / cyc_per_ns / 1e3
-    # CTAs resident on one SM at once: sweep each SM's entry/exit events
-    most, sms = 0, np.unique(col["sm"])
-    for sm in sms:
-        sel = col["sm"] == sm
-        ev = sorted([(t, 1) for t in col["t0"][sel]] + [(t, -1) for t in col["t1"][sel]],
-                    key=lambda e: (e[0], e[1]))
-        cur = 0
-        for _, d in ev:
-            cur += d
-            most = max(most, cur)
-    return {"case": label, "plan": p._asdict(), "launch_span_us": span_ns / 1e3,
-            "ctas": n, "sms_used": len(sms), "most_ctas_on_one_sm_at_once": most,
-            "cta_us": float(np.mean(col["t1"] - col["t0"])) / 1e3,
-            "sm_ghz": cyc_per_ns,
+    ps.stamped_launch(launch)
+    col = ps.read(lib, STAMPS, B * KV)
+    summary, us = ps.summarize(col)
+    return {"case": label, "plan": p._asdict(), **summary,
             "phase_us": {"prologue": us(col["prologue"] - col["entry"]),
                          "of_which_to_window": us(col["window"] - col["entry"]),
                          "of_which_issue": us(col["issued"] - col["window"]),
@@ -120,9 +81,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("attention_phases: needs a CUDA card", file=sys.stderr)
         return 2
-    lib = build_stamped()
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip(), flush=True)
+    lib = ps.build_stamped("decode_attention")
+    print(ps.card_line(), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for label, B, S, pos in (("flagship B=128 S=256 pos=144", 128, 256, 144),
                              ("long B=4 S=32768 pos=32767", 4, 32768, 32767)):
