@@ -68,6 +68,18 @@ Phases (each prints a line; any failure exits non-zero):
 6. B9 entry point — ``w4a8_matmul(..., act_inside=True)`` on the ``w4a8``
    slice's int8-g128 head and layer-0 qkv at M = 128 (counts set to 0 just
    before); each output must equal the host-quantised B3 path's bitwise.
+7. checkpoint — Llama-3.2-1B at full depth, random weights from
+   ``--seed``: written as an HF directory (``config.json``, bf16
+   ``model.safetensors``) and read back by ``load_hf_checkpoint``
+   (bitwise), RTN W4A8 as in step 5, served (16 prompts of 32 tokens, 8
+   greedy steps, int8 cache: B1-B4, counts set to 0 just before and the
+   per-step launches asserted); ``save_compressed`` -> ``load_compressed``
+   -> ``pack_model`` (the tied head, which is not written) must give every
+   QTensor bitwise, then the same tokens, cache codes and scales bitwise;
+   ``generate_text`` (chat template, a byte-level stand-in tokenizer) must
+   give ``generate``'s new ids. Seconds of each save and load, bytes on
+   disk, peak memory; both directories live under ``$TMPDIR`` and are
+   removed.
 The ``kernels`` JSON object, nvidia-smi's name and power limit and the
 slices' numbers (TTFT, decode tok/s, peak memory; calibration seconds for
 ``spinquant_gptq``) come on the three lines before the last; the last is
@@ -1443,6 +1455,211 @@ def phase_actq(cfg, qcfg, params, seed: int):
     return {"counts": counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: checkpoints
+# ---------------------------------------------------------------------------
+
+# the checkpoint phase serves 16 prompts of 32 tokens, then 8 greedy steps
+CKPT_BATCH, CKPT_PROMPT, CKPT_STEPS, CKPT_MAX_LEN = 16, 32, 8, 64
+
+
+class ByteTokenizer:
+    """A byte-level stand-in for a HF tokenizer, the interface
+    ``generate_text`` takes: UTF-8 bytes in; out, each id as one character
+    from U+4E00 on, where no id decodes to whitespace that ``strip`` drops."""
+    eos_token_id = None
+    BASE = 0x4E00
+
+    def encode(self, text):
+        return list(text.encode())
+
+    def decode(self, ids, skip_special_tokens=True):
+        return "".join(chr(self.BASE + i) for i in ids)
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in path.iterdir() if f.is_file())
+
+
+def _timed(fn):
+    """(fn(), host seconds ended by a device synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _flat_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat_leaves(v, f"{prefix}{k}.")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _flat_leaves(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def write_hf_dir(params, cfg, path):
+    """An HF Llama directory of ``params`` without ``transformers``:
+    ``config.json`` and ``model.safetensors`` in bfloat16 under the HF
+    names (a tied model has no ``lm_head`` entry), as HF ships Llama-3.2-1B."""
+    from llm_compressor_tpu_torch.models import to_hf_config
+    from llm_compressor_tpu_torch.models.params import _hf_key_map, _hf_top_map
+    from llm_compressor_tpu_torch.utils import safetensors_io
+
+    path.mkdir(parents=True)
+    (path / "config.json").write_text(json.dumps(to_hf_config(cfg), indent=2))
+    sd = {}
+    for mapping, tree in [(_hf_top_map(cfg), params)] + [
+            (_hf_key_map(cfg, i), lp) for i, lp in enumerate(params["layers"])]:
+        for name, keys in mapping.items():
+            node = tree
+            for k in keys:
+                node = node[k]
+            sd[f"{name}.weight"] = node["weight"].to(torch.bfloat16)
+    safetensors_io.save_file(sd, path / "model.safetensors", metadata={"format": "pt"})
+
+
+def _qtensors(params):
+    from llm_compressor_tpu_torch.qformats import QTensor
+
+    return {k: v for k, v in _flat_leaves(params) if isinstance(v, QTensor)}
+
+
+def _qtensor_on_host(qt):
+    return {"codes": qt.codes.cpu(), "scales": qt.scales.cpu(),
+            "zeros": None if qt.zeros is None else qt.zeros.cpu(),
+            "meta": (qt.quantizer, qt.shape, qt.blocked_shape, qt.group_axis, qt.ngroups_axis,
+                     qt.dtype, qt.pair_planes)}
+
+
+def _same_qtensor(qt, want) -> bool:
+    got = _qtensor_on_host(qt)
+    return (got["meta"] == want["meta"] and torch.equal(got["codes"], want["codes"])
+            and torch.equal(got["scales"], want["scales"])
+            and (got["zeros"] is None) == (want["zeros"] is None)
+            and (got["zeros"] is None or torch.equal(got["zeros"], want["zeros"])))
+
+
+def serve_checkpointed(params, cfg, qcfg, seed):
+    """fuse -> stack (of a structural copy: ``params`` stays unfused) ->
+    ``run_slice`` with the launch counts set to 0 just before it. Returns
+    the stacked params, the tokens and the int8 cache's codes and scales on
+    the host, the launch counts and the launches per decode step."""
+    from llm_compressor_tpu_torch import kernels
+    from llm_compressor_tpu_torch.models import fuse_model, stack_model
+
+    copy = dict(params, layers=[{k: dict(v) if isinstance(v, dict) else v
+                                 for k, v in lp.items()} for lp in params["layers"]])
+    stacked = stack_model(fuse_model(copy, cfg, qcfg))
+    del copy
+    kernels.reset_counts()
+    logits, out, cache, _, _, after_prefill = run_slice(
+        stacked, cfg, qcfg, W4A8, CKPT_BATCH, CKPT_PROMPT, CKPT_STEPS, CKPT_MAX_LEN, seed)
+    counts = kernels.launch_counts()
+    used = {COUNTER_OF[k] for k in W4A8_KERNELS}
+    if any((v > 0) != (k in used) for k, v in counts.items()):
+        raise AssertionError(f"checkpointed model: launches {counts}, not those of B1-B4")
+    per_step = {k: (counts[k] - after_prefill[k]) / CKPT_STEPS for k in sorted(used)}
+    if per_step != {k: float(v) for k, v in sorted(W4A8_APPEND_PER_STEP.items())}:
+        raise AssertionError(f"checkpointed model: launches per decode step {per_step}")
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    host = {"tokens": torch.cat([tok, out], 1).cpu(),
+            **{n: getattr(cache, n).cpu() for n in ("k", "v", "k_scale", "v_scale")}}
+    return stacked, host, counts, per_step
+
+
+def check_generate_text(stacked, cfg, qcfg):
+    """``generate_text`` (chat template, byte tokenizer, int8 cache) must
+    give the text of ``generate``'s new ids on the same ids."""
+    import numpy as np
+
+    from llm_compressor_tpu_torch.engine import CHAT_TEMPLATE, generate, generate_text
+
+    tok, prompt = ByteTokenizer(), "Name three colours."
+    got = generate_text(stacked, cfg, tok, prompt, max_new_tokens=CKPT_STEPS, qcfg=qcfg,
+                        quantized_kv=True)
+    ids = tok.encode(CHAT_TEMPLATE.format(message=prompt))
+    out = generate(stacked, cfg, np.asarray([ids], np.int32), max_new_tokens=CKPT_STEPS,
+                   qcfg=qcfg, quantized_kv=True)
+    new = out[0, len(ids):].tolist()
+    got_ids = [ord(c) - tok.BASE for c in got]
+    if len(new) != CKPT_STEPS or got_ids != new:
+        raise AssertionError(f"generate_text gave ids {got_ids}, generate {new}")
+    return new
+
+
+def phase_checkpoint(seed: int, smi: str):
+    """Llama-3.2-1B at full depth through both checkpoints: random weights
+    written as an HF bf16 directory and loaded back (bitwise), RTN W4A8 as
+    ``build_model`` does, served; ``save_compressed`` -> ``load_compressed``
+    -> ``pack_model`` (the tied head) served again: tokens, cache codes and
+    scales and every QTensor bitwise equal to the in-memory model's; then
+    ``generate_text`` against ``generate``. Both directories live in a
+    temporary directory that is removed at the end."""
+    import tempfile
+    from pathlib import Path
+
+    from llm_compressor_tpu_torch.algorithms import pack_model, rtn
+    from llm_compressor_tpu_torch.models import (
+        init_params,
+        load_compressed,
+        load_hf_checkpoint,
+        save_compressed,
+        to_hf_config,
+    )
+    from llm_compressor_tpu_torch.qformats import build_quant_config
+
+    cfg = flagship_cfg(LAYERS)
+    qcfg = build_quant_config(*W4A8[0], head_act=W4A8[1])
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        hf_dir, ck_dir = Path(tmp) / "hf", Path(tmp) / "compressed"
+        params = init_params(cfg, seed=seed)
+        _, out["hf_save_s"] = _timed(lambda: write_hf_dir(params, cfg, hf_dir))
+        (cfg2, loaded), out["hf_load_s"] = _timed(lambda: load_hf_checkpoint(hf_dir))
+        if cfg2 != cfg:
+            raise AssertionError(f"from_hf_config gave {cfg2}, not {cfg}")
+        want, got = dict(_flat_leaves(params)), dict(_flat_leaves(loaded))
+        if set(want) != set(got) or any(not torch.equal(want[k], got[k]) for k in want):
+            raise AssertionError("load_hf_checkpoint: the params differ from those written")
+        del params, want, got
+        rtn(loaded, cfg, qcfg)
+        pack_model(loaded, cfg, qcfg)
+        stacked, first, counts, per_step = serve_checkpointed(loaded, cfg, qcfg, seed)
+        del stacked
+        saved = {k: _qtensor_on_host(v) for k, v in _qtensors(loaded).items()}
+        _, out["compressed_save_s"] = _timed(lambda: save_compressed(
+            loaded, cfg, ck_dir, hf_config=to_hf_config(cfg)))
+        del loaded
+        torch.cuda.empty_cache()
+        reloaded, out["compressed_load_s"] = _timed(lambda: load_compressed(ck_dir, cfg, qcfg))
+        if "lm_head" in reloaded:
+            raise AssertionError("the tied packed head was written")
+        pack_model(reloaded, cfg, qcfg)
+        back = _qtensors(reloaded)
+        if set(back) != set(saved) or any(not _same_qtensor(back[k], saved[k]) for k in saved):
+            raise AssertionError("load_compressed + pack_model: a QTensor differs from the "
+                                 "saved one")
+        stacked, second, counts, per_step = serve_checkpointed(reloaded, cfg, qcfg, seed)
+        for name, a in first.items():
+            if not torch.equal(a, second[name]):
+                raise AssertionError(f"the reloaded model's {name} differ from the in-memory "
+                                     "model's")
+        del reloaded
+        out["generate_text_ids"] = check_generate_text(stacked, cfg, qcfg)
+        out["hf_dir_bytes"], out["compressed_dir_bytes"] = _dir_bytes(hf_dir), _dir_bytes(ck_dir)
+        out["compressed_files"] = {f.name: f.stat().st_size for f in sorted(ck_dir.iterdir())}
+    out.update(peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, qtensors=len(saved),
+               launches=counts, per_decode_step=per_step, card=smi)
+    del stacked
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1568,6 +1785,17 @@ def main() -> int:
         f"{s['per_step']}")
     log(f"slice spinquant_gptq decode profile (2 steps, torch.profiler): "
         f"{json.dumps(s['profile'])}")
+
+    ck = phase_checkpoint(args.seed, smi)
+    log(f"checkpoint: Llama-3.2-1B, {LAYERS} layers, HF bf16 directory "
+        f"{ck['hf_dir_bytes']} bytes written in {ck['hf_save_s']:.2f} s, loaded in "
+        f"{ck['hf_load_s']:.2f} s (bitwise); RTN W4A8; save_compressed {ck['compressed_dir_bytes']} "
+        f"bytes in {ck['compressed_save_s']:.2f} s, load_compressed in "
+        f"{ck['compressed_load_s']:.2f} s; {ck['qtensors']} QTensors, {CKPT_BATCH} x "
+        f"{CKPT_PROMPT} prompts + {CKPT_STEPS} greedy steps: tokens, int8 cache codes and "
+        f"scales bitwise equal to the in-memory model's; peak memory "
+        f"{ck['peak_mem_gib']:.2f} GiB on {smi}")
+    log(f"checkpoint numbers: {json.dumps(ck)}")
 
     metrics = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = lambda c: {k: c[k] for k in EXTRA_METRICS if k in c}

@@ -105,7 +105,7 @@ def _gptq_core(W, H, quantizer: Quantizer, blocksize: int, actorder: bool):
         MASK = _permute_cols(MASK, perm, group)
         H = _permute_sym(H, perm, group)
 
-    scales, zeros = find_params(quantizer, W)
+    scales, zeros = find_params(quantizer, W, jitted=True)  # the JAX core is jitted
     Hinv = hessian_inverse_factor(H)
     Q = torch.zeros_like(W)
 

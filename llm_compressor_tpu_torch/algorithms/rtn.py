@@ -1,7 +1,10 @@
 """RTN — round-to-nearest weight quantization (port of ``algorithms/rtn.py``).
 
 Per linear: W <- fake_quantize(W) * (W != 0), which keeps pruned zeros.
-The lm_head is quantized with the head config. The JAX version's MSE clip
+The lm_head is quantized with the head config. The linears round their
+scales eagerly and the head as under ``jit``, as the JAX version does
+(``quantize_dequant_with_params``; ``quantize_dequant``, which is jitted,
+in ``quantize_head_weight``). The JAX version's MSE clip
 search and ``scale_book`` are not ported (ROADMAP.md, queue A item 9).
 """
 
@@ -10,7 +13,7 @@ from __future__ import annotations
 from ..models.config import ModelConfig
 from ..models.transformer import SLOTS
 from ..qformats.config import QuantConfig
-from ..qformats.quantize import quantize_dequant
+from ..qformats.quantize import quantize_dequant_with_params
 from .common import get_weight, quantize_head_weight, set_weight, weight_quantizer_for
 
 
@@ -22,5 +25,5 @@ def rtn(params, cfg: ModelConfig, qcfg: QuantConfig) -> None:
             if q.qtype == "dummy":
                 continue
             W = get_weight(lp, slot)
-            set_weight(lp, slot, quantize_dequant(q, W) * (W != 0).to(W.dtype))
+            set_weight(lp, slot, quantize_dequant_with_params(q, W)[0] * (W != 0).to(W.dtype))
     quantize_head_weight(params, qcfg)

@@ -1,6 +1,7 @@
 """Prefill, decode and sampling over the KV cache (port of
 ``engine/generate.py``: ``prefill`` :1009, ``decode_step`` :1019,
-``decode_greedy_steps`` :1029, ``_sample`` :1089, ``generate`` :1099).
+``decode_greedy_steps`` :1029, ``_sample`` :1089, ``generate`` :1099,
+``generate_text`` :1132).
 
 Attention per layer, chosen as the JAX package's ``_cached_attention``
 chooses it:
@@ -28,7 +29,8 @@ side]`` through B7 (two-part) or B6 plus PyTorch (hybrid), and the block
 is merged into the cache once after the steps.
 
 The decode loop is a Python loop over steps and layers; a CUDA graph is
-later work (ROADMAP.md).
+later work (ROADMAP.md). ``generate_text`` wraps ``generate`` in the
+reference's chat template; its speculative decoding is not ported.
 """
 
 from __future__ import annotations
@@ -330,15 +332,17 @@ def _sample(logits: torch.Tensor, temperature: float, top_k: Optional[int],
 def generate(params, cfg: ModelConfig, prompt_tokens: np.ndarray, max_new_tokens: int = 100,
              temperature: float = 0.0, top_k: Optional[int] = None,
              eos_id: Optional[int] = None, qcfg: Optional[QuantConfig] = None,
-             quantized_kv: bool = False, seed: int = 0) -> np.ndarray:
+             quantized_kv: bool = False, max_len: Optional[int] = None,
+             seed: int = 0) -> np.ndarray:
     """Autoregressive generation with a KV cache on the params' device (a
-    bf16 cache, or int8 with ``quantized_kv``). Returns prompt + generated
-    tokens (B, T_out) int32; stops early when slot 0 samples ``eos_id``."""
+    bf16 cache, or int8 with ``quantized_kv``) of ``max_len`` rows (prompt
+    + new tokens if None). Returns prompt + generated tokens (B, T_out)
+    int32; stops early when slot 0 samples ``eos_id``."""
     dev = params["embed"]["weight"].device
     prompt_tokens = np.asarray(prompt_tokens, dtype=np.int32)
     B, T = prompt_tokens.shape
-    cache = init_cache(cfg.num_layers, B, T + max_new_tokens, cfg.num_kv_heads, cfg.head_dim,
-                       quantized=quantized_kv, device=dev)
+    cache = init_cache(cfg.num_layers, B, max_len or T + max_new_tokens, cfg.num_kv_heads,
+                       cfg.head_dim, quantized=quantized_kv, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     logits, cache = prefill(params, torch.from_numpy(prompt_tokens).to(dev), cache,
                             cfg=cfg, qcfg=qcfg)
@@ -351,3 +355,33 @@ def generate(params, cfg: ModelConfig, prompt_tokens: np.ndarray, max_new_tokens
         out.append(nxt_np[:, None])
         logits, cache = decode_step(params, nxt[:, None], cache, cfg=cfg, qcfg=qcfg)
     return np.concatenate(out, axis=1)
+
+
+CHAT_TEMPLATE = """Below is an instruction that describes a task.
+Write a response that appropriately completes the request.
+
+### Instruction:
+{message}
+"""
+
+
+def generate_text(params, cfg: ModelConfig, tokenizer, prompt: str,
+                  max_new_tokens: int = 100, temperature: float = 0.0,
+                  top_k: Optional[int] = None, qcfg: Optional[QuantConfig] = None,
+                  quantized_kv: bool = False, use_chat_template: bool = True,
+                  speculative: bool = False) -> str:
+    """Chat-templated text generation (the reference's tinychat path):
+    ``tokenizer`` has ``encode``, ``decode(ids, skip_special_tokens=...)``
+    and ``eos_token_id``. Returns the text after the prompt, without a
+    "### Response:" marker. Speculative decoding (``speculative``) is not
+    ported: it raises."""
+    if speculative:
+        raise NotImplementedError(
+            "speculative decoding is not ported yet: ROADMAP.md queue A item 8")
+    text = CHAT_TEMPLATE.format(message=prompt) if use_chat_template else prompt
+    ids = np.asarray([tokenizer.encode(text)], dtype=np.int32)
+    out = generate(params, cfg, ids, max_new_tokens=max_new_tokens, temperature=temperature,
+                   top_k=top_k, eos_id=tokenizer.eos_token_id, qcfg=qcfg,
+                   quantized_kv=quantized_kv)
+    full = tokenizer.decode(out[0].tolist(), skip_special_tokens=True)
+    return full[len(text):].replace("### Response:", "").strip()

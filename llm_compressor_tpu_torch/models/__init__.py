@@ -1,7 +1,13 @@
 """models — the Llama transformer core (port of ``llm_compressor_tpu.models``)."""
 
-from .config import ModelConfig, RopeScaling, SUPPORTED_ARCHS
-from .params import init_params
+from .config import ModelConfig, RopeScaling, SUPPORTED_ARCHS, from_hf_config, to_hf_config
+from .params import (
+    init_params,
+    load_compressed,
+    load_hf_checkpoint,
+    load_params_from_state_dict,
+    save_compressed,
+)
 from .transformer import (
     LayerOps,
     embed,
@@ -35,7 +41,8 @@ def tiny_config(arch: str = "llama", **overrides) -> ModelConfig:
 
 
 __all__ = [
-    "ModelConfig", "RopeScaling", "SUPPORTED_ARCHS", "init_params",
-    "forward", "embed", "head", "tiny_config", "LayerOps", "layer_ops",
-    "fuse_model", "stack_model",
+    "ModelConfig", "RopeScaling", "SUPPORTED_ARCHS", "from_hf_config", "to_hf_config",
+    "init_params", "load_params_from_state_dict", "save_compressed", "load_compressed",
+    "load_hf_checkpoint", "forward", "embed", "head", "tiny_config", "LayerOps",
+    "layer_ops", "fuse_model", "stack_model",
 ]

@@ -95,24 +95,31 @@ def _minmax(q: Quantizer, xb: torch.Tensor, axes):
     return max_val.float(), min_val.float()
 
 
-def _solve_int(q: Quantizer, max_val, min_val):
+def _div(x, c: float, jitted: bool):
+    """``x / c`` for a constant ``c``, rounded as the JAX package rounds it:
+    under ``jax.jit`` XLA rewrites the division into a product with the f32
+    reciprocal (one rounding more), eager JAX divides."""
+    return x * (1.0 / c) if jitted else x / c
+
+
+def _solve_int(q: Quantizer, max_val, min_val, jitted: bool):
     q_max = float(q.params.int_max)
     if q.zero_point:
-        scales = torch.clamp_min((max_val - min_val) / (2.0 * q_max), SCALE_EPS)
+        scales = torch.clamp_min(_div(max_val - min_val, 2.0 * q_max, jitted), SCALE_EPS)
         zeros = torch.round(-q_max - min_val / scales)
     else:
-        scales = max_val / q_max
+        scales = _div(max_val, q_max, jitted)
         zeros = torch.zeros_like(scales)
     return scales, zeros
 
 
-def _solve_fp(q: Quantizer, max_val, min_val):
+def _solve_fp(q: Quantizer, max_val, min_val, jitted: bool):
     p = q.params
     if q.zero_point:
-        scales = (max_val - min_val) / (2.0 * p.max_norm)
+        scales = _div(max_val - min_val, 2.0 * p.max_norm, jitted)
         zeros = (max_val + min_val) / 2.0
     else:
-        scales = max_val / p.max_norm
+        scales = _div(max_val, p.max_norm, jitted)
         zeros = torch.zeros_like(scales)
     return scales, zeros
 
@@ -134,27 +141,31 @@ def fake_quantize_blocked(q: Quantizer, xb, scales, zeros):
     return ((qv - zeros) * scales).to(xb.dtype)
 
 
-def find_params_blocked(q: Quantizer, xb, axes):
-    """Solve (scales, zeros) for an already-blocked array; reduce over ``axes``."""
+def find_params_blocked(q: Quantizer, xb, axes, jitted: bool = False):
+    """Solve (scales, zeros) for an already-blocked array; reduce over
+    ``axes``. ``jitted`` rounds the scales as the JAX package's jitted
+    callers do (``quantize_dequant``, GPTQ); the default, as its eager ones
+    (RTN's ``quantize_dequant_with_params``, ``quantize_pack``)."""
     _check_ported(q)
     max_val, min_val = _minmax(q, xb, axes)
-    scales, zeros = _SOLVERS[q.qtype](q, max_val, min_val)
+    scales, zeros = _SOLVERS[q.qtype](q, max_val, min_val, jitted)
     return torch.clamp_min(scales, SCALE_EPS), zeros
 
 
-def find_params(q: Quantizer, x):
+def find_params(q: Quantizer, x, jitted: bool = False):
     """Per-group (scales, zeros) of raw ``x`` (blocked internally): shapes
     ``(N, G, 1)`` for an (N, C) weight with row-wise groups; scalars for
-    per-tensor quantizers; (None, None) for the dummy quantizer."""
+    per-tensor quantizers; (None, None) for the dummy quantizer. ``jitted``
+    as for :func:`find_params_blocked`."""
     if q.qtype == "dummy":
         return None, None
     xb, meta, axes = block_for(q, x)
     if meta is None:
         _check_ported(q)
         max_val, min_val = _minmax(q, xb, None)
-        scales, zeros = _SOLVERS[q.qtype](q, max_val, min_val)
+        scales, zeros = _SOLVERS[q.qtype](q, max_val, min_val, jitted)
         return torch.clamp_min(scales, SCALE_EPS), zeros
-    return find_params_blocked(q, xb, axes)
+    return find_params_blocked(q, xb, axes, jitted)
 
 
 def block_for(q: Quantizer, x) -> tuple[torch.Tensor, Optional[BlockMeta], Optional[int]]:
@@ -167,20 +178,26 @@ def block_for(q: Quantizer, x) -> tuple[torch.Tensor, Optional[BlockMeta], Optio
     return xb, meta, axes
 
 
-def quantize_dequant_with_params(q: Quantizer, x):
-    """Block -> solve params -> quantize-dequantize -> unblock; also
-    returns the solved params."""
+def _qdq(q: Quantizer, x, jitted: bool):
     if q.qtype == "dummy":
         return x, (None, None)
     xb, meta, axes = block_for(q, x)
-    scales, zeros = find_params_blocked(q, xb, axes)
+    scales, zeros = find_params_blocked(q, xb, axes, jitted)
     x_dq = fake_quantize_blocked(q, xb, scales, zeros)
     if meta is not None:
         x_dq = unblock(x_dq, meta)
     return x_dq, (scales, zeros)
 
 
+def quantize_dequant_with_params(q: Quantizer, x):
+    """Block -> solve params -> quantize-dequantize -> unblock; also
+    returns the solved params. Eager rounding, as the JAX function (RTN
+    calls it outside ``jit``)."""
+    return _qdq(q, x, jitted=False)
+
+
 def quantize_dequant(q: Quantizer, x):
     """Full fake quantization with the group statistics solved per call
-    (dynamic activation quantization)."""
-    return quantize_dequant_with_params(q, x)[0]
+    (dynamic activation quantization). Jitted rounding, as the JAX
+    function, which is ``@jax.jit``."""
+    return _qdq(q, x, jitted=True)[0]

@@ -36,6 +36,7 @@ from llm_compressor_tpu.engine import kvcache as jkv
 from llm_compressor_tpu.engine.generate import _sample as j_sample
 from llm_compressor_tpu.engine.generate import decode_step as j_step
 from llm_compressor_tpu.engine.generate import generate as j_generate
+from llm_compressor_tpu.engine.generate import generate_text as j_generate_text
 from llm_compressor_tpu.qformats import build_quant_config as jbuild
 from llm_compressor_tpu_torch import engine as te
 from llm_compressor_tpu_torch import models as tm
@@ -327,6 +328,54 @@ def test_generate_eos_matches_jax(wo_runs, quantized_kv):
     got = te.generate(r["tp"], r["tcfg"], r["toks"], qcfg=r["tq"], **kw)
     assert want.shape[1] < T + N_STEPS
     np.testing.assert_array_equal(got, want)
+
+
+def test_generate_max_len(wo_runs, monkeypatch):
+    """``max_len`` sizes the cache and changes no token."""
+    r = wo_runs
+    sizes = []
+
+    def recording(*args, **kw):
+        cache = tkv.init_cache(*args, **kw)
+        sizes.append(cache.max_len)
+        return cache
+
+    monkeypatch.setattr(tgen, "init_cache", recording)
+    got = te.generate(r["tp"], r["tcfg"], r["toks"], max_new_tokens=N_STEPS, qcfg=r["tq"],
+                      max_len=MAX_LEN)
+    np.testing.assert_array_equal(got, r["t_gen"])
+    te.generate(r["tp"], r["tcfg"], r["toks"], max_new_tokens=N_STEPS, qcfg=r["tq"])
+    assert sizes == [MAX_LEN, T + N_STEPS]
+
+
+class ByteTokenizer:
+    """A byte-level stand-in for a HF tokenizer: UTF-8 bytes in, one
+    character per id out."""
+    eos_token_id = 3
+
+    def encode(self, text):
+        return list(text.encode())
+
+    def decode(self, ids, skip_special_tokens=True):
+        return "".join(chr(i) for i in ids)
+
+
+@pytest.mark.parametrize("template", [True, False])
+def test_generate_text_equals_jax(wo_runs, template):
+    r = wo_runs
+    kw = dict(max_new_tokens=N_STEPS, use_chat_template=template)
+    want = j_generate_text(r["jp"], r["jcfg"], ByteTokenizer(), "Name a colour.", qcfg=r["jq"],
+                           **kw)
+    got = te.generate_text(r["tp"], r["tcfg"], ByteTokenizer(), "Name a colour.", qcfg=r["tq"],
+                           **kw)
+    assert got == want and len(got) > 0
+
+
+def test_generate_text_speculative_raises(wo_runs):
+    r = wo_runs
+    with pytest.raises(NotImplementedError, match="queue A item 8"):
+        te.generate_text(r["tp"], r["tcfg"], ByteTokenizer(), "x", qcfg=r["tq"],
+                         speculative=True)
 
 
 def test_sampling_is_seeded(wo_runs):

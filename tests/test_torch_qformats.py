@@ -3,7 +3,11 @@
 Tolerance: none. Packing, scales and fake quantization run the same f32
 operations in the same order (true division by the group scale, round half
 to even, clamp at +-qmax), so codes, scales and dequantized values are
-bitwise equal to eager JAX. fp8 codes are compared as their uint8 bytes.
+bitwise equal to JAX. fp8 codes are compared as their uint8 bytes. The
+scale solvers round as the JAX function they mirror runs: divided by the
+constant where it runs eager (``quantize_dequant_with_params``,
+``quantize_pack``), times its f32 reciprocal where it runs under
+``jax.jit`` (``quantize_dequant``), as XLA rewrites that division.
 
 One exception, a fault of the reference: on the CPU backend JAX's
 ``exp2`` is not exact at some integers (2**-13, 2**13, 2**15, ... come out
@@ -94,6 +98,22 @@ def test_quantize_dequant_bitwise(spec, shape):
     b, (sb, zb) = t_qdq(tq.parse_qspec(spec), torch.from_numpy(x))
     np.testing.assert_array_equal(np.asarray(a), b.numpy())
     np.testing.assert_array_equal(np.asarray(sa), sb.numpy())
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+@pytest.mark.parametrize("spec", ["int8-g[-1]-rw", "int4-g[128]-rw", "int4-g[128]-zp-rw",
+                                  "int8-g[128]-rw", "fp8_e4m3-g[128]-rw"])
+def test_quantize_dequant_jit_bitwise(spec, dtype):
+    """The port's ``quantize_dequant`` against the jitted JAX one
+    (``@jax.jit``) on 512 x 2048 rows; eager rounding would put many group
+    scales one f32 ulp off (ROADMAP C1)."""
+    x = jnp.asarray(_x((512, 2048), seed=5)).astype(dtype)
+    a = np.asarray(jq.quantize_dequant(jq.parse_qspec(spec), x).astype(jnp.float32))
+    xt = torch.from_numpy(np.asarray(x.astype(jnp.float32))).to(
+        torch.float32 if dtype == np.float32 else torch.bfloat16)
+    b = tq.quantize_dequant(tq.parse_qspec(spec), xt)
+    assert b.dtype == xt.dtype
+    np.testing.assert_array_equal(a, b.float().numpy())
 
 
 @pytest.mark.parametrize("spec", ["int4-g[128]-rw", "int8-g[-1]-rw", "int8-g[-2]-cw",

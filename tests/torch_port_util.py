@@ -1,11 +1,22 @@
 """Helpers shared by the ``test_torch_*`` parity tests: hand the JAX
-package's params over to the port as numpy, and cap torch's threads."""
+package's params over to the port as numpy, cap torch's threads, and hold
+the port's GPTQ chain against the JAX package's functions, teacher-forced."""
 
+import contextlib
+import importlib
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from llm_compressor_tpu.algorithms import common as jcommon
+from llm_compressor_tpu.algorithms import obs as jobs
+from llm_compressor_tpu.capture import pipeline as jpipe
+from llm_compressor_tpu.models import layer_ops as j_layer_ops
 from llm_compressor_tpu.qformats.qtensor import QTensor as JQTensor
+from llm_compressor_tpu_torch.capture import pipeline as tpipe
 
 
 def jax_qspec(q) -> str:
@@ -42,3 +53,134 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
+
+
+def codes_of(Q, s, z, g):
+    """Integer codes of a fake-quantized (N, C) weight: round(Q / s + z)
+    per group of g columns."""
+    N, C = Q.shape
+    return np.round(Q.reshape(N, C // g, g) / s + z).reshape(N, C)
+
+
+def check_codes(tc, jc, min_equal=0.999):
+    """GPTQ's codes on identical W and H: at least ``min_equal`` of them
+    equal, the rest one step apart (the Cholesky factors and the
+    error-feedback products may differ in the last float32 bits)."""
+    diff = np.abs(tc - jc)
+    assert diff.max() <= 1, diff.max()
+    assert (diff == 0).mean() >= min_equal, (diff == 0).mean()
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+@contextlib.contextmanager
+def recording_gptq_chain():
+    """Within the block, every Hessian pass of the port's GPTQ driver
+    appends a record: the layer, its taps, the layer's input hidden
+    states, positions and chunk, the layer params as they stand, and the
+    Hessians."""
+    tgptq = importlib.import_module("llm_compressor_tpu_torch.algorithms.gptq")
+    calls = []
+
+    def recording(ctx, lp, i, taps, ops=None):
+        H = tpipe.accumulate_hessian(ctx, lp, i, taps, ops)
+        calls.append(dict(layer=i, taps=tuple(taps), hidden=ctx.hidden.clone(),
+                          positions=ctx.positions.clone(), chunk=ctx.chunk, params=_clone(lp),
+                          H={k: v.clone() for k, v in H.items()}))
+        return H
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tgptq, "accumulate_hessian", recording)
+        yield calls
+
+
+def _rel_err(got, want):
+    want = np.asarray(want)
+    return float(np.abs(np.asarray(got) - want).max() / np.abs(want).max())
+
+
+def check_gptq_chain(calls, jcfg, jqcfg, gptq_w, scale_book, hidden0, hidden_tol=1e-3):
+    """The port's GPTQ chain, teacher-forced, against the JAX package's
+    functions. ``calls`` from ``recording_gptq_chain``, ``gptq_w`` the
+    port's GPTQ weights by (layer, slot), ``scale_book`` its (scales,
+    zeros), ``hidden0`` JAX's ``capture_layer0`` hidden states. Per layer i:
+
+    * its input: layer 0's within 1e-5 of the largest entry of ``hidden0``
+      (no quantizer precedes it); layer i's within
+      ``hidden_tol`` of the largest entry of JAX's ``advance`` of layer
+      i - 1's recorded input through layer i - 1 with every linear set to
+      the port's GPTQ weight;
+    * the Hessian passes, one per sequential group of JAX's
+      ``sequential_groups`` in its order, each against JAX's
+      ``accumulate_hessian`` on the layer's recorded input with the weights
+      the layer had before its GPTQ and the earlier groups' linears set to
+      the port's GPTQ weights: ``attn_in``, which no activation quantizer
+      of the layer precedes, within 1e-5 of the largest entry, the others
+      within 1e-3 (``test_capture_and_hessians_w4a8``'s bounds);
+    * each linear against JAX's GPTQ core on the same weight and the
+      port's Hessian: scale-book entry bitwise, codes by ``check_codes``.
+
+    Returns the largest relative errors seen, by kind."""
+    to_jax = lambda tree: jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()), tree)
+    groups = jcommon.sequential_groups(jcfg)
+    first = {}
+    for c in calls:
+        first.setdefault(c["layer"], c)
+    assert sorted(first) == list(range(jcfg.num_layers))
+    worst = {"hidden": 0.0, "attn_in": 0.0, "other taps": 0.0}
+
+    def ctx_of(c, hidden):
+        return jpipe.CalibContext(cfg=jcfg, hidden=jnp.asarray(hidden.numpy()),
+                                  positions=jnp.asarray(c["positions"].numpy()),
+                                  chunk=c["chunk"])
+
+    def with_gptq(lp, i, slots):
+        for s in slots:
+            jcommon.set_weight(lp, s, jnp.asarray(gptq_w[(i, s)].numpy()))
+        return lp
+
+    for i in range(jcfg.num_layers):
+        c0 = first[i]
+        if i == 0:
+            err = _rel_err(c0["hidden"].numpy(), hidden0)
+            assert err <= 1e-5, err
+            worst["hidden"] = err
+        else:
+            prev = first[i - 1]
+            ctx = ctx_of(prev, prev["hidden"])
+            jpipe.advance(ctx, with_gptq(to_jax(prev["params"]), i - 1,
+                                         [s for g in groups for s in g]),
+                          i - 1, j_layer_ops(jcfg, jqcfg, i - 1))
+            err = _rel_err(c0["hidden"].numpy(), ctx.hidden)
+            assert err <= hidden_tol, (i, err)
+            worst["hidden"] = max(worst["hidden"], err)
+        mine = [c for c in calls if c["layer"] == i]
+        assert [c["taps"] for c in mine] == [(jpipe.SLOT_TAP[g[0]],) for g in groups], i
+        done = []
+        for c, group in zip(mine, groups):
+            assert torch.equal(c["hidden"], c0["hidden"]), (i, group)
+            tap = c["taps"][0]
+            lp = with_gptq(to_jax(c0["params"]), i, done)
+            jH, _ = jpipe.accumulate_hessian(ctx_of(c0, c0["hidden"]), lp, i, (tap,),
+                                             j_layer_ops(jcfg, jqcfg, i))
+            err = _rel_err(c["H"][tap].numpy(), jH[tap])
+            kind = "attn_in" if tap == "attn_in" else "other taps"
+            assert err <= (1e-5 if tap == "attn_in" else 1e-3), (i, tap, err)
+            worst[kind] = max(worst[kind], err)
+            for s in group:
+                W = jcommon.get_weight(c0["params"], s)
+                jQ, js, jz = jobs.gptq_update_with_params(
+                    jnp.asarray(W.numpy()), jnp.asarray(c["H"][tap].numpy()),
+                    jcommon.weight_quantizer_for(jcfg, jqcfg, i, s))
+                ts, tz = (v.numpy() for v in scale_book[(i, s)])
+                np.testing.assert_array_equal(ts, np.asarray(js))
+                np.testing.assert_array_equal(tz, np.asarray(jz))
+                g = W.shape[1] // ts.shape[1]
+                check_codes(codes_of(gptq_w[(i, s)].numpy(), ts, tz, g),
+                            codes_of(np.asarray(jQ), ts, tz, g))
+            done += group
+    return worst
