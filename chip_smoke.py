@@ -43,18 +43,27 @@ Phases (each prints a line; any failure exits non-zero):
    logits and argmax tokens differ is reported, and fails nothing;
 5. slices — full-width, full-depth Llama-3.2-1B (random weights from
    ``--seed``): RTN -> pack -> fuse -> stack, prefill 128 prompts of 128
-   tokens into a cache of 256 positions, then 32 greedy decode steps, for
-   two serving configs: W4A8 over an int8 cache (B1-B4), and weight-only
-   zero-point int4-g128 with an int8-g128 head over a bf16 cache (B5, 65
-   launches per decode step). The W4A8 params, each time after a fresh
-   prefill, also decode in the side-block modes: ``w4a8_two_part`` (B7 and
-   B8, 16 each per step) and ``w4a8_hybrid`` (B6 and B8); every W4A8 slice
-   must launch 48 B1, 16 B2 and 1 B3 per step, and ``w4a8`` 16 B4 and none
-   of B6-B8. Each slice's counts are set to 0 just before it and read just
-   after; each of its kernels must have launched. Two more
-   decode steps run under ``torch.profiler`` for the device time by kernel
-   and the idle share; for ``w4a8``, one more prefill too, its device time
-   by kernel family (B2, B3, attention, bf16 matmul, other). The
+   tokens into a cache of 256 positions, then 32 greedy decode steps as
+   one CUDA graph (``engine/graph.py``), for two serving configs: W4A8 over
+   an int8 cache (B1-B4), and weight-only zero-point int4-g128 with an
+   int8-g128 head over a bf16 cache (B5, 65 launches per decode step). The
+   W4A8 params, each time after a fresh prefill, also decode in the
+   side-block modes: ``w4a8_two_part`` (B7 and B8, 16 each per step) and
+   ``w4a8_hybrid`` (B6 and B8); every W4A8 slice must launch 48 B1, 16 B2
+   and 1 B3 per step, and ``w4a8`` 16 B4 and none of B6-B8. With the
+   counts set to 0 just before, each slice prefills (TTFT) and decodes
+   three times from that prefilled state on one cache (counts read just
+   after; each of its kernels must have launched): the first call runs
+   eagerly (its seconds), the second captures the graph (its seconds),
+   the third replays it (decode tok/s, launches per step). The eager loop
+   then decodes from a copy of the same prefilled cache (its tok/s):
+   tokens, int8 cache codes, scales and lengths of all three calls must
+   equal its own bitwise, and their launches its launches. One more
+   replay runs under ``torch.profiler`` for the device time by kernel and
+   the idle share, and its traced launches of each kernel must equal what
+   the replay added to the counters;
+   for ``w4a8``, one more prefill too, its device time by kernel family
+   (B2, B3, attention, bf16 matmul, other). The
    weight-only params then repeat the prefill
    comparison above at full depth (TTFT both ways, reported), and serve one
    ``generate`` call with top-k sampling from a fixed seed, twice, which
@@ -80,16 +89,37 @@ Phases (each prints a line; any failure exits non-zero):
    give ``generate``'s new ids. Seconds of each save and load, bytes on
    disk, peak memory; both directories live under ``$TMPDIR`` and are
    removed.
+8. serving_engine — on the ``w4a8`` slice's params (it runs after phase 6,
+   before the weight-only slice), full width and depth, int8 KV cache
+   (B1-B4): continuous batching, 32 slots, ``max_len`` 512, chunks of 128,
+   96 requests with prompts of 16-384 tokens from ``--seed``, 32 greedy
+   new tokens each, one request ending on an EOS id that it reaches; the
+   decode step as one CUDA graph and eagerly: ids bitwise equal, launches
+   as the steps and chunks ask; requests/s, tok/s, ms per decode step and
+   per chunk prefill, peak memory, and how many of 8 requests equal
+   ``generate`` alone. Then speculative decoding: 16 prompts, a 16-token
+   motif from ``--seed`` repeated 8 times, k_draft 4, 8 rounds a dispatch,
+   64 new tokens: three dispatches of rounds through the graph path
+   (eager, capture, replay) and eagerly, history, accept counts and cache
+   bitwise equal after each; ``generate_speculative`` with
+   ``accept_floor=0``, one call with graphs and one eager (ids and stats
+   equal; tok/s and added peak memory of each) against greedy decode of
+   the same prompts (tok/s at its first call, eager, and replayed; tokens
+   that agree); then random prompts with the default floor and with a
+   floor above k_draft, which must fall back. The 8 ``generate`` calls are
+   each timed with the graph and with ``graph=False`` (ids equal).
 The ``kernels`` JSON object, nvidia-smi's name and power limit and the
-slices' numbers (TTFT, decode tok/s, peak memory; calibration seconds for
-``spinquant_gptq``) come on the three lines before the last; the last is
-``{"ok": true, "device": {...}}``.
+slices' and serving engine's numbers (TTFT, decode tok/s over the graph,
+first-call and capture seconds, the eager loop's tok/s, peak memory; calibration seconds
+for ``spinquant_gptq``) come on the three lines before the last; the last
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -142,10 +172,10 @@ SLICE_OF = {k: ("w4a8", "counts") for k in TPU_KERNELS} | {
     "B9_w4a8_actq": ("actq_entry", "counts"),
     "B10_hadamard": ("spinquant_gptq", "calib_counts")}
 LAUNCHES_FROM = {
-    "w4a8": "slice w4a8: prefill + 32 decode steps",
-    "weight_only": "slice weight_only: prefill + 32 decode steps",
-    "w4a8_hybrid": "slice w4a8_hybrid: prefill + 32 decode steps",
-    "w4a8_two_part": "slice w4a8_two_part: prefill + 32 decode steps",
+    "w4a8": "slice w4a8: prefill + 3 calls of 32 decode steps (eager, capture, replay)",
+    "weight_only": "slice weight_only: prefill + 3 calls of 32 decode steps",
+    "w4a8_hybrid": "slice w4a8_hybrid: prefill + 3 calls of 32 decode steps",
+    "w4a8_two_part": "slice w4a8_two_part: prefill + 3 calls of 32 decode steps",
     "actq_entry": "entry point w4a8_matmul(..., act_inside=True): the w4a8 slice's int8 "
                   "head and layer-0 qkv, M = 128",
     "spinquant_gptq": "slice spinquant_gptq: calibration"}
@@ -830,6 +860,8 @@ def plain_kernels():
         (dm, "dequant_matmul_codes", dm.dequant_matmul_plain),
         (hd, "hadamard_transform", hd.hadamard_transform_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in plain]
+    # the decodes under the switch run eagerly (graph=False): a graph would
+    # bake in the kernels it captured
     for mod, name, fn in plain:
         setattr(mod, name, fn)
     try:
@@ -846,30 +878,129 @@ def new_cache(cfg, batch, max_len, serving):
                       quantized=serving[2])
 
 
+def _host_cache(cache):
+    return {n: None if getattr(cache, n) is None else getattr(cache, n).cpu()
+            for n in ("k", "v", "k_scale", "v_scale", "lengths")}
+
+
+def _zero_cache(cache) -> None:
+    for n in ("k", "v", "k_scale", "v_scale", "lengths"):
+        if getattr(cache, n) is not None:
+            getattr(cache, n).zero_()
+
+
+def _cache_from_host(host):
+    from llm_compressor_tpu_torch.engine import KVCache
+
+    return KVCache(**{n: None if a is None else a.cuda() for n, a in host.items()})
+
+
+def _same_cache(a, b) -> bool:
+    return all((getattr(a, n) is None and getattr(b, n) is None)
+               or torch.equal(getattr(a, n), getattr(b, n))
+               for n in ("k", "v", "k_scale", "v_scale", "lengths"))
+
+
+def _timed_decode(params, cfg, qcfg, tok, cache, steps, attention, graph):
+    """``decode_greedy_steps`` -> (tokens, host ms ended by ``synchronize``)."""
+    from llm_compressor_tpu_torch.engine import decode_greedy_steps
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _ = decode_greedy_steps(params, tok, cache, n=steps, cfg=cfg, qcfg=qcfg,
+                                 attention=attention, graph=graph)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _restore_cache(cache, host) -> None:
+    """``cache`` set back in place (its buffers, so its graphs, kept) to a
+    host copy (``_host_cache``)."""
+    for n, a in host.items():
+        if a is not None:
+            getattr(cache, n).copy_(a)
+
+
+def _key_us(params, cache) -> float:
+    """Host microseconds of one graph key (``engine/graph.py``: the address,
+    shape, strides and dtype of every params and cache buffer), the work
+    each graphed call adds before its replay; the mean of 100."""
+    from llm_compressor_tpu_torch.engine.graph import _signature
+
+    t0 = time.perf_counter()
+    for _ in range(100):
+        _signature((cache, params))
+    return (time.perf_counter() - t0) / 100 * 1e6
+
+
 def run_slice(params, cfg, qcfg, serving, batch, prompt, steps, max_len, seed,
               attention="append"):
-    """Prefill then ``steps`` greedy steps in the ``attention`` mode; also
-    returns the launch counts read between the two (the counters run on
-    from wherever they were)."""
+    """Prefill ``batch`` random prompts of ``prompt`` tokens (from ``seed``)
+    into a new cache (TTFT: the second prefill, with the cache zeroed, the
+    launch counts set to 0 and the peak memory reset just before), then
+    ``steps`` greedy steps in the ``attention`` mode, three times from that
+    prefilled state (set back in place between calls): the first call on
+    the cache runs eagerly (``first_call_s``), the second captures the
+    steps as one CUDA graph (``capture_s``), the third replays it (decode
+    ms, peak memory; ``replay_counts`` are its launches; ``counts`` those of
+    the prefill and the three calls). Then the eager loop (``graph=False``) from a copy of the same
+    prefilled state must give the graph's tokens, cache codes, scales and
+    lengths bitwise, with the launches of one replay (``loop_ms``); so must
+    the first call and the capture's."""
     from llm_compressor_tpu_torch import kernels
-    from llm_compressor_tpu_torch.engine import decode_greedy_steps, prefill
+    from llm_compressor_tpu_torch.engine import prefill
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen, device="cuda",
                          dtype=torch.int32)
     cache = new_cache(cfg, batch, max_len, serving)
+    prefill(params, toks, cache, cfg=cfg, qcfg=qcfg)
+    # as new again: the float attention of prefill quantizes K and V per
+    # channel over the whole window (as the JAX package does), so rows past
+    # the prompt would change its numbers
+    _zero_cache(cache)
+    allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = prefill(params, toks, cache, cfg=cfg, qcfg=qcfg)
     tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
     torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    after_prefill = kernels.launch_counts()
-    out, cache = decode_greedy_steps(params, tok, cache, n=steps, cfg=cfg, qcfg=qcfg,
-                                     attention=attention)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    return logits, out, cache, (t1 - t0) * 1e3, (t2 - t1) * 1e3, after_prefill
+    ttft_ms = (time.perf_counter() - t0) * 1e3
+    start = _host_cache(cache)
+    calls = []
+    for captures in (0, 1, 1):
+        _restore_cache(cache, start)
+        before = kernels.launch_counts()
+        out, ms = _timed_decode(params, cfg, qcfg, tok, cache, steps, attention, True)
+        if cache.graphs.captures != captures:
+            raise AssertionError(f"{attention} decode: {cache.graphs.captures} captures after "
+                                 f"call {len(calls) + 1} on one cache, not {captures}")
+        after = kernels.launch_counts()
+        calls.append((out, ms, {k: after[k] - before[k] for k in after}, _host_cache(cache)))
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    loop_cache = _cache_from_host(start)
+    kernels.reset_counts()
+    loop_out, loop_ms = _timed_decode(params, cfg, qcfg, tok, loop_cache, steps, attention,
+                                      False)
+    loop_counts = kernels.launch_counts()
+    loop_host = _host_cache(loop_cache)
+    for name, (o, _, c, host) in zip(("first call", "capture", "replay"), calls):
+        if not torch.equal(o, loop_out) or any(
+                not (a is None or torch.equal(a, loop_host[n])) for n, a in host.items()):
+            raise AssertionError(f"{attention} decode: the {name}'s tokens or cache differ "
+                                 "from the eager loop's")
+        if c != loop_counts:
+            raise AssertionError(f"{attention} decode: the {name} counted {c}, the eager "
+                                 f"loop launched {loop_counts}")
+    del loop_cache
+    return {"logits": logits, "out": calls[2][0], "cache": cache, "ttft_ms": ttft_ms,
+            "decode_ms": calls[2][1], "first_call_s": calls[0][1] / 1e3,
+            "capture_s": calls[1][1] / 1e3, "loop_ms": loop_ms, "counts": counts,
+            "replay_counts": calls[2][2], "peak": peak, "allocated_before": allocated,
+            "key_us": _key_us(params, cache)}
 
 
 def _side_block_decode(params, cfg, qcfg, cache, tok, steps, attention, feed):
@@ -938,7 +1069,7 @@ def check_reduced_depth(seed: int, serving, kernel_names, gap_tol: float = 0.1, 
         for i in range(steps):
             if feed is not None:
                 tok = feed[i]
-            logits, cache = decode_step(params, tok, cache, cfg=cfg, qcfg=qcfg)
+            logits, cache = decode_step(params, tok, cache, cfg=cfg, qcfg=qcfg, graph=False)
             all_logits.append(logits)
             tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
         return all_logits, cache
@@ -1201,15 +1332,44 @@ def profile_calibration_pass(info):
             "device_ms_other": round(sum(v for _, v in top[8:]), 3)}
 
 
-def profile_decode(params, cfg, qcfg, cache, token, steps: int = 2, attention="append"):
+# the first kernel each counted wrapper launches, as a trace names it, and
+# the counters of the wrappers that launch it (a split-K reduce, or B9's
+# act quantizer, is a further launch of the same counted call)
+TRACED_KERNELS = {"w4a8_mma_kernel": ("w4a8_stacked", "w4a8_flat", "w4a8_actq"),
+                  "w4a8_gateup_kernel": ("w4a8_gateup",),
+                  "decode_attention_append_kernel": ("decode_attention_append",),
+                  "decode_attention_stats_kernel": ("decode_attention_stats",),
+                  "decode_attention_kernel": ("decode_attention",),
+                  "fresh_write_kernel": ("fresh_write",),
+                  "dequant_matmul_kernel": ("dequant_matmul",),
+                  "hadamard_kernel": ("hadamard",)}
+
+
+def _traced_launches(names) -> dict:
+    """Kernel launches of a trace by :data:`TRACED_KERNELS` name (found in
+    the demangled or the mangled name; none of those names holds another)."""
+    out = dict.fromkeys(TRACED_KERNELS, 0)
+    for n in names:
+        for k in TRACED_KERNELS:
+            out[k] += k in n
+    return out
+
+
+def profile_decode(params, cfg, qcfg, cache, token, steps: int, attention="append"):
     """Device time per decode step by kernel class, and the device's idle
-    share of the wall-clock window, from a ``torch.profiler`` trace of
-    ``steps`` greedy steps (the profiler's own host cost is inside the
-    window, so the idle share reads high)."""
+    share of the wall-clock window, from a ``torch.profiler`` trace of one
+    replay of the ``steps``-step graph already captured for this cache
+    (none may be captured inside the window). The trace's launches of each
+    kernel (``launches_traced``) must equal what the replay added to the
+    launch counters. Where the trace holds no kernel of the graph, "not
+    measured"."""
     from torch.profiler import ProfilerActivity, profile
 
+    from llm_compressor_tpu_torch import kernels
     from llm_compressor_tpu_torch.engine import decode_greedy_steps
 
+    captures = cache.graphs.captures
+    before = kernels.launch_counts()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1217,22 +1377,32 @@ def profile_decode(params, cfg, qcfg, cache, token, steps: int = 2, attention="a
                             attention=attention)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans, by_class = [], {}
+    after = kernels.launch_counts()
+    if cache.graphs.captures != captures:
+        raise AssertionError("the profiled decode captured a graph")
+    spans, by_class, names = [], {}, []
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         a, b = e.time_range.start, e.time_range.end
         spans.append((a, b))
+        names.append(e.name)
         k = _kernel_class(e.name)
         by_class[k] = by_class.get(k, 0.0) + (b - a) / 1e3 / steps
     busy_us = _union_us(spans)
-    if not spans:
+    if not any(k != "other" for k in by_class):
         return {"device_ms_per_step": "not measured", "idle_share": "not measured",
-                "wall_ms_per_step": wall_ms / steps}
+                "launches_traced": "not measured", "wall_ms_per_step": wall_ms / steps}
+    traced = _traced_launches(names)
+    counted = {k: sum(after[c] - before[c] for c in cs) for k, cs in TRACED_KERNELS.items()}
+    if traced != counted:
+        raise AssertionError(f"{attention} decode: the replay's trace launched {traced}, its "
+                             f"counters added {counted}")
     return {"wall_ms_per_step": wall_ms / steps,
             "device_busy_ms_per_step": busy_us / 1e3 / steps,
             "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
-            "device_ms_per_step": {k: round(v, 4) for k, v in sorted(by_class.items())}}
+            "device_ms_per_step": {k: round(v, 4) for k, v in sorted(by_class.items())},
+            "launches_traced": {k: v for k, v in traced.items() if v}}
 
 
 ATTENTION_MARK = "chip_smoke.prefill_attention"
@@ -1338,16 +1508,9 @@ def phase_slice(seed: int, serving, kernel_names, model=None, attention="append"
     from llm_compressor_tpu_torch import kernels
 
     cfg, qcfg, params = model or build_model(LAYERS, seed, serving)
-    # warm the allocator, cuBLAS and the kernel libraries at a small batch
-    run_slice(params, cfg, qcfg, serving, batch=8, prompt=16, steps=2, max_len=64, seed=seed,
-              attention=attention)
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_counts()
-    logits, out, cache, ttft_ms, dec_ms, after_prefill = run_slice(
-        params, cfg, qcfg, serving, batch=BATCH, prompt=PROMPT, steps=STEPS, max_len=MAX_LEN,
-        seed=seed, attention=attention)
-    counts = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    r = run_slice(params, cfg, qcfg, serving, batch=BATCH, prompt=PROMPT, steps=STEPS,
+                  max_len=MAX_LEN, seed=seed, attention=attention)
+    logits, out, cache, counts = r["logits"], r["out"], r["cache"], r["counts"]
     if not bool(torch.isfinite(logits).all()) or logits.shape != (BATCH, cfg.vocab_size):
         raise AssertionError("prefill logits are not finite (batch, vocab)")
     if out.shape != (BATCH, STEPS) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
@@ -1361,16 +1524,19 @@ def phase_slice(seed: int, serving, kernel_names, model=None, attention="append"
     stray = {k: v for k, v in counts.items() if v and k not in used}
     if stray:
         raise AssertionError(f"kernels of another path launched: {stray}")
-    measured = {k: (counts[k] - after_prefill[k]) / STEPS for k in sorted(used)}
+    measured = {k: r["replay_counts"][k] / STEPS for k in sorted(used)}
     if per_step is not None and any(measured[k] != v for k, v in per_step.items()):
         raise AssertionError(f"launches per decode step {measured}, not {per_step}")
-    per_step = measured
-    prof = profile_decode(params, cfg, qcfg, cache, out[:, -1:], attention=attention)
-    del cache
+    prof = profile_decode(params, cfg, qcfg, cache, out[:, -1:], STEPS, attention=attention)
+    del cache, r["cache"]
     return {"cfg": cfg, "qcfg": qcfg, "params": params, "counts": counts,
-            "per_step": per_step, "ttft_ms": ttft_ms, "decode_ms": dec_ms,
-            "decode_tok_s": BATCH * STEPS / (dec_ms / 1e3),
-            "peak_mem_gib": peak / 2 ** 30, "profile": prof}
+            "per_step": measured, "ttft_ms": r["ttft_ms"], "decode_ms": r["decode_ms"],
+            "decode_tok_s": BATCH * STEPS / (r["decode_ms"] / 1e3),
+            "capture_s": r["capture_s"], "first_call_s": r["first_call_s"],
+            "key_us": r["key_us"],
+            "loop_decode_tok_s": BATCH * STEPS / (r["loop_ms"] / 1e3),
+            "peak_mem_gib": r["peak"] / 2 ** 30,
+            "allocated_before_gib": r["allocated_before"] / 2 ** 30, "profile": prof}
 
 
 def check_generate(params, cfg, qcfg, seed: int):
@@ -1394,9 +1560,11 @@ def check_generate(params, cfg, qcfg, seed: int):
 def _slice_numbers(s):
     prof = s["profile"]
     out = {"ttft_ms": s["ttft_ms"], "decode_tok_s": s["decode_tok_s"],
-           "peak_mem_gib": s["peak_mem_gib"],
+           "first_call_s": s["first_call_s"], "capture_s": s["capture_s"],
+           "key_us": s["key_us"], "loop_decode_tok_s": s["loop_decode_tok_s"],
+           "peak_mem_gib": s["peak_mem_gib"], "allocated_before_gib": s["allocated_before_gib"],
            "device_busy_ms_per_step": prof.get("device_busy_ms_per_step"),
-           "wall_ms_per_step": prof["wall_ms_per_step"]}
+           "wall_ms_per_step": prof["wall_ms_per_step"], "idle_share": prof["idle_share"]}
     if "prefill_profile" in s:
         out["prefill_device_ms_by_family"] = s["prefill_profile"].get("device_ms_by_family")
     if "prefill_reduction" in s:
@@ -1555,19 +1723,18 @@ def serve_checkpointed(params, cfg, qcfg, seed):
                                  for k, v in lp.items()} for lp in params["layers"]])
     stacked = stack_model(fuse_model(copy, cfg, qcfg))
     del copy
-    kernels.reset_counts()
-    logits, out, cache, _, _, after_prefill = run_slice(
-        stacked, cfg, qcfg, W4A8, CKPT_BATCH, CKPT_PROMPT, CKPT_STEPS, CKPT_MAX_LEN, seed)
-    counts = kernels.launch_counts()
+    r = run_slice(stacked, cfg, qcfg, W4A8, CKPT_BATCH, CKPT_PROMPT, CKPT_STEPS, CKPT_MAX_LEN,
+                  seed)
+    counts = r["counts"]
     used = {COUNTER_OF[k] for k in W4A8_KERNELS}
     if any((v > 0) != (k in used) for k, v in counts.items()):
         raise AssertionError(f"checkpointed model: launches {counts}, not those of B1-B4")
-    per_step = {k: (counts[k] - after_prefill[k]) / CKPT_STEPS for k in sorted(used)}
+    per_step = {k: r["replay_counts"][k] / CKPT_STEPS for k in sorted(used)}
     if per_step != {k: float(v) for k, v in sorted(W4A8_APPEND_PER_STEP.items())}:
         raise AssertionError(f"checkpointed model: launches per decode step {per_step}")
-    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
-    host = {"tokens": torch.cat([tok, out], 1).cpu(),
-            **{n: getattr(cache, n).cpu() for n in ("k", "v", "k_scale", "v_scale")}}
+    tok = torch.argmax(r["logits"], -1).to(torch.int32)[:, None]
+    host = {"tokens": torch.cat([tok, r["out"]], 1).cpu(), **_host_cache(r["cache"])}
+    del host["lengths"]
     return stacked, host, counts, per_step
 
 
@@ -1660,6 +1827,322 @@ def phase_checkpoint(seed: int, smi: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the serving engine (continuous batching, speculative decoding)
+# ---------------------------------------------------------------------------
+
+# continuous batching: slots, cache rows, prefill chunk, requests, prompt
+# lengths (inclusive), new tokens per request; the requests whose ids are
+# also decoded alone by ``generate``
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_CHUNK, SERVE_REQUESTS, SERVE_NEW = 32, 512, 128, 96, 32
+SERVE_PROMPTS = (16, 384)
+SERVE_STANDALONE = 8
+# speculative decoding: prompts, motif length and repeats (prompt = motif x
+# repeats), drafts per round, rounds per dispatch, new tokens
+SPEC_BATCH, SPEC_MOTIF, SPEC_REPEAT, SPEC_K, SPEC_ROUNDS, SPEC_NEW = 16, 16, 8, 4, 8, 64
+
+
+def _batcher_run(params, cfg, qcfg, requests, graph: bool):
+    """``requests`` ((prompt, submit kwargs) pairs) through a
+    ``ContinuousBatcher`` (W4A8 over an int8 cache): ``warmup`` (with a
+    graph, the decode step's eager first call and its capture), then
+    ``run`` with the launch counts set to 0 and the peak memory reset just
+    before. Each decode step and
+    each chunk prefill is timed on the host, ended by ``synchronize``."""
+    from llm_compressor_tpu_torch import kernels
+    from llm_compressor_tpu_torch.engine import ContinuousBatcher
+
+    times = {"decode": [], "chunk": [], "on": False}
+
+    def timed(name, fn, *args):
+        if not times["on"]:
+            return fn(*args)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t)
+        return out
+
+    class Timed(ContinuousBatcher):
+        def _decode(self, *args):
+            return timed("decode", super()._decode, *args)
+
+        def _chunk(self, *args):
+            return timed("chunk", super()._chunk, *args)
+
+    eng = Timed(params, cfg, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, qcfg=qcfg,
+                quantized_kv=True, prefill_chunk=SERVE_CHUNK, graph=graph)
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    times["on"] = True
+    for toks, kw in requests:
+        eng.submit(toks, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    res = eng.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    steps, chunks = len(times["decode"]), len(times["chunk"])
+    generated = sum(len(v) for v in res.values())
+    return res, {"wall_s": wall_s, "warmup_s": warmup_s, "requests_per_s": len(res) / wall_s,
+                 "generated_tok_s": generated / wall_s, "generated": generated,
+                 "decode_steps": steps, "chunks": chunks,
+                 "host_ms_per_step": wall_s / steps * 1e3,
+                 "decode_ms_mean": sum(times["decode"]) / steps * 1e3,
+                 "chunk_prefill_ms_mean": sum(times["chunk"]) / chunks * 1e3,
+                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                 "counts": kernels.launch_counts()}
+
+
+def check_batching(cfg, qcfg, params, seed: int):
+    """96 requests, prompts of 16-384 tokens from ``seed``, 32 greedy new
+    tokens each, through a graph batcher and an eager one: ids bitwise
+    equal, the same launches, and B1-B4 launched as the steps and chunks
+    ask (a decode step: 48 B1, 16 B2, 1 B3, 16 B4; a chunk: the same
+    without B4). Request 1 carries an EOS id that it reaches: of the first
+    8 tokens a one-slot eager batcher decodes for it, the one that appears
+    first the latest; that batcher computes each row
+    as the full batcher does (per-token act scales, the same M tiles and
+    split plan). The first 8 requests are also decoded alone by
+    ``generate``; the tokens each agrees for before the first difference
+    are reported (``generate`` prefills the whole prompt at once, the
+    batcher in chunks of 128 rows)."""
+    import numpy as np
+
+    from llm_compressor_tpu_torch.engine import ContinuousBatcher, generate
+
+    rng = np.random.default_rng(seed + 7)
+    lens = rng.integers(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, (t,)).astype(np.int32) for t in lens]
+    probe = ContinuousBatcher(params, cfg, batch_slots=1, max_len=SERVE_MAX_LEN, qcfg=qcfg,
+                              quantized_kv=True, prefill_chunk=SERVE_CHUNK, graph=False)
+    probe.submit(prompts[0], max_new_tokens=8)
+    probe_ids = probe.run()[1].tolist()
+    eos = max(set(probe_ids), key=probe_ids.index)      # the token that comes first latest
+    want_first = probe_ids[:probe_ids.index(eos) + 1]
+    requests = [(t, dict(max_new_tokens=SERVE_NEW, eos_id=eos if i == 0 else None))
+                for i, t in enumerate(prompts)]
+    got, g = _batcher_run(params, cfg, qcfg, requests, graph=True)
+    want, e = _batcher_run(params, cfg, qcfg, requests, graph=False)
+    if set(got) != set(want) or any(not np.array_equal(got[u], want[u]) for u in want):
+        raise AssertionError("batcher: the graph decode's ids differ from the eager decode's")
+    if g["counts"] != e["counts"] or g["decode_steps"] != e["decode_steps"]:
+        raise AssertionError(f"batcher: graph launches {g['counts']}, eager {e['counts']}")
+    if got[1].tolist() != want_first:
+        raise AssertionError(f"batcher: request 1 gave {got[1].tolist()}, not {want_first} "
+                             f"ending on its EOS {eos}")
+    if len(got) != SERVE_REQUESTS or any(len(got[u]) != SERVE_NEW for u in got if u != 1):
+        raise AssertionError("batcher: a request is missing or was cut short")
+    steps, chunks = g["decode_steps"], g["chunks"]
+    want_counts = {"w4a8_stacked": 3 * LAYERS * (steps + chunks),
+                   "w4a8_gateup": LAYERS * (steps + chunks), "w4a8_flat": steps + chunks,
+                   "decode_attention_append": LAYERS * steps}
+    if {k: v for k, v in g["counts"].items() if v} != want_counts:
+        raise AssertionError(f"batcher: launches {g['counts']}, not {want_counts} for {steps} "
+                             f"decode steps and {chunks} chunks")
+    alone, first_calls = [], {"graph": [], "eager": []}
+    for i in range(SERVE_STANDALONE):
+        kw = dict(max_new_tokens=SERVE_NEW, qcfg=qcfg, quantized_kv=True,
+                  eos_id=eos if i == 0 else None)
+        ids, sec, extra = _timed_call(lambda: generate(params, cfg, prompts[i][None], **kw))
+        eager_ids, eager_sec, eager_extra = _timed_call(
+            lambda: generate(params, cfg, prompts[i][None], graph=False, **kw))
+        if not np.array_equal(ids, eager_ids):
+            raise AssertionError(f"generate: request {i + 1}'s ids through the graph differ "
+                                 "from the eager ids")
+        first_calls["graph"].append((sec, extra))
+        first_calls["eager"].append((eager_sec, eager_extra))
+        ids = ids[0, len(prompts[i]):]
+        same = np.asarray(ids[:len(got[i + 1])]) == got[i + 1][:len(ids)]
+        alone.append(int(np.argmin(same)) if not same.all() else len(same))
+    return {"graph": g, "eager": {k: e[k] for k in ("wall_s", "requests_per_s",
+                                                    "generated_tok_s", "host_ms_per_step",
+                                                    "decode_ms_mean")},
+            "eos_request_tokens": len(want_first), "standalone_prefix": alone,
+            "generate_first_call": {k: {"s": [a for a, _ in v], "extra_peak_gib": max(
+                b for _, b in v)} for k, v in first_calls.items()},
+            "prompt_tokens": int(lens.sum())}
+
+
+def _spec_state(params, cfg, qcfg, prompts, Hmax, max_len):
+    """Prefill ``prompts`` into an int8 cache; the device history (prompt,
+    first greedy token) and its lengths."""
+    from llm_compressor_tpu_torch.engine import init_cache, prefill
+
+    B, T = prompts.shape
+    cache = init_cache(cfg.num_layers, B, max_len, cfg.num_kv_heads, cfg.head_dim,
+                       quantized=True, device="cuda")
+    logits, cache = prefill(params, prompts, cache, cfg=cfg, qcfg=qcfg)
+    hist = torch.zeros((B, Hmax), dtype=torch.int32, device="cuda")
+    hist[:, :T] = prompts
+    hist[:, T] = torch.argmax(logits, -1).to(torch.int32)
+    return hist, torch.full((B,), T + 1, dtype=torch.int32, device="cuda"), cache
+
+
+def _greedy_tokens(params, cfg, qcfg, prompts, n, cache):
+    """Plain greedy decode of ``prompts`` (B, T) on the card: prefill into
+    ``cache`` (int8, at least T + n rows, zeroed first), then ``n - 1``
+    steps in one ``decode_greedy_steps`` call (on one cache the first call
+    runs eagerly, the second captures, later ones replay) -> (B, n) ids."""
+    from llm_compressor_tpu_torch.engine import decode_greedy_steps, prefill
+
+    _zero_cache(cache)                  # as new: see run_slice
+    logits, cache = prefill(params, prompts, cache, cfg=cfg, qcfg=qcfg)
+    first = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    toks, _ = decode_greedy_steps(params, first, cache, n=n - 1, cfg=cfg, qcfg=qcfg)
+    return torch.cat([first, toks], 1).cpu()
+
+
+def _verify_vs_decode(params, cfg, qcfg, hist, hlen, cache):
+    """The logits of the same next token two ways from one prefilled state:
+    row 0 of a T = k + 1 verify forward (float attention over the
+    dequantized int8 cache) and one decode step (B4's codes attention):
+    the largest difference, the decode logits' top-2 gaps, and how many
+    argmax tokens agree."""
+    import importlib
+
+    from llm_compressor_tpu_torch.engine import decode_step
+    from llm_compressor_tpu_torch.engine.graph import _map
+    from llm_compressor_tpu_torch.engine.speculative import draft_ngram_device
+    from llm_compressor_tpu_torch.models import head
+
+    gen_mod = importlib.import_module("llm_compressor_tpu_torch.engine.generate")
+    last = torch.gather(hist, 1, (hlen.long() - 1)[:, None])
+    toks = torch.cat([last, draft_ngram_device(hist, hlen, SPEC_K)], 1)
+    with torch.inference_mode():
+        h = gen_mod._forward_cached(params, cfg, toks, _map(torch.clone, cache), qcfg, start=None)
+        verify = head(params, cfg, h, qcfg)[:, 0]
+    decode, _ = decode_step(params, last, _map(torch.clone, cache), cfg=cfg, qcfg=qcfg,
+                            graph=False)
+    diff = (verify - decode).abs().max(-1).values
+    top2 = torch.topk(decode, 2, -1).values
+    gap = top2[:, 0] - top2[:, 1]
+    return {"max_abs_logit_diff": float(diff.max()), "median_abs_logit_diff":
+            float(diff.median()), "logit_std": float(decode.std()),
+            "median_top2_gap": float(gap.median()), "rows_gap_above_diff": int((gap > diff).sum()),
+            "argmax_equal": int((verify.argmax(-1) == decode.argmax(-1)).sum()),
+            "rows": int(decode.shape[0])}
+
+
+def _timed_call(fn):
+    """``fn()`` -> (its result, host seconds ended by ``synchronize``, the
+    peak device memory it added over what was allocated before, GiB)."""
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            (torch.cuda.max_memory_allocated() - allocated) / 2 ** 30)
+
+
+def check_speculative(cfg, qcfg, params, seed: int):
+    """16 prompts of a 16-token motif from ``seed`` repeated 8 times: the
+    rounds of one dispatch (8 rounds of 4 drafts) through the graph path
+    against the eager rounds from the same prefilled state, over three
+    calls (the first eager, the second captures, the third replays;
+    history, its lengths, the accept counts and the int8 cache bitwise
+    after each); the next token's logits by the verify forward and by one
+    decode step (``_verify_vs_decode``); then ``generate_speculative`` (64
+    new tokens, ``accept_floor=0``), one call with the graph and one with
+    ``graph=False`` (each a first call: a new cache; ids and stats equal),
+    against greedy decode of the same prompts (its first call, eager, and
+    a replay): tok/s of each and how many tokens agree (the T = k + 1
+    verify forward's float attention over the dequantized cache and B4's
+    codes attention break near-ties differently); then random prompts with
+    the default accept floor (whether it falls back is reported), and with
+    a floor above k_draft, which must fall back to greedy decode."""
+    import numpy as np
+
+    from llm_compressor_tpu_torch.engine import generate_speculative, init_cache
+    from llm_compressor_tpu_torch.engine.graph import _map
+    from llm_compressor_tpu_torch.engine.speculative import speculative_rounds
+
+    rng = np.random.default_rng(seed + 8)
+    motifs = rng.integers(0, cfg.vocab_size, (SPEC_BATCH, SPEC_MOTIF)).astype(np.int32)
+    looping = np.tile(motifs, (1, SPEC_REPEAT))
+    T = looping.shape[1]
+    # three dispatches of rounds: room for their appends and cache writes
+    Hmax = T + 3 * SPEC_ROUNDS * (SPEC_K + 1) + 1
+    prompts = torch.from_numpy(looping).cuda()
+    hist, hlen, cache = _spec_state(params, cfg, qcfg, prompts, Hmax, Hmax + SPEC_K + 1)
+    active = torch.ones(SPEC_BATCH, dtype=torch.bool, device="cuda")
+    state = [(hist.clone(), hlen.clone(), _map(torch.clone, cache)) for _ in range(2)]
+    accepted = 0
+    for captures in (0, 1, 1):
+        (gh, gl, gc, gacc), (eh, el, ec, eacc) = [
+            speculative_rounds(params, h, hl, c, active, rounds=SPEC_ROUNDS, k=SPEC_K, ngram=2,
+                               cfg=cfg, qcfg=qcfg, graph=graph)
+            for (h, hl, c), graph in zip(state, (True, False))]
+        if not (torch.equal(gh, eh) and torch.equal(gl, el) and torch.equal(gacc, eacc)
+                and _same_cache(gc, ec)) or gc.graphs.captures != captures:
+            raise AssertionError("speculative rounds: the graph path's history, lengths, accept "
+                                 "counts or cache differ from the eager rounds', or it did not "
+                                 "capture at its second call")
+        accepted += int(gacc.sum())
+    del state, gc, ec
+    out = {"rounds_graph_equal_eager": True, "accepted_in_three_dispatches": accepted,
+           "verify_vs_decode": _verify_vs_decode(params, cfg, qcfg, hist, hlen, cache)}
+    del cache
+    random = rng.integers(0, cfg.vocab_size, looping.shape).astype(np.int32)
+    greedy = {}
+    for label, toks, kw in (("looping", looping, dict(accept_floor=0)), ("random", random, {}),
+                            ("forced_fallback", random, dict(accept_floor=SPEC_K + 1.0))):
+        run = lambda graph: generate_speculative(
+            params, cfg, toks, max_new_tokens=SPEC_NEW, k_draft=SPEC_K, qcfg=qcfg,
+            quantized_kv=True, rounds_per_dispatch=SPEC_ROUNDS, graph=graph, **kw)
+        (hist_l, stats), spec_s, spec_extra = _timed_call(lambda: run(None))
+        (eager_l, eager_stats), eager_s, eager_extra = _timed_call(lambda: run(False))
+        if hist_l != eager_l or stats != eager_stats:
+            raise AssertionError(f"speculative {label}: the graph path's ids or stats differ "
+                                 "from the eager path's")
+        if id(toks) not in greedy:
+            prompts = torch.from_numpy(toks).cuda()
+            greedy_cache = init_cache(cfg.num_layers, SPEC_BATCH, T + SPEC_NEW, cfg.num_kv_heads,
+                                      cfg.head_dim, quantized=True, device="cuda")
+            calls = [_timed_call(lambda: _greedy_tokens(params, cfg, qcfg, prompts, SPEC_NEW,
+                                                        greedy_cache)) for _ in range(3)]
+            if greedy_cache.graphs.captures != 1 or not all(
+                    torch.equal(c[0], calls[0][0]) for c in calls):
+                raise AssertionError(f"greedy decode ({label} prompts): the capture or the "
+                                     "replay differs from the eager first call")
+            greedy[id(toks)] = (calls[0][0], calls[0][1], calls[2][1])
+            del greedy_cache
+        ref, greedy_first_s, greedy_s = greedy[id(toks)]
+        spec = torch.tensor([h[T:] for h in hist_l], dtype=torch.int32)
+        if spec.shape != ref.shape:
+            raise AssertionError(f"speculative {label}: {tuple(spec.shape)} tokens, greedy "
+                                 f"{tuple(ref.shape)}")
+        same = spec == ref
+        n = spec.numel()
+        out[label] = {**stats, "accept_floor": kw.get("accept_floor", 0.3 * SPEC_K),
+                      "tok_s": n / spec_s, "eager_tok_s": n / eager_s,
+                      "extra_peak_gib": spec_extra, "eager_extra_peak_gib": eager_extra,
+                      "greedy_first_call_tok_s": n / greedy_first_s,
+                      "greedy_replay_tok_s": n / greedy_s,
+                      "tokens_equal_greedy": int(same.sum()), "tokens": n,
+                      "rows_equal_greedy": int(same.all(1).sum())}
+    if out["forced_fallback"]["fell_back"] is not True:
+        raise AssertionError("speculative: an accept floor above k_draft did not fall back")
+    return out
+
+
+def phase_serving_engine(cfg, qcfg, params, seed: int, smi: str):
+    """Phase 8 on the w4a8 slice's params: continuous batching and
+    speculative decoding."""
+    torch.cuda.empty_cache()
+    out = {"batching": check_batching(cfg, qcfg, params, seed)}
+    out["speculative"] = check_speculative(cfg, qcfg, params, seed)
+    gc.collect()
+    out.update(card=smi, allocated_after_gib=torch.cuda.memory_allocated() / 2 ** 30)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1745,16 +2228,56 @@ def main() -> int:
             log(f"B9 entry point w4a8_matmul(..., act_inside=True) (the w4a8 slice's int8 head "
                 f"and layer-0 qkv, M = 128, equal to the host-quantised B3 path bitwise): "
                 f"launches {actq['counts']}")
+            served = phase_serving_engine(*w4a8_model, args.seed, smi)
+            b, sp = served["batching"], served["speculative"]
+            g = b["graph"]
+            log(f"serving_engine batching: Llama-3.2-1B W4A8, {LAYERS} layers, int8 KV cache, "
+                f"{SERVE_SLOTS} slots, max_len {SERVE_MAX_LEN}, chunk {SERVE_CHUNK}: "
+                f"{SERVE_REQUESTS} requests ({b['prompt_tokens']} prompt tokens, "
+                f"{SERVE_PROMPTS[0]}-{SERVE_PROMPTS[1]}), {g['generated']} greedy tokens in "
+                f"{g['wall_s']:.2f} s = {g['requests_per_s']:.2f} requests/s, "
+                f"{g['generated_tok_s']:.1f} tok/s; {g['decode_steps']} decode steps "
+                f"({g['decode_ms_mean']:.2f} ms each) and {g['chunks']} chunk prefills "
+                f"({g['chunk_prefill_ms_mean']:.2f} ms each), {g['host_ms_per_step']:.2f} host ms "
+                f"per step; eager decode {b['eager']['generated_tok_s']:.1f} tok/s "
+                f"({b['eager']['decode_ms_mean']:.2f} ms a step); ids of graph and eager "
+                f"bitwise equal; EOS request ended after {b['eos_request_tokens']} tokens; "
+                f"tokens agreeing with generate alone before the first difference, requests "
+                f"1-{SERVE_STANDALONE}: {b['standalone_prefix']}, each call's seconds with "
+                f"its graph (one per call, captured at step 2) "
+                f"{[round(x, 3) for x in b['generate_first_call']['graph']['s']]} and eager "
+                f"{[round(x, 3) for x in b['generate_first_call']['eager']['s']]}, ids equal; "
+                f"peak memory {g['peak_mem_gib']:.2f} GiB on {smi}")
+            for case in ("looping", "random", "forced_fallback"):
+                r = sp[case]
+                log(f"serving_engine speculative {case}: {SPEC_BATCH} prompts of "
+                    f"{SPEC_MOTIF * SPEC_REPEAT} tokens, k_draft {SPEC_K}, {SPEC_ROUNDS} rounds "
+                    f"a dispatch, {SPEC_NEW} new tokens, accept floor {r['accept_floor']}: "
+                    f"mean_accepted "
+                    f"{r['mean_accepted']:.3f} over {r['live_rounds']} live rounds, fell_back "
+                    f"{r['fell_back']}; one call {r['tok_s']:.1f} tok/s with graphs, "
+                    f"{r['eager_tok_s']:.1f} eager (ids and stats equal; peak added "
+                    f"{r['extra_peak_gib']:.3f} and {r['eager_extra_peak_gib']:.3f} GiB), "
+                    f"against greedy decode {r['greedy_first_call_tok_s']:.1f} tok/s at its "
+                    f"first call on a cache (eager) and {r['greedy_replay_tok_s']:.1f} replayed; "
+                    f"{r['tokens_equal_greedy']}/{r['tokens']} tokens "
+                    f"({r['rows_equal_greedy']}/{SPEC_BATCH} rows) equal to greedy decode")
+            log(f"serving_engine numbers: {json.dumps(served)}")
             w4a8_model = None
             torch.cuda.empty_cache()
         s = phase_slice(args.seed, serving, names, model=w4a8_model, attention=attention,
                         per_step=per_step)
         log(f"slice {key}: {label}, {LAYERS} layers, batch {BATCH}, prompt {PROMPT}, "
-            f"max_len {MAX_LEN}: prefill (TTFT) {s['ttft_ms']:.2f} ms, {STEPS} decode steps "
-            f"{s['decode_ms']:.2f} ms = {s['decode_tok_s']:.1f} tok/s, peak memory "
-            f"{s['peak_mem_gib']:.2f} GiB on {smi}; launches {s['counts']}, per decode step "
-            f"{s['per_step']}")
-        log(f"slice {key} decode profile (2 steps, torch.profiler): {json.dumps(s['profile'])}")
+            f"max_len {MAX_LEN}: prefill (TTFT) {s['ttft_ms']:.2f} ms, {STEPS} decode steps as "
+            f"one CUDA graph {s['decode_ms']:.2f} ms = {s['decode_tok_s']:.1f} tok/s (first call "
+            f"on the cache, eager: {s['first_call_s']:.2f} s; second, the capture: "
+            f"{s['capture_s']:.2f} s; graph key {s['key_us']:.1f} us; eager loop "
+            f"{s['loop_decode_tok_s']:.1f} tok/s, "
+            f"tokens and cache bitwise equal), peak memory {s['peak_mem_gib']:.2f} GiB "
+            f"({s['allocated_before_gib']:.2f} GiB live before the prefill) on {smi}; "
+            f"launches {s['counts']}, per decode step {s['per_step']}")
+        log(f"slice {key} decode profile (one replay of the {STEPS}-step graph, "
+            f"torch.profiler): {json.dumps(s['profile'])}")
         if key == "w4a8":
             w4a8_model = (s["cfg"], s["qcfg"], s["params"])
             s["prefill_profile"] = profile_prefill(*w4a8_model, serving, args.seed)
@@ -1780,10 +2303,13 @@ def main() -> int:
         f"({json.dumps(s['phases'])}), peak memory {s['calib_peak_gib']:.2f} GiB, launches "
         f"{s['calib_counts']}; packed losslessly; served W4A8 with an int8 KV cache, batch "
         f"{BATCH}, prompt {PROMPT}: prefill (TTFT) {s['ttft_ms']:.2f} ms, {STEPS} decode steps "
-        f"{s['decode_ms']:.2f} ms = {s['decode_tok_s']:.1f} tok/s, peak memory "
+        f"as one CUDA graph {s['decode_ms']:.2f} ms = {s['decode_tok_s']:.1f} tok/s (first call "
+        f"{s['first_call_s']:.2f} s, capture {s['capture_s']:.2f} s; eager loop "
+        f"{s['loop_decode_tok_s']:.1f} tok/s), peak memory "
         f"{s['peak_mem_gib']:.2f} GiB on {smi}; launches {s['counts']}, per decode step "
         f"{s['per_step']}")
-    log(f"slice spinquant_gptq decode profile (2 steps, torch.profiler): "
+    log(f"slice spinquant_gptq decode profile (one replay of the {STEPS}-step graph, "
+        f"torch.profiler): "
         f"{json.dumps(s['profile'])}")
 
     ck = phase_checkpoint(args.seed, smi)
@@ -1814,7 +2340,8 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
-    print(json.dumps({"slices": {k: _slice_numbers(v) for k, v in slices.items()}}), flush=True)
+    print(json.dumps({"slices": {k: _slice_numbers(v) for k, v in slices.items()},
+                      "serving_engine": served}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),
           flush=True)
     return 0

@@ -28,13 +28,23 @@ each step's K/V go to a side block through B8, attention reads ``[main |
 side]`` through B7 (two-part) or B6 plus PyTorch (hybrid), and the block
 is merged into the cache once after the steps.
 
-The decode loop is a Python loop over steps and layers; a CUDA graph is
-later work (ROADMAP.md). ``generate_text`` wraps ``generate`` in the
-reference's chat template; its speculative decoding is not ported.
+On the card, where JAX runs one jitted dispatch, the port replays one
+CUDA graph (``engine/graph.py``) kept on the cache: ``decode_greedy_steps``
+captures all ``n`` steps (in the side-block modes each step's lane ``t`` is
+baked in, as the JAX scan traces it) and ``decode_step`` one step, so
+``generate``'s sampling loop replays one graph per token. The first call
+for a key on a cache runs eagerly and warms the kernels up, the second
+captures, later calls replay: a call made once on a new cache costs what
+the eager loop costs. The host checks that the steps fit the cache once
+per call, before the graph. The eager loop over steps and layers is the
+CPU path, and the card's with ``graph=False``.
+``generate_text`` wraps ``generate`` in the reference's chat template, or
+``generate_speculative`` (``engine/speculative.py``) with ``speculative``.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional
 
 import numpy as np
@@ -60,6 +70,7 @@ from ..models.transformer import (
     rope_for_positions,
 )
 from ..qformats import QuantConfig
+from . import graph as graphs
 from .kvcache import (
     FreshKV,
     KVCache,
@@ -74,6 +85,7 @@ from .kvcache import (
 )
 
 ATTENTION_MODES = ("append", "two_part", "hybrid")
+LOGGER = logging.getLogger("llm_compressor_tpu_torch")
 
 
 def acts_mode(qk_op, sv_op):
@@ -144,7 +156,9 @@ def _cached_attention(lp, cfg: ModelConfig, layer: int, x, cache: KVCache,
         out = _i8_decode_attention(cfg, layer, q, k, v, cache).to(x.dtype)
     else:
         if start is None:
-            append_decode(cache, layer, k, v, cache.lengths)
+            T = x.shape[1]   # T > 1: a speculative verify step
+            append_decode(cache, layer, k, v,
+                          cache.lengths[:, None] + torch.arange(T, device=x.device)[None, :])
         else:
             append_prefill(cache, layer, k, v, start)
         out = _float_attention(cfg, layer, x, q, cache, ops, mask)
@@ -195,8 +209,21 @@ def prefill(params, tokens: torch.Tensor, cache: KVCache, *, cfg: ModelConfig,
 
 
 def _check_decode(cache: KVCache, n: int) -> None:
+    """Raise where ``n`` steps overrun the cache: one host sync, made before
+    a graph's capture or replay, never inside it."""
     if int(cache.lengths.max()) + n > cache.max_len:
         raise ValueError(f"{n} decode steps overrun the cache (max_len {cache.max_len})")
+
+
+def use_graph(graph: Optional[bool], token: torch.Tensor) -> bool:
+    """Whether to replay a CUDA graph: by default on the card and not on
+    the CPU; ``graph=True`` on CPU tensors raises instead of running the
+    loop."""
+    if graph is None:
+        return token.is_cuda
+    if graph and not token.is_cuda:
+        raise ValueError("graph=True needs CUDA tensors; the CPU runs the eager loop")
+    return graph
 
 
 def _decode_one(params, token, cache: KVCache, cfg: ModelConfig, qcfg):
@@ -208,11 +235,18 @@ def _decode_one(params, token, cache: KVCache, cfg: ModelConfig, qcfg):
 
 @torch.inference_mode()
 def decode_step(params, token: torch.Tensor, cache: KVCache, *, cfg: ModelConfig,
-                qcfg: Optional[QuantConfig] = None):
+                qcfg: Optional[QuantConfig] = None, graph: Optional[bool] = None):
     """One token per slot (B, 1) -> (logits (B, V) f32, cache); the cache is
-    updated in place."""
+    updated in place. On the card, from the second call on a cache, one
+    replay of a one-step graph with a static token buffer (``graph`` as
+    :func:`use_graph` says)."""
     _check_decode(cache, 1)
-    return _decode_one(params, token, cache, cfg, qcfg), cache
+    if not use_graph(graph, token):
+        return _decode_one(params, token, cache, cfg, qcfg), cache
+    logits = graphs.run(cache, ("decode_step", cfg, qcfg),
+                        lambda tok: _decode_one(params, tok, cache, cfg, qcfg),
+                        (token,), reads=params)
+    return logits, cache
 
 
 def fresh_path_ok(params, cfg: ModelConfig, cache: KVCache,
@@ -260,10 +294,33 @@ def _forward_decode_fresh(params, cfg: ModelConfig, tokens, cache: KVCache, fres
     return h
 
 
+def _greedy_steps(params, token, cache: KVCache, n: int, cfg: ModelConfig, qcfg,
+                  attention: str):
+    """The ``n`` steps of :func:`decode_greedy_steps`, with no host sync:
+    the body of its graph, and its eager loop."""
+    out = []
+    if attention == "append":
+        for _ in range(n):
+            logits = _decode_one(params, token, cache, cfg, qcfg)
+            token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            out.append(token)
+        return torch.cat(out, dim=1)
+    len0 = cache.lengths.clone()
+    fresh = init_fresh(cfg.num_layers, cache.batch, n, cfg.num_kv_heads, cfg.head_dim,
+                       device=cache.k.device)
+    for t in range(n):
+        h = _forward_decode_fresh(params, cfg, token, cache, fresh, t, len0, qcfg, attention)
+        logits = head(params, cfg, h, qcfg)[:, -1, :]
+        token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        out.append(token)
+    merge_fresh(cache, fresh, len0, n, check=False)    # checked by the caller
+    return torch.cat(out, dim=1)
+
+
 @torch.inference_mode()
 def decode_greedy_steps(params, token: torch.Tensor, cache: KVCache, *, n: int,
                         cfg: ModelConfig, qcfg: Optional[QuantConfig] = None,
-                        attention: str = "append"):
+                        attention: str = "append", graph: Optional[bool] = None):
     """``n`` greedy decode steps -> (tokens (B, n) int32, cache).
     ``tokens[:, i]`` is the argmax after consuming ``token`` and ``i``
     generated predecessors.
@@ -282,30 +339,23 @@ def decode_greedy_steps(params, token: torch.Tensor, cache: KVCache, *, n: int,
       part and the assembly.
 
     The side-block modes raise ``ValueError`` where :func:`fresh_path_ok`
-    is False."""
+    is False. On the card the ``n`` steps are one CUDA graph kept on the
+    cache: the first call for these buffers, ``n``, configs and mode runs
+    eagerly, the second captures, later calls replay (``graph`` as
+    :func:`use_graph` says; ``graph=False`` runs the eager loop, which
+    decodes the same tokens and cache bitwise)."""
     if attention not in ATTENTION_MODES:
         raise ValueError(f"attention must be one of {ATTENTION_MODES}, not {attention!r}")
     _check_decode(cache, n)
-    out = []
-    if attention == "append":
-        for _ in range(n):
-            logits = _decode_one(params, token, cache, cfg, qcfg)
-            token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-            out.append(token)
-        return torch.cat(out, dim=1), cache
-    if not fresh_path_ok(params, cfg, cache, qcfg):
+    if attention != "append" and not fresh_path_ok(params, cfg, cache, qcfg):
         raise ValueError(f"attention={attention!r} needs stacked layers, an int8 cache and "
                          "int8 per-token acts on both attention matmuls")
-    len0 = cache.lengths.clone()
-    fresh = init_fresh(cfg.num_layers, cache.batch, n, cfg.num_kv_heads, cfg.head_dim,
-                       device=cache.k.device)
-    for t in range(n):
-        h = _forward_decode_fresh(params, cfg, token, cache, fresh, t, len0, qcfg, attention)
-        logits = head(params, cfg, h, qcfg)[:, -1, :]
-        token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-        out.append(token)
-    merge_fresh(cache, fresh, len0, n)
-    return torch.cat(out, dim=1), cache
+    if not use_graph(graph, token):
+        return _greedy_steps(params, token, cache, n, cfg, qcfg, attention), cache
+    toks = graphs.run(cache, ("decode_greedy_steps", n, cfg, qcfg, attention),
+                      lambda tok: _greedy_steps(params, tok, cache, n, cfg, qcfg, attention),
+                      (token,), reads=params)
+    return toks, cache
 
 
 def top_k_filter(logits: torch.Tensor, top_k: Optional[int]) -> torch.Tensor:
@@ -333,11 +383,12 @@ def generate(params, cfg: ModelConfig, prompt_tokens: np.ndarray, max_new_tokens
              temperature: float = 0.0, top_k: Optional[int] = None,
              eos_id: Optional[int] = None, qcfg: Optional[QuantConfig] = None,
              quantized_kv: bool = False, max_len: Optional[int] = None,
-             seed: int = 0) -> np.ndarray:
+             seed: int = 0, graph: Optional[bool] = None) -> np.ndarray:
     """Autoregressive generation with a KV cache on the params' device (a
     bf16 cache, or int8 with ``quantized_kv``) of ``max_len`` rows (prompt
     + new tokens if None). Returns prompt + generated tokens (B, T_out)
-    int32; stops early when slot 0 samples ``eos_id``."""
+    int32; stops early when slot 0 samples ``eos_id``. Each step is a
+    :func:`decode_step` (``graph`` as there)."""
     dev = params["embed"]["weight"].device
     prompt_tokens = np.asarray(prompt_tokens, dtype=np.int32)
     B, T = prompt_tokens.shape
@@ -353,7 +404,8 @@ def generate(params, cfg: ModelConfig, prompt_tokens: np.ndarray, max_new_tokens
         if eos_id is not None and int(nxt_np[0]) == eos_id:
             break
         out.append(nxt_np[:, None])
-        logits, cache = decode_step(params, nxt[:, None], cache, cfg=cfg, qcfg=qcfg)
+        logits, cache = decode_step(params, nxt[:, None], cache, cfg=cfg, qcfg=qcfg,
+                                    graph=graph)
     return np.concatenate(out, axis=1)
 
 
@@ -369,19 +421,32 @@ def generate_text(params, cfg: ModelConfig, tokenizer, prompt: str,
                   max_new_tokens: int = 100, temperature: float = 0.0,
                   top_k: Optional[int] = None, qcfg: Optional[QuantConfig] = None,
                   quantized_kv: bool = False, use_chat_template: bool = True,
-                  speculative: bool = False) -> str:
+                  speculative: bool = False, k_draft: int = 4) -> str:
     """Chat-templated text generation (the reference's tinychat path):
     ``tokenizer`` has ``encode``, ``decode(ids, skip_special_tokens=...)``
     and ``eos_token_id``. Returns the text after the prompt, without a
-    "### Response:" marker. Speculative decoding (``speculative``) is not
-    ported: it raises."""
-    if speculative:
-        raise NotImplementedError(
-            "speculative decoding is not ported yet: ROADMAP.md queue A item 8")
+    "### Response:" marker. ``speculative`` routes greedy decoding through
+    prompt-lookup speculative decoding (``engine/speculative.py``, taken at
+    temperature 0 only), and logs its acceptance. Over a bf16 cache it
+    gives greedy decoding's text, up to near-ties that a (k+1)-row forward
+    rounds otherwise than a one-row one; over an int8 cache
+    (``quantized_kv``) its tokens follow the verify step's float attention
+    and can differ from those of the int8 decode (B4)."""
     text = CHAT_TEMPLATE.format(message=prompt) if use_chat_template else prompt
     ids = np.asarray([tokenizer.encode(text)], dtype=np.int32)
-    out = generate(params, cfg, ids, max_new_tokens=max_new_tokens, temperature=temperature,
-                   top_k=top_k, eos_id=tokenizer.eos_token_id, qcfg=qcfg,
-                   quantized_kv=quantized_kv)
+    if speculative and temperature == 0.0:
+        from .speculative import generate_speculative
+
+        hist, stats = generate_speculative(
+            params, cfg, ids, max_new_tokens=max_new_tokens, k_draft=k_draft,
+            eos_id=tokenizer.eos_token_id, qcfg=qcfg, quantized_kv=quantized_kv)
+        LOGGER.info("speculative: mean_accepted=%.2f/%d over %d live rounds%s",
+                    stats["mean_accepted"], k_draft, stats["live_rounds"],
+                    " (fell back to greedy decode)" if stats["fell_back"] else "")
+        out = np.asarray([hist[0]], dtype=np.int32)
+    else:
+        out = generate(params, cfg, ids, max_new_tokens=max_new_tokens,
+                       temperature=temperature, top_k=top_k, eos_id=tokenizer.eos_token_id,
+                       qcfg=qcfg, quantized_kv=quantized_kv)
     full = tokenizer.decode(out[0].tolist(), skip_special_tokens=True)
     return full[len(text):].replace("### Response:", "").strip()

@@ -8,7 +8,12 @@ keeps the sequence on the TPU's lane axis, (L, B, KV, D, S) with
 (L, B, KV, 1, S) scales; :func:`to_jax_layout` / :func:`from_jax_layout`
 convert for the tests. Decode writes new tokens in place at each slot's
 length (for the int8 cache with int8 attention acts, the decode kernel B4
-does it) by default.
+does it) by default. A write at a position past the cache is dropped, as
+the JAX package's scatter drops it, without a check that would wait for
+the card: a retired batcher slot whose length reached ``max_len`` decodes
+on with the others, and so may a verify step's last tokens.
+:func:`write_slot` splices a single-slot cache into one slot (continuous
+batching).
 
 The side block (:class:`FreshKV`, JAX :150-261) serves the side-block
 decode modes of ``decode_greedy_steps``: the main cache stays read-only
@@ -22,7 +27,7 @@ package keeps (L, B, KV, 1, W) scales (:func:`fresh_to_jax_layout` /
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -30,6 +35,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.decode_attention import fresh_write
+from .graph import Graphs
 
 
 @dataclass
@@ -39,6 +45,8 @@ class KVCache:
     k_scale: Optional[torch.Tensor]      # (L, B, KV, S) f32 when quantized
     v_scale: Optional[torch.Tensor]
     lengths: torch.Tensor                # (B,) int32 — tokens cached per slot
+    # the CUDA graphs captured on this cache (engine/graph.py), freed with it
+    graphs: Graphs = field(default_factory=Graphs, init=False, repr=False, compare=False)
 
     @property
     def quantized(self) -> bool:
@@ -97,19 +105,55 @@ def append_prefill(cache: KVCache, layer: int, k, v, start: int) -> None:
 
 def append_decode(cache: KVCache, layer: int, k, v, positions) -> None:
     """Write T tokens per slot: k/v (B, T, KV, D) at per-slot ``positions``,
-    (B,) for one token or (B, T)."""
+    (B,) for one token or (B, T). Positions past the cache are dropped (JAX
+    :105-132, whose scatter drops them): such a write lands on the last row
+    with the value that row receives anyway, the slot's own write there or
+    the row's current contents, so that no index leaves the cache and no
+    host check waits for the device."""
     if positions.dim() == 1:
         positions = positions[:, None]
-    b = torch.arange(cache.batch, device=k.device)[:, None]
+    B, T = positions.shape
+    S = cache.max_len
+    b = torch.arange(B, device=k.device)
     pos = positions.long()
+    keep = pos < S
+    at_last = keep & (pos == S - 1)
+    has_last, t_last = at_last.any(1), at_last.int().argmax(1)      # (B,)
+    target = torch.where(keep, pos, S - 1)
+
+    def put(buf, val):
+        """val (B, T, KV[, D]) into buf[layer] at (b, target)."""
+        tail = (1,) * (val.dim() - 2)
+        last = torch.where(has_last.view(B, *tail), val[b, t_last], buf[layer, :, :, S - 1])
+        val = torch.where(keep.view(B, T, *tail), val, last[:, None])
+        # advanced indices on (B, S) around a slice: the target is (B, T, KV[, D])
+        buf[layer, b[:, None], :, target] = val
+
     for buf, scale_buf, x in ((cache.k, cache.k_scale, k), (cache.v, cache.v_scale, v)):
-        # advanced indices on (B, S) around a slice: the target is (B, T, KV, D)
         if cache.quantized:
             c, s = _quant_i8(x)
-            buf[layer, b, :, pos] = c.transpose(1, 2)
-            scale_buf[layer, b, :, pos] = s.transpose(1, 2)
+            put(buf, c.transpose(1, 2))
+            put(scale_buf, s.transpose(1, 2))
         else:
-            buf[layer, b, :, pos] = x.to(buf.dtype)
+            put(buf, x.to(buf.dtype))
+
+
+def write_slot(cache: KVCache, slot: int, k_slot, v_slot, k_scale=None, v_scale=None) -> None:
+    """Splice one slot's K/V, (L, KV, T, D) values or codes of the cache's
+    dtype, into rows [0, T) of slot ``slot``, in place (JAX :264-273); for
+    the int8 cache also its scales (L, KV, T), as the JAX batcher splices
+    them beside it (``engine/batching.py:205-214``). Lengths are the
+    caller's."""
+    T = k_slot.shape[2]
+    if T > cache.max_len:
+        raise ValueError(f"a slot of {T} rows does not fit the cache (max_len {cache.max_len})")
+    if (k_scale is not None) != cache.quantized:
+        raise ValueError("scales go with an int8 cache, and only with it")
+    cache.k[:, slot, :, :T] = k_slot.to(cache.k.dtype)
+    cache.v[:, slot, :, :T] = v_slot.to(cache.v.dtype)
+    if cache.quantized:
+        cache.k_scale[:, slot, :, :T] = k_scale
+        cache.v_scale[:, slot, :, :T] = v_scale
 
 
 def read(cache: KVCache, layer: int, dtype) -> tuple:
@@ -186,13 +230,17 @@ def write_fresh(fresh: FreshKV, layer: int, t: int, kc, vc, ks, vs) -> None:
     fresh_write((fresh.k, fresh.v, fresh.k_scale, fresh.v_scale), (kc, vc, ks, vs), layer, t)
 
 
-def merge_fresh(cache: KVCache, fresh: FreshKV, lengths0: torch.Tensor, n: int) -> None:
+def merge_fresh(cache: KVCache, fresh: FreshKV, lengths0: torch.Tensor, n: int,
+                check: bool = True) -> None:
     """Scatter side-block steps [0, n) of every layer into the cache at each
     slot's positions ``lengths0 + j`` and set ``lengths`` to ``lengths0 +
-    n``, in place. Positions past the cache raise."""
+    n``, in place. With ``check``, positions past the cache raise, which
+    waits for the device; a caller that has checked the lengths already
+    (``decode_greedy_steps``, once per call, before a CUDA graph's capture)
+    passes False."""
     if n > fresh.window:
         raise ValueError(f"{n} steps do not fit a side block of {fresh.window} lanes")
-    if int(lengths0.max()) + n > cache.max_len:
+    if check and int(lengths0.max()) + n > cache.max_len:
         raise ValueError(f"merging {n} steps overruns the cache (max_len {cache.max_len})")
     b = torch.arange(cache.batch, device=lengths0.device)[:, None]
     pos = lengths0.long()[:, None] + torch.arange(n, device=lengths0.device)[None, :]

@@ -36,3 +36,13 @@ def launch_counts() -> dict:
 def reset_counts() -> None:
     for mod, fn in _WRAPPERS.values():
         getattr(mod, fn).launches = 0
+
+
+def add_counts(counts: dict) -> None:
+    """Add ``counts`` (name -> launches, as :func:`launch_counts` names them)
+    to the counters. The wrappers count at call time, so a CUDA graph
+    (``engine/graph.py``) takes back what its capture counted, where
+    nothing ran, and adds it at each replay."""
+    for k, n in counts.items():
+        mod, fn = _WRAPPERS[k]
+        getattr(mod, fn).launches += n

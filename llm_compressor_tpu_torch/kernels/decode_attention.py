@@ -217,18 +217,23 @@ def _check_kernel_shape(q, r, D):
 
 
 def _append(new_k, new_v, new_ks, new_vs, k_cache, v_cache, k_scale, v_scale, pos):
-    b = torch.arange(k_cache.shape[0], device=k_cache.device)
-    k_cache[b, :, pos] = new_k
-    v_cache[b, :, pos] = new_v
-    k_scale[b, :, pos] = new_ks
-    v_scale[b, :, pos] = new_vs
+    """The current token at ``pos`` of each slot, in place; a slot whose
+    position lies outside the cache writes nothing (its row 0 gets its own
+    value back), as the kernel does. Returns which slots wrote (B,)."""
+    B, S = k_cache.shape[0], k_cache.shape[2]
+    b = torch.arange(B, device=k_cache.device)
+    inside = (pos >= 0) & (pos < S)
+    at = torch.where(inside, pos, 0).long()
+    for buf, new in ((k_cache, new_k), (v_cache, new_v), (k_scale, new_ks), (v_scale, new_vs)):
+        buf[b, :, at] = torch.where(inside.view(B, *(1,) * (new.dim() - 1)), new, buf[b, :, at])
+    return inside
 
 
 def decode_attention_append_plain(q, new_k, new_v, new_ks, new_vs, k_cache, v_cache,
                                   k_scale, v_scale, pos, *, window: int = 0,
                                   scale: float, softcap: Optional[float] = None):
     """Plain version of B4 (same arguments as :func:`decode_attention_append`)."""
-    _append(new_k, new_v, new_ks, new_vs, k_cache, v_cache, k_scale, v_scale, pos)
+    inside = _append(new_k, new_v, new_ks, new_vs, k_cache, v_cache, k_scale, v_scale, pos)
     S = k_cache.shape[2]
     qi, qs = row_quant_i8(q)                                   # (B, KV, r, D)
     s_ids = torch.arange(S, device=q.device)[None, :]
@@ -238,7 +243,8 @@ def decode_attention_append_plain(q, new_k, new_v, new_ks, new_vs, k_cache, v_ca
         keep &= s_ids > p - window
     s = _masked(_scores(qi, qs, k_cache, k_scale, scale, softcap), keep)
     (pi,), oscale = i8_softmax_requant([s], [v_scale])
-    return _pv(pi, v_cache) * oscale
+    out = _pv(pi, v_cache) * oscale
+    return torch.where(inside[:, None, None, None], out, torch.full_like(out, float("nan")))
 
 
 def _check(q, new_k, new_v, new_ks, new_vs, k_cache, v_cache, k_scale, v_scale, pos):
@@ -264,11 +270,11 @@ def decode_attention_append(q, new_k, new_v, new_ks, new_vs, k_cache, v_cache,
     ``new_k``/``new_v`` (B, KV, D) int8 and ``new_ks``/``new_vs`` (B, KV)
     f32 are the current token, written at ``pos`` (B,) int32 into one
     layer's cache: ``k_cache``/``v_cache`` (B, KV, S, D) int8 and
-    ``k_scale``/``v_scale`` (B, KV, S) f32, in place. ``pos[b]`` must be
-    below S: on the CPU a position outside the cache raises; on the card
-    (where checking would wait for the device) the kernel writes nothing
-    for that slot and returns NaN. ``window`` <= 0 is full causal
-    attention."""
+    ``k_scale``/``v_scale`` (B, KV, S) f32, in place. A slot whose
+    ``pos[b]`` lies outside the cache writes nothing and gets NaN, on the
+    card and in the plain version alike (checking would wait for the
+    device; a retired batcher slot decodes on at ``max_len``). ``window``
+    <= 0 is full causal attention."""
     _check(q, new_k, new_v, new_ks, new_vs, k_cache, v_cache, k_scale, v_scale, pos)
     if not q.is_cuda:
         return decode_attention_append_plain(

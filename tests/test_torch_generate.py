@@ -371,11 +371,22 @@ def test_generate_text_equals_jax(wo_runs, template):
     assert got == want and len(got) > 0
 
 
-def test_generate_text_speculative_raises(wo_runs):
+def test_generate_text_speculative_equals_jax(wo_runs, caplog):
+    """``speculative=True`` routes greedy generation through
+    ``generate_speculative`` in both packages: the same text, which is
+    also the text of plain greedy generation, and one acceptance line on
+    the port's logger."""
     r = wo_runs
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        te.generate_text(r["tp"], r["tcfg"], ByteTokenizer(), "x", qcfg=r["tq"],
-                         speculative=True)
+    kw = dict(max_new_tokens=N_STEPS + 4, speculative=True, k_draft=3)
+    want = j_generate_text(r["jp"], r["jcfg"], ByteTokenizer(), "Name a colour.", qcfg=r["jq"],
+                           **kw)
+    with caplog.at_level("INFO", logger="llm_compressor_tpu_torch"):
+        got = te.generate_text(r["tp"], r["tcfg"], ByteTokenizer(), "Name a colour.",
+                               qcfg=r["tq"], **kw)
+    assert got == want and len(got) > 0
+    assert got == te.generate_text(r["tp"], r["tcfg"], ByteTokenizer(), "Name a colour.",
+                                   qcfg=r["tq"], max_new_tokens=N_STEPS + 4)
+    assert [m for m in caplog.messages if m.startswith("speculative: mean_accepted=")]
 
 
 def test_sampling_is_seeded(wo_runs):

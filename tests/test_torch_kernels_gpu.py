@@ -723,3 +723,217 @@ def test_hadamard_unaligned_rows(cuda, n, dtype):
                                       .astype(np.float32)).to(cuda).to(dtype), 1)
     assert x.data_ptr() % 16
     assert torch.equal(hd.hadamard_transform(x), hd.hadamard_transform_plain(x))
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the serving engine (engine/graph.py) at 2 layers: a graph
+# replays the eager loop's kernels in the same order on the same shapes, so
+# tokens, cache codes, scales and lengths are bitwise equal to the loop's.
+# ---------------------------------------------------------------------------
+
+SERVING_CFG = dict(hidden_size=256, intermediate_size=512, num_heads=4, num_kv_heads=2,
+                   head_dim=64, num_layers=2, vocab_size=512, dtype="bfloat16")
+W4A8_SPEC = (("int4-g[128]-rw", "int8-g[-1]-rw", None, "int8-g[128]-rw"), "int8-g[-1]-rw")
+WEIGHT_ONLY_SPEC = (("int4-g[128]-zp-rw", None, None, "int8-g[128]-rw"), None)
+
+
+@functools.lru_cache(maxsize=None)
+def _serving_model(spec):
+    """RTN -> pack -> fuse -> stack of random weights on the card."""
+    from llm_compressor_tpu_torch.algorithms import pack_model, rtn
+    from llm_compressor_tpu_torch.models import fuse_model, init_params, stack_model, tiny_config
+    from llm_compressor_tpu_torch.qformats import build_quant_config
+
+    cfg = tiny_config("llama", **SERVING_CFG)
+    qcfg = build_quant_config(*spec[0], head_act=spec[1])
+    p = init_params(cfg, seed=0, device="cuda")
+    rtn(p, cfg, qcfg)
+    pack_model(p, cfg, qcfg)
+    return cfg, qcfg, stack_model(fuse_model(p, cfg, qcfg))
+
+
+def _prefilled(cfg, qcfg, params, quantized, B=4, T=16, max_len=64, seed=0):
+    from llm_compressor_tpu_torch.engine import init_cache, prefill
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=g, dtype=torch.int32).cuda()
+    cache = init_cache(cfg.num_layers, B, max_len, cfg.num_kv_heads, cfg.head_dim,
+                       quantized=quantized, device="cuda")
+    logits, cache = prefill(params, toks, cache, cfg=cfg, qcfg=qcfg)
+    return torch.argmax(logits, -1).to(torch.int32)[:, None], cache
+
+
+def _clone_cache(cache):
+    from llm_compressor_tpu_torch.engine.graph import _map
+
+    return _map(torch.clone, cache)
+
+
+def _same_cache(a, b):
+    return all((getattr(a, n) is None and getattr(b, n) is None)
+               or torch.equal(getattr(a, n), getattr(b, n))
+               for n in ("k", "v", "k_scale", "v_scale", "lengths"))
+
+
+def _restore(cache, start):
+    for name in ("k", "v", "k_scale", "v_scale", "lengths"):
+        if getattr(cache, name) is not None:
+            getattr(cache, name).copy_(getattr(start, name))
+
+
+@pytest.mark.parametrize("spec,attention", [(W4A8_SPEC, "append"), (W4A8_SPEC, "two_part"),
+                                            (W4A8_SPEC, "hybrid"),
+                                            (WEIGHT_ONLY_SPEC, "append")])
+def test_graph_decode_equals_loop(cuda, spec, attention):
+    """``decode_greedy_steps`` as one graph against its eager loop from the
+    same prefilled cache: tokens, codes, scales and lengths bitwise. On one
+    cache the first call runs eagerly, the second captures, the third
+    replays; each replay counts the launches of the loop's steps."""
+    from llm_compressor_tpu_torch import kernels
+    from llm_compressor_tpu_torch.engine import decode_greedy_steps
+
+    cfg, qcfg, p = _serving_model(spec)
+    quantized = spec is W4A8_SPEC
+    tok, cache = _prefilled(cfg, qcfg, p, quantized)
+    start = _clone_cache(cache)
+    loop_cache = _clone_cache(cache)
+    n = 8
+    kernels.reset_counts()
+    want, loop_cache = decode_greedy_steps(p, tok, loop_cache, n=n, cfg=cfg, qcfg=qcfg,
+                                           attention=attention, graph=False)
+    loop_counts = kernels.launch_counts()
+    assert any(loop_counts.values())
+    for captures in (0, 1, 1):
+        _restore(cache, start)
+        kernels.reset_counts()
+        got, cache = decode_greedy_steps(p, tok, cache, n=n, cfg=cfg, qcfg=qcfg,
+                                         attention=attention)
+        assert cache.graphs.captures == captures
+        assert kernels.launch_counts() == loop_counts
+        assert torch.equal(got, want) and _same_cache(cache, loop_cache)
+
+
+def test_graph_new_cache_new_capture(cuda):
+    """A graph is kept on the cache it was captured on, keyed by the
+    buffers it bakes in: a new cache of the same shapes starts eagerly and
+    captures its own, another ``n`` another, and each cache decodes as the
+    loop does."""
+    from llm_compressor_tpu_torch.engine import decode_greedy_steps
+
+    cfg, qcfg, p = _serving_model(W4A8_SPEC)
+    tok, a = _prefilled(cfg, qcfg, p, True, seed=1)
+    tok_b, b = _prefilled(cfg, qcfg, p, True, seed=2)
+    ref_b = _clone_cache(b)
+    for captures in (0, 1, 1):
+        decode_greedy_steps(p, tok, a, n=4, cfg=cfg, qcfg=qcfg)
+        assert a.graphs.captures == captures
+    for captures in (0, 1):
+        got, b = decode_greedy_steps(p, tok_b, b, n=4, cfg=cfg, qcfg=qcfg)
+        want, ref_b = decode_greedy_steps(p, tok_b, ref_b, n=4, cfg=cfg, qcfg=qcfg,
+                                          graph=False)
+        assert b.graphs.captures == captures and a.graphs.captures == 1
+        assert torch.equal(got, want) and _same_cache(b, ref_b)
+        tok_b = got[:, -1:]
+    for captures in (1, 2):                                         # another n
+        decode_greedy_steps(p, tok, a, n=5, cfg=cfg, qcfg=qcfg)
+        assert a.graphs.captures == captures
+
+
+def test_graph_failed_capture_raises(cuda):
+    """A capture that fails raises, at every call, and nothing falls back to
+    the eager function; the launch counters are left as they were."""
+    from llm_compressor_tpu_torch import kernels
+    from llm_compressor_tpu_torch.engine import graph as graphs
+    from llm_compressor_tpu_torch.engine import init_cache
+
+    cache = init_cache(1, 2, 8, 1, 64, device="cuda")
+    eager = []
+
+    def fn(x):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("no capture")
+        eager.append(1)
+        return x + 1
+
+    kernels.reset_counts()
+    x = torch.zeros(4, device="cuda")
+    assert torch.equal(graphs.run(cache, "k", fn, (x,)), x + 1)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="no capture"):
+            graphs.run(cache, "k", fn, (x,))
+    assert len(eager) == 1 and cache.graphs.captures == 0
+    assert not any(kernels.launch_counts().values())
+
+
+def test_graph_decode_step_equals_eager(cuda):
+    """``decode_step`` through its one-step graph: the eager step's logits
+    and cache, bitwise, over four steps (the first eager, the second
+    captures, then replays)."""
+    from llm_compressor_tpu_torch.engine import decode_step
+
+    cfg, qcfg, p = _serving_model(W4A8_SPEC)
+    tok, cache = _prefilled(cfg, qcfg, p, True, seed=3)
+    ref = _clone_cache(cache)
+    for captures in (0, 1, 1, 1):
+        got, cache = decode_step(p, tok, cache, cfg=cfg, qcfg=qcfg)
+        want, ref = decode_step(p, tok, ref, cfg=cfg, qcfg=qcfg, graph=False)
+        assert torch.equal(got, want) and _same_cache(cache, ref)
+        assert cache.graphs.captures == captures
+        tok = torch.argmax(got, -1).to(torch.int32)[:, None]
+
+
+def test_batcher_graph_equals_eager(cuda):
+    """The continuous batcher with its decode step as one graph against the
+    eager batcher: the same ids for every request and the same shared
+    cache, a finished slot decoding on at ``max_len`` included."""
+    from llm_compressor_tpu_torch.engine import ContinuousBatcher
+
+    cfg, qcfg, p = _serving_model(W4A8_SPEC)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, (t,)).astype(np.int32)
+               for t in (5, 40, 17, 58, 9, 33)]
+    out = []
+    for graph in (True, False):
+        eng = ContinuousBatcher(p, cfg, batch_slots=3, max_len=64, qcfg=qcfg, quantized_kv=True,
+                                prefill_chunk=16, graph=graph)
+        eng.warmup()
+        for t in prompts:
+            eng.submit(t, max_new_tokens=8)
+        out.append((eng.run(), eng.cache))
+    (ga, gc), (ea, ec) = out
+    assert gc.graphs.captures == 1 and ec.graphs.captures == 0
+    assert set(ga) == set(ea) == set(range(1, 7))
+    assert all(np.array_equal(ga[u], ea[u]) for u in ga)
+    assert len(ga[4]) == 64 - 58 and _same_cache(gc, ec)
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+def test_speculative_rounds_graph_equals_eager(cuda, quantized):
+    """Four draft + verify rounds as one graph against the eager rounds from
+    the same state, over three calls (the first eager, the second
+    captures, the third replays): history, lengths, accept counts and
+    cache bitwise after each."""
+    from llm_compressor_tpu_torch.engine import init_cache, prefill
+    from llm_compressor_tpu_torch.engine.speculative import speculative_rounds
+
+    spec = W4A8_SPEC if quantized else WEIGHT_ONLY_SPEC
+    cfg, qcfg, p = _serving_model(spec)
+    motif = np.random.default_rng(5).integers(0, cfg.vocab_size, 4)
+    prompt = torch.from_numpy(np.tile(motif, (4, 4)).astype(np.int32)).cuda()   # (4, 16)
+    cache = init_cache(cfg.num_layers, 4, 96, cfg.num_kv_heads, cfg.head_dim,
+                       quantized=quantized, device="cuda")
+    logits, cache = prefill(p, prompt, cache, cfg=cfg, qcfg=qcfg)
+    hist = torch.zeros((4, 72), dtype=torch.int32, device="cuda")
+    hist[:, :16] = prompt
+    hist[:, 16] = torch.argmax(logits, -1).to(torch.int32)
+    hlen = torch.full((4,), 17, dtype=torch.int32, device="cuda")
+    active = torch.tensor([True, True, False, True], device="cuda")
+    state = [(hist.clone(), hlen.clone(), _clone_cache(cache)) for _ in range(2)]
+    for captures in (0, 1, 1):
+        res = [speculative_rounds(p, h, hl, c, active, rounds=4, k=3, ngram=2, cfg=cfg,
+                                  qcfg=qcfg, graph=graph)
+               for (h, hl, c), graph in zip(state, (True, False))]
+        (gh, gl, gc, gacc), (eh, el, ec, eacc) = res
+        assert torch.equal(gacc, eacc) and torch.equal(gh, eh) and torch.equal(gl, el)
+        assert _same_cache(gc, ec) and int(gl[2]) == 17
+        assert gc.graphs.captures == captures
