@@ -108,10 +108,32 @@ Phases (each prints a line; any failure exits non-zero):
    that agree); then random prompts with the default floor and with a
    floor above k_draft, which must fall back. The 8 ``generate`` calls are
    each timed with the graph and with ``graph=False`` (ids equal).
+9. formats — the rest of the quantizer formats, after the checkpoint
+   phase. At 2 layers, full width: ``mxfp8_weight_only``'s kernel path
+   against its plain path (tokens as in step 4), and ``nvfp4_w4a4``
+   packed against the same RTN output kept as fake-quantized dense
+   weights, prefill and 8 teacher-forced decode steps under
+   ``full_f32_accumulation`` (tokens equal where the fake model's top-2
+   gap > 0.1, logits within 0.05 relative L2 at every step). Then four
+   slices at full width and depth, served as in step 5 (TTFT, graph and
+   eager-loop tok/s, bitwise equal, device busy and idle, launches per
+   step asserted), each RTN'd with a scale book (seconds, peak memory)
+   and packed losslessly (``dequantize`` equal to RTN's weights bitwise on
+   every linear; the head, which has no book entry, packs again, and its
+   largest difference is printed): ``w4a8_mse`` (the flagship with
+   ``w_mse=True`` and ``rtn(mse=True)``; B1-B4; layer 0's MSE objective
+   per group never above plain RTN's, and ||W - Q|| against RTN's by
+   linear), ``mxfp8_weight_only`` (B5's fp8 body, 65 a step),
+   ``nvfp4_w4a4`` (NVFP4 weights and acts on every linear and on the
+   attention matmuls, dequantize-then-matmul; B5 for the int8 head, 1 a
+   step) and ``mpq_w4a8`` (layers 0 and 15 promoted to int8 weights by
+   ``register_4_to_8bit``, served unstacked: B3 on every projection, 65 a
+   step, and 16 B4).
 The ``kernels`` JSON object, nvidia-smi's name and power limit and the
 slices' and serving engine's numbers (TTFT, decode tok/s over the graph,
 first-call and capture seconds, the eager loop's tok/s, peak memory; calibration seconds
-for ``spinquant_gptq``) come on the three lines before the last; the last
+for ``spinquant_gptq``, RTN seconds for the formats slices; the formats phase's 2-layer
+checks) come on the three lines before the last; the last
 is ``{"ok": true, "device": {...}}``.
 """
 
@@ -1163,6 +1185,8 @@ def compare_prefill_reduction(model, serving, batch, prompt, seed):
 def _clone_tree(node):
     if isinstance(node, dict):
         return {k: _clone_tree(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_clone_tree(v) for v in node]
     return node.clone()
 
 
@@ -1574,6 +1598,11 @@ def _slice_numbers(s):
     if "calib_s" in s:
         out.update(calib_s=s["calib_s"], calib_s_by_phase=s["phases"],
                    calib_peak_mem_gib=s["calib_peak_gib"])
+    if "rtn_s" in s:
+        out.update(rtn_s=s["rtn_s"], rtn_peak_mem_gib=s["rtn_peak_gib"],
+                   head_max_abs_diff=s["head_max_abs_diff"], launches_per_step=s["per_step"])
+    if "mse_vs_rtn_layer0" in s:
+        out["mse_vs_rtn_layer0"] = s["mse_vs_rtn_layer0"]
     return out
 
 
@@ -2143,6 +2172,239 @@ def phase_serving_engine(cfg, qcfg, params, seed: int, smi: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the quantizer formats (the MSE clip search, MX, NVFP4, MPQ)
+# ---------------------------------------------------------------------------
+
+# each slice: build_quant_config arguments, w_mse (the MSE clip search, RTN
+# run with mse=True too), head_act, an int8 KV cache?, MPQ (every linear of
+# the first and last layer promoted to int8 weights, register_4_to_8bit;
+# the packed layers then do not stack and are served unstacked), the
+# kernels of its path and their launches per decode step
+FORMATS = {
+    "w4a8_mse": dict(qargs=W4A8[0], mse=True, head_act=W4A8[1], int8_kv=True, mpq=False,
+                     kernels=W4A8_KERNELS, per_step=W4A8_APPEND_PER_STEP),
+    "mxfp8_weight_only": dict(qargs=("mxfp8_e4m3-g[128]-rw", None, None, "int8-g[128]-rw"),
+                              mse=False, head_act=None, int8_kv=False, mpq=False,
+                              kernels=["B5_dequant_matmul"],
+                              per_step={"dequant_matmul": B5_PER_STEP}),
+    "nvfp4_w4a4": dict(qargs=("nvfp4_e2m1-g[16]-rw", "nvfp4_e2m1-g[16]-rw", None,
+                              "int8-g[128]-rw"),
+                       mse=False, head_act=None, int8_kv=False, mpq=False,
+                       kernels=["B5_dequant_matmul"], per_step={"dequant_matmul": 1}),
+    "mpq_w4a8": dict(qargs=W4A8[0], mse=False, head_act=W4A8[1], int8_kv=True, mpq=True,
+                     kernels=["B3_w4a8_flat", "B4_decode_attention_append"],
+                     per_step={"w4a8_flat": B5_PER_STEP, "decode_attention_append": LAYERS}),
+}
+# the nvfp4_w4a4 check at 2 layers: packed against fake-quantized weights.
+# Prefill runs the same bf16 matmuls on bitwise-equal weights; decode
+# multiplies packed weights in f32 (dequantize, then the matmul, as JAX's
+# dequant_matmul_xla), the fake ones in bf16; both under
+# full_f32_accumulation, or cuBLAS may reduce the fake model's bf16 products
+# in bf16 (5-11 % relative L2 between the two at 2 layers on an H100). An
+# NVFP4 act code that flips on a last-bit difference moves its whole group.
+# Held: greedy tokens equal wherever the fake model's top-2 gap exceeds
+# NVFP4_GAP, and the logits' relative L2 difference at most NVFP4_REL_L2 at
+# every step.
+NVFP4_GAP, NVFP4_REL_L2 = 0.1, 0.05
+
+
+def format_serving(name):
+    f = FORMATS[name]
+    return (f["qargs"], f["head_act"], f["int8_kv"])
+
+
+def format_config(name, layers: int):
+    from llm_compressor_tpu_torch.models.transformer import SLOTS, op_names
+    from llm_compressor_tpu_torch.qformats import build_quant_config, register_4_to_8bit
+
+    f = FORMATS[name]
+    cfg = flagship_cfg(layers)
+    qcfg = build_quant_config(*f["qargs"], w_mse=f["mse"], head_act=f["head_act"])
+    if f["mpq"]:
+        qcfg = register_4_to_8bit(qcfg, [f"{op_names(cfg, i)[s]}.weight"
+                                         for i in (0, layers - 1) for s in SLOTS])
+    return cfg, qcfg
+
+
+def build_format(name: str, layers: int, seed: int, keep_layer0: bool = False):
+    """Random full-width weights from ``seed`` -> RTN (``mse`` as the slice
+    says) with a scale book -> ``pack_model`` with the book -> fuse (->
+    stack, unless MPQ). Packing must be lossless: ``dequantize`` of every
+    packed linear equals RTN's fake-quantized weight bitwise. The head has
+    no book entry and packs again from its fake-quantized values (its
+    largest difference is reported). Returns (cfg, qcfg, params, info):
+    RTN's seconds, peak memory and launches (counts set to 0 just before);
+    with ``keep_layer0`` layer 0's weights before RTN, after it and its
+    book entries."""
+    from llm_compressor_tpu_torch import kernels
+    from llm_compressor_tpu_torch.algorithms import pack_model, rtn
+    from llm_compressor_tpu_torch.algorithms.common import get_weight
+    from llm_compressor_tpu_torch.models import fuse_model, init_params, stack_model
+    from llm_compressor_tpu_torch.models.transformer import SLOTS
+    from llm_compressor_tpu_torch.qformats import dequantize
+
+    f = FORMATS[name]
+    cfg, qcfg = format_config(name, layers)
+    params = init_params(cfg, seed=seed)
+    info: dict = {}
+    if keep_layer0:
+        info["layer0_w"] = {s: get_weight(params["layers"][0], s).clone() for s in SLOTS}
+    book = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    rtn(params, cfg, qcfg, mse=f["mse"], scale_book=book)
+    torch.cuda.synchronize()
+    info.update(rtn_s=time.perf_counter() - t0, rtn_counts=kernels.launch_counts(),
+                rtn_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    fake = {(i, s): get_weight(lp, s) for i, lp in enumerate(params["layers"]) for s in SLOTS}
+    head_fake = params["embed"]["weight"]
+    pack_model(params, cfg, qcfg, scale_book=book)
+    for (i, s), w in fake.items():
+        if not torch.equal(dequantize(get_weight(params["layers"][i], s)), w):
+            raise AssertionError(f"{name}: packing layer {i} {s} with RTN's scale book is not "
+                                 "lossless")
+    head = dequantize(params["lm_head"]["weight"])
+    info["head_max_abs_diff"] = float((head.float() - head_fake.float()).abs().max())
+    del head
+    if keep_layer0:
+        info["layer0_q"] = {s: fake[(0, s)] for s in SLOTS}
+        info["layer0_book"] = {s: book[(0, s)] for s in SLOTS}
+    del fake, book
+    params = fuse_model(params, cfg, qcfg)
+    return cfg, qcfg, params if f["mpq"] else stack_model(params), info
+
+
+def check_mse_layer0(cfg, qcfg, info):
+    """Layer 0's seven linears of ``w4a8_mse``: per group of 128, the MSE
+    objective sum |Q(W) - W|**2.4 (f32, as the search scores it) at the
+    search's pick must not exceed plain absmax RTN's (the search's own
+    first candidate, p = 1; a tie passes). Returns, per linear, the groups
+    the search clipped and ||W - Q_mse||_F / ||W - Q_rtn||_F, Q_rtn from
+    RTN without the search."""
+    from dataclasses import replace
+
+    from llm_compressor_tpu_torch.algorithms.common import weight_quantizer_for
+    from llm_compressor_tpu_torch.qformats import quantize as qz
+
+    out = {}
+    for s, W in info["layer0_w"].items():
+        q = weight_quantizer_for(cfg, qcfg, 0, s, mse=True)
+        plain = replace(q, mse=False)
+        xb, _, axes = qz.block_for(q, W)
+        x32 = xb.float()
+
+        def objective(sc, z):
+            dq = qz.fake_quantize_blocked(q, x32, sc, z, jitted=True)
+            return (dq - x32).abs().pow(2.4).sum(axes, keepdim=True)
+
+        s_mse, z_mse = info["layer0_book"][s]
+        s_rtn, z_rtn = qz.find_params_blocked(plain, xb, axes, jitted=True)
+        worse = int((objective(s_mse, z_mse) > objective(s_rtn, z_rtn)).sum())
+        if worse:
+            raise AssertionError(f"w4a8_mse layer 0 {s}: the MSE objective of {worse} groups "
+                                 "is above plain RTN's")
+        q_rtn, _ = qz.quantize_dequant_with_params(plain, W)
+        err = lambda Q: torch.linalg.norm((W.float() - Q.float()).flatten())
+        out[s] = {"ratio": float(err(info["layer0_q"][s]) / err(q_rtn)),
+                  "clipped_groups": int((s_mse < s_rtn).sum()), "groups": s_mse.numel()}
+    return out
+
+
+def check_nvfp4_packed_vs_fake(seed: int):
+    """``nvfp4_w4a4`` at 2 layers, full width: the packed model (its served
+    form, B5 for the int8 head) against the same RTN output kept as dense
+    fake-quantized weights (no kernel), 16 prompts of 32 tokens, prefill
+    and 8 decode steps, both fed the fake model's greedy tokens, with f32
+    accumulation (``full_f32_accumulation``). Greedy
+    tokens must agree wherever the fake model's top-2 gap exceeds
+    NVFP4_GAP, and each step's logits must lie within NVFP4_REL_L2
+    relative L2 of the fake model's."""
+    from llm_compressor_tpu_torch import kernels
+    from llm_compressor_tpu_torch.algorithms import pack_model, rtn
+    from llm_compressor_tpu_torch.device import full_f32_accumulation
+    from llm_compressor_tpu_torch.engine import decode_step, prefill
+    from llm_compressor_tpu_torch.models import fuse_model, init_params, stack_model
+
+    cfg, qcfg = format_config("nvfp4_w4a4", 2)
+    params = init_params(cfg, seed=seed)
+    rtn(params, cfg, qcfg)
+    fake = stack_model(fuse_model(_clone_tree(params), cfg, qcfg))
+    pack_model(params, cfg, qcfg)
+    packed = stack_model(fuse_model(params, cfg, qcfg))
+    B, T, steps = 16, 32, 8
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+    def run(p, feed=None):
+        cache = new_cache(cfg, B, 64, format_serving("nvfp4_w4a4"))
+        with full_f32_accumulation():
+            logits, cache = prefill(p, toks, cache, cfg=cfg, qcfg=qcfg)
+            out = [logits]
+            for i in range(steps):
+                tok = torch.argmax(logits, -1).to(torch.int32)[:, None] if feed is None \
+                    else feed[i]
+                logits, cache = decode_step(p, tok, cache, cfg=cfg, qcfg=qcfg, graph=False)
+                out.append(logits)
+        return out
+
+    kernels.reset_counts()
+    ref = run(fake)
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"the fake-quantized model launched {kernels.launch_counts()}")
+    got = run(packed, [torch.argmax(lg, -1).to(torch.int32)[:, None] for lg in ref[:-1]])
+    counts = kernels.launch_counts()
+    if counts["dequant_matmul"] != 1 + steps or sum(counts.values()) != 1 + steps:
+        raise AssertionError(f"the packed model launched {counts}, not one B5 per head")
+    rel = [float(torch.linalg.norm(a - b) / torch.linalg.norm(a)) for a, b in zip(ref, got)]
+    checked = agree = 0
+    for a, b in zip(ref, got):
+        if not bool(torch.isfinite(b).all()):
+            raise AssertionError("non-finite logits in the packed nvfp4 model")
+        top2 = torch.topk(a, 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > NVFP4_GAP
+        checked += int(sure.sum())
+        agree += int((sure & (torch.argmax(a, -1) == torch.argmax(b, -1))).sum())
+    if agree != checked or checked == 0 or max(rel) > NVFP4_REL_L2:
+        raise AssertionError(f"nvfp4 packed vs fake: {agree}/{checked} confident tokens agree, "
+                             f"relative L2 by step {rel}")
+    return {"confident_tokens_equal": agree, "tokens": (steps + 1) * B,
+            "rel_l2_by_step": rel,
+            "max_abs_diff": max(float((a - b).abs().max()) for a, b in zip(ref, got))}
+
+
+def phase_formats(seed: int):
+    """Phase 9: the 2-layer checks of ``mxfp8_weight_only`` (kernel path
+    against plain) and ``nvfp4_w4a4`` (packed against fake-quantized), then
+    the four slices at full width and depth, each built by
+    :func:`build_format` and served as ``phase_slice`` serves the others."""
+    out = {}
+    checked, total, max_err, _ = check_reduced_depth(
+        seed, format_serving("mxfp8_weight_only"), FORMATS["mxfp8_weight_only"]["kernels"])
+    out["mxfp8_reduced_depth"] = {"confident_tokens_equal": checked, "tokens": total,
+                                  "max_abs_logit_diff": max_err}
+    out["nvfp4_packed_vs_fake"] = check_nvfp4_packed_vs_fake(seed)
+    torch.cuda.empty_cache()
+    slices = {}
+    for name, f in FORMATS.items():
+        cfg, qcfg, params, info = build_format(name, LAYERS, seed,
+                                               keep_layer0=name == "w4a8_mse")
+        if "layer0_w" in info:
+            info["mse_vs_rtn_layer0"] = check_mse_layer0(cfg, qcfg, info)
+            for k in ("layer0_w", "layer0_q", "layer0_book"):
+                del info[k]
+        s = phase_slice(seed, format_serving(name), f["kernels"], model=(cfg, qcfg, params),
+                        per_step=f["per_step"])
+        del s["params"], params
+        torch.cuda.empty_cache()
+        slices[name] = s | info
+    out["slices"] = slices
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2323,6 +2585,34 @@ def main() -> int:
         f"{ck['peak_mem_gib']:.2f} GiB on {smi}")
     log(f"checkpoint numbers: {json.dumps(ck)}")
 
+    fm = phase_formats(args.seed)
+    c = fm["mxfp8_reduced_depth"]
+    log(f"formats, mxfp8_weight_only at 2 layers (full width): {c['confident_tokens_equal']}/"
+        f"{c['tokens']} kernel-path tokens with a plain top-2 gap > 0.1 equal the plain "
+        f"path's; max |logit diff| {c['max_abs_logit_diff']:.4g}")
+    c = fm["nvfp4_packed_vs_fake"]
+    log(f"formats, nvfp4_w4a4 at 2 layers (full width), packed vs fake-quantized weights: "
+        f"{c['confident_tokens_equal']}/{c['tokens']} tokens with a top-2 gap > {NVFP4_GAP} "
+        f"equal; relative L2 of the logits by step {[round(x, 5) for x in c['rel_l2_by_step']]} "
+        f"(at most {NVFP4_REL_L2}); max |logit diff| {c['max_abs_diff']:.4g}")
+    for key, s in fm["slices"].items():
+        slices[key] = s
+        log(f"slice {key}: Llama-3.2-1B {FORMATS[key]['qargs']}, w_mse {FORMATS[key]['mse']}, "
+            f"MPQ {FORMATS[key]['mpq']}, {LAYERS} layers: RTN {s['rtn_s']:.2f} s (peak "
+            f"{s['rtn_peak_gib']:.2f} GiB), packed losslessly (head re-packed, max |diff| "
+            f"{s['head_max_abs_diff']:.4g}); batch {BATCH}, prompt {PROMPT}: prefill (TTFT) "
+            f"{s['ttft_ms']:.2f} ms, {STEPS} decode steps as one CUDA graph {s['decode_ms']:.2f} "
+            f"ms = {s['decode_tok_s']:.1f} tok/s (first call {s['first_call_s']:.2f} s, capture "
+            f"{s['capture_s']:.2f} s; eager loop {s['loop_decode_tok_s']:.1f} tok/s, bitwise "
+            f"equal), peak memory {s['peak_mem_gib']:.2f} GiB on {smi}; launches "
+            f"{s['counts']}, per decode step {s['per_step']}")
+        log(f"slice {key} decode profile (one replay of the {STEPS}-step graph, "
+            f"torch.profiler): {json.dumps(s['profile'])}")
+        if "mse_vs_rtn_layer0" in s:
+            log(f"slice {key}: layer 0, MSE objective never above plain RTN's in any group; "
+                f"||W - Q_mse|| / ||W - Q_rtn|| and clipped groups by linear: "
+                f"{json.dumps(s['mse_vs_rtn_layer0'])}")
+
     metrics = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = lambda c: {k: c[k] for k in EXTRA_METRICS if k in c}
     runs = slices | {"actq_entry": actq}
@@ -2341,7 +2631,9 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"slices": {k: _slice_numbers(v) for k, v in slices.items()},
-                      "serving_engine": served}), flush=True)
+                      "serving_engine": served,
+                      "formats_checks": {k: v for k, v in fm.items() if k != "slices"}}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),
           flush=True)
     return 0

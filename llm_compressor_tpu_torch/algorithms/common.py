@@ -1,15 +1,14 @@
 """Shared helpers for the weight-quantization algorithms (port of
-``algorithms/common.py``): slot paths, quantizer resolution, the
-sequential calibration groups and the lm_head's RTN.
-
-The port's :class:`~..qformats.Quantizer` has no MSE clip search yet
-(ROADMAP.md queue A item 2), so every ``mse`` argument accepts ``False``
-only.
+``algorithms/common.py``): slot paths, quantizer resolution (MPQ-aware,
+with the algorithm's ``mse`` flag, the MSE clip search, applied as the JAX
+package applies it), the sequential calibration groups and the lm_head's
+RTN.
 """
 
 from __future__ import annotations
 
 import time
+from dataclasses import replace
 from typing import List
 
 import torch
@@ -60,22 +59,22 @@ def slot_tap(slot: str) -> str:
     return SLOT_TAP[slot]
 
 
-def check_mse(mse: bool) -> None:
-    if mse:
-        raise NotImplementedError(
-            "the MSE clip search is not ported yet: ROADMAP.md queue A item 2")
+def _with_mse(q: Quantizer, mse: bool) -> Quantizer:
+    """``q`` with its MSE flag set to the algorithm's (the reference's
+    ``w_clip``), which overrides the config's."""
+    if q.qtype != "dummy" and q.mse != mse:
+        q = replace(q, mse=mse)
+    return q
 
 
 def weight_quantizer_for(cfg: ModelConfig, qcfg: QuantConfig, layer_idx: int,
                          slot: str, mse: bool = False) -> Quantizer:
-    """The weight quantizer of a slot."""
-    check_mse(mse)
-    return qcfg.for_op(op_names(cfg, layer_idx)[slot], "linear").weight
+    """The weight quantizer of a slot (MPQ overrides resolved by op name)."""
+    return _with_mse(qcfg.for_op(op_names(cfg, layer_idx)[slot], "linear").weight, mse)
 
 
 def head_quantizer(qcfg: QuantConfig, mse: bool = False) -> Quantizer:
-    check_mse(mse)
-    return qcfg.head.weight
+    return _with_mse(qcfg.head.weight, mse)
 
 
 def quantize_head_weight(params, qcfg: QuantConfig, mse: bool = False) -> None:

@@ -19,7 +19,6 @@ from ..models.transformer import layer_ops
 from ..qformats.config import QuantConfig
 from .common import (
     PhaseTimer,
-    check_mse,
     get_weight,
     quantize_head_weight,
     sequential_groups,
@@ -37,8 +36,8 @@ def gptq(params, cfg: ModelConfig, ctx: CalibContext, qcfg: QuantConfig,
     each linear's exact (scales, zeros) under ``(layer, slot)`` for a
     lossless ``pack_model``; ``timings`` collects seconds for the
     ``hessians`` (layer passes and Hessians, ``advance`` included) and the
-    ``updates`` (OBS updates)."""
-    check_mse(mse)
+    ``updates`` (OBS updates). ``mse`` runs the MSE clip search in each
+    linear's parameter solve and in the head's RTN."""
     dev = ctx.hidden.device
     t = time.perf_counter()
     for i, lp in enumerate(params["layers"]):
@@ -49,7 +48,7 @@ def gptq(params, cfg: ModelConfig, ctx: CalibContext, qcfg: QuantConfig,
             if timings is not None:
                 t = timings.add("hessians", t, dev)
             for slot in group:
-                qz = weight_quantizer_for(cfg, qcfg, i, slot)
+                qz = weight_quantizer_for(cfg, qcfg, i, slot, mse)
                 if qz.qtype == "dummy":
                     continue
                 W = get_weight(lp, slot)
@@ -64,6 +63,6 @@ def gptq(params, cfg: ModelConfig, ctx: CalibContext, qcfg: QuantConfig,
         advance(ctx, lp, i, ops)
         if timings is not None:
             t = timings.add("hessians", t, dev)
-    quantize_head_weight(params, qcfg)
+    quantize_head_weight(params, qcfg, mse)
     if timings is not None:
         timings.add("updates", t, dev)

@@ -65,8 +65,8 @@ def _permute_sym(M, perm, group):
 
 def _fq_cols(q: Quantizer, w: torch.Tensor, scales, zeros):
     """Fake-quantize an (N, g) column group with fixed per-row parameters
-    (N, 1, 1): blocked as (N, 1, g)."""
-    return fake_quantize_blocked(q, w[:, None, :], scales, zeros)[:, 0, :]
+    (N, 1, 1): blocked as (N, 1, g); rounded as the jitted JAX core."""
+    return fake_quantize_blocked(q, w[:, None, :], scales, zeros, jitted=True)[:, 0, :]
 
 
 def hessian_inverse_factor(H: torch.Tensor, percdamp: float = 0.01) -> torch.Tensor:

@@ -37,7 +37,7 @@ from ..capture.pipeline import capture_layer0
 from ..kernels.hadamard import random_hadamard_matrix
 from ..models.config import ModelConfig
 from ..qformats.config import QuantConfig
-from .common import PhaseTimer, check_mse, get_bias, get_weight, set_bias, set_weight
+from .common import PhaseTimer, get_bias, get_weight, set_bias, set_weight
 from .gptq import gptq
 
 
@@ -136,7 +136,6 @@ def spinquant(params, cfg: ModelConfig, calib_tokens, qcfg: QuantConfig,
             "forward) is not ported yet: ROADMAP.md queue A item 9")
     if mode != "hadamard":
         raise ValueError(f"unknown SpinQuant mode {mode!r}")
-    check_mse(mse)
     dev = params["embed"]["weight"].device
     t = time.perf_counter()
 
@@ -154,5 +153,5 @@ def spinquant(params, cfg: ModelConfig, calib_tokens, qcfg: QuantConfig,
     ctx = capture_layer0(params, cfg, calib_tokens, chunk=chunk)
     if timings is not None:
         timings.add("hessians", t, dev)
-    gptq(params, cfg, ctx, qcfg, scale_book=scale_book, timings=timings)
+    gptq(params, cfg, ctx, qcfg, mse=mse, scale_book=scale_book, timings=timings)
     return cfg

@@ -68,6 +68,7 @@ from ..models.transformer import (
     mlp,
     project_qkv,
     rope_for_positions,
+    scan_segments,
 )
 from ..qformats import QuantConfig
 from . import graph as graphs
@@ -253,11 +254,11 @@ def fresh_path_ok(params, cfg: ModelConfig, cache: KVCache,
                   qcfg: Optional[QuantConfig]) -> bool:
     """Whether the side-block decode can run (JAX :907-928): stacked
     layers, an int8 cache, and int8 per-token acts on both attention
-    matmuls of every layer."""
+    matmuls in every run of equal layers (``scan_segments``)."""
     if params.get("layers_stacked") is None or not cache.quantized:
         return False
     return all(ops is not None and acts_mode(ops.qk, ops.sv) is True
-               for ops in (layer_ops(cfg, qcfg, i) for i in range(cfg.num_layers)))
+               for _, _, ops in scan_segments(cfg, qcfg))
 
 
 def _fresh_attention(lp, cfg: ModelConfig, layer: int, x, cache: KVCache, fresh: FreshKV,

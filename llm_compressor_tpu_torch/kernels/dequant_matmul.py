@@ -39,6 +39,7 @@ from typing import Optional
 
 import torch
 
+from ..device import full_f32_accumulation
 from ..qformats.formats import ElemFormat
 from ..qformats.qtensor import QTensor, _unpack_nibbles, _unpack_nibbles_pairs, dequantize
 from . import _build
@@ -239,9 +240,17 @@ dequant_matmul_codes.last_grid = None
 
 def dequant_matmul_dense(x: torch.Tensor, qt: QTensor, bias=None) -> torch.Tensor:
     """Materialize the dequantized weight, then a float32-accumulated
-    matmul (JAX ``dequant_matmul_xla`` :304)."""
+    matmul (JAX ``dequant_matmul_xla`` :304: the product in x's dtype with
+    ``preferred_element_type=float32``). On the CPU both operands go to f32
+    (bf16 products are exact there); on the card the product runs in x's
+    dtype with cuBLAS's reductions in f32 (``full_f32_accumulation``), the
+    matmul a dense weight of the same values gets."""
     w = dequantize(qt)
-    y = torch.matmul(x.float(), w.float().t()).to(x.dtype)
+    if x.is_cuda:
+        with full_f32_accumulation():
+            y = torch.matmul(x, w.to(x.dtype).t())
+    else:
+        y = torch.matmul(x.float(), w.float().t()).to(x.dtype)
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y

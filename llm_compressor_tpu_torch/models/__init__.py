@@ -15,7 +15,10 @@ from .transformer import (
     fuse_model,
     head,
     layer_ops,
+    quant_uniform,
+    scan_segments,
     stack_model,
+    uniform_layers,
 )
 
 
@@ -44,5 +47,6 @@ __all__ = [
     "ModelConfig", "RopeScaling", "SUPPORTED_ARCHS", "from_hf_config", "to_hf_config",
     "init_params", "load_params_from_state_dict", "save_compressed", "load_compressed",
     "load_hf_checkpoint", "forward", "embed", "head", "tiny_config", "LayerOps",
-    "layer_ops", "fuse_model", "stack_model",
+    "layer_ops", "fuse_model", "stack_model", "scan_segments", "uniform_layers",
+    "quant_uniform",
 ]

@@ -201,7 +201,9 @@ def load_compressed(path, cfg: ModelConfig, qcfg: Optional[QuantConfig] = None,
     unless told otherwise): the float leaves from ``model.safetensors`` in
     ``cfg.dtype``; with ``qcfg``, each layer's packed weight rebuilt from
     ``packed.npz`` as the QTensor the JAX package rebuilds (the exact
-    calibrated payload, no re-quantization)."""
+    calibrated payload, no re-quantization), its quantizer resolved per op
+    through ``qcfg.for_op``, so that an MPQ plan's overrides apply. Every
+    format's codes load: int4 / int8, fp8, fp4 e2m1, MX and NVFP4."""
     from ..algorithms.common import SLOT_PATH
     from ..qformats.blocking import resolve_group
     from .transformer import arch_slots, op_names

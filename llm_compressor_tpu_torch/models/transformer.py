@@ -15,6 +15,13 @@ package's taps replace torch forward hooks. ``fuse_model``
 concatenates q|k|v and gate|up; ``stack_model`` stacks the layers along a
 leading axis, and :func:`layer_view` gives one layer of the stack (dense
 tensors as views, packed weights as :class:`~.layers.LayerSlice`).
+
+The layers run in a Python loop, each with its own :class:`LayerOps`, so a
+mixed-precision (MPQ) plan needs no plan of its own here;
+:func:`scan_segments` gives the runs of equal layers that the JAX package
+scans one by one, which the engine's checks walk as it does. Packed
+weights of different formats do not stack (in neither package): such a
+model is served unstacked.
 """
 
 from __future__ import annotations
@@ -280,6 +287,11 @@ def _stack(nodes):
     if isinstance(n0, dict):
         return {k: _stack([n[k] for n in nodes]) for k in n0}
     if isinstance(n0, QTensor):
+        if any(n.quantizer != n0.quantizer or n.codes.shape != n0.codes.shape
+               or n.pair_planes != n0.pair_planes or (n.zeros is None) != (n0.zeros is None)
+               for n in nodes):
+            raise ValueError("the layers' packed weights differ in format (an MPQ plan): "
+                             "serve the model unstacked")
         return replace(n0, codes=torch.stack([n.codes for n in nodes]),
                        scales=torch.stack([n.scales for n in nodes]),
                        zeros=None if n0.zeros is None
@@ -289,7 +301,8 @@ def _stack(nodes):
 
 def stack_model(params: Params) -> Params:
     """Serving form: the per-layer list becomes one stacked dict
-    ``layers_stacked`` (leading L axis)."""
+    ``layers_stacked`` (leading L axis). Raises ``ValueError`` when the
+    layers' packed weights differ in format."""
     new = dict(params)
     new["layers_stacked"] = _stack(new.pop("layers"))
     return new
@@ -325,3 +338,40 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     for i, lp in iter_layers(params):
         h = decoder_layer(lp, cfg, h, cos, sin, mask, layer_ops(cfg, qcfg, i))
     return head(params, cfg, h, qcfg)
+
+
+# ---------------------------------------------------------------------------
+# Layer uniformity (the JAX package's scan plan)
+# ---------------------------------------------------------------------------
+
+
+def quant_uniform(cfg: ModelConfig, qcfg: Optional[QuantConfig]) -> bool:
+    """True when every layer resolves the same quantizers."""
+    if qcfg is not None and qcfg.overrides:
+        o0 = layer_ops(cfg, qcfg, 0)
+        return all(layer_ops(cfg, qcfg, i) == o0 for i in range(cfg.num_layers))
+    return True
+
+
+def uniform_layers(cfg: ModelConfig, qcfg: Optional[QuantConfig]) -> bool:
+    """True when every layer has the same static behaviour. The Llama
+    family's layers differ by their quantizers only (the JAX function also
+    checks the sliding windows and local rope of other architectures)."""
+    return quant_uniform(cfg, qcfg)
+
+
+def scan_segments(cfg: ModelConfig, qcfg: Optional[QuantConfig]):
+    """Maximal runs of contiguous layers with equal :class:`LayerOps`:
+    ``[(start, stop, ops), ...]`` covering ``range(num_layers)``, the runs
+    the JAX package scans one by one."""
+    if qcfg is None or not qcfg.overrides:
+        return [(0, cfg.num_layers, layer_ops(cfg, qcfg, 0))]
+    segs = []
+    start, cur = 0, layer_ops(cfg, qcfg, 0)
+    for i in range(1, cfg.num_layers):
+        o = layer_ops(cfg, qcfg, i)
+        if o != cur:
+            segs.append((start, i, cur))
+            start, cur = i, o
+    segs.append((start, cfg.num_layers, cur))
+    return segs

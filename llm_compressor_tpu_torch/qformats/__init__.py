@@ -8,8 +8,12 @@ from .config import (
     build_quant_config,
     parse_qspec,
     qspec_string,
+    register_4_to_8bit,
+    register_8_to_4bit,
+    register_org_config,
 )
 from .formats import ElemFormat, FormatParams, format_params
+from .numerics import quantize_elemwise
 from .quantize import (
     Quantizer,
     fake_quantize_blocked,
@@ -18,14 +22,14 @@ from .quantize import (
     quantize_dequant,
     quantize_dequant_with_params,
 )
-from .qtensor import QTensor, dequantize, pair_planes_for, quantize_pack
+from .qtensor import QTensor, dequantize, pair_planes_for, quantize_pack, to_group_halves
 
 __all__ = [
     "BlockMeta", "block", "unblock", "resolve_group",
-    "ElemFormat", "FormatParams", "format_params",
+    "ElemFormat", "FormatParams", "format_params", "quantize_elemwise",
     "Quantizer", "find_params", "find_params_blocked",
     "fake_quantize_blocked", "quantize_dequant", "quantize_dequant_with_params",
-    "QTensor", "quantize_pack", "dequantize", "pair_planes_for",
+    "QTensor", "quantize_pack", "dequantize", "pair_planes_for", "to_group_halves",
     "OpQuantConfig", "QuantConfig", "build_quant_config", "parse_qspec",
-    "qspec_string",
+    "qspec_string", "register_4_to_8bit", "register_8_to_4bit", "register_org_config",
 ]

@@ -13,6 +13,8 @@ import enum
 from dataclasses import dataclass
 from functools import lru_cache
 
+FP32_MIN_NORMAL = 2.0 ** -126   # the smallest normal float32
+
 
 class ElemFormat(enum.Enum):
     int4 = "int4"
@@ -29,6 +31,11 @@ class ElemFormat(enum.Enum):
             return ElemFormat(fmt.lower())
         except ValueError as e:
             raise ValueError(f"Unknown element format: {fmt!r}") from e
+
+    @property
+    def bits(self) -> int:
+        """Storage bits per element."""
+        return {"int4": 4, "int8": 8, "fp4_e2m1": 4, "fp8_e4m3": 8, "fp8_e5m2": 8}[self.value]
 
 
 @dataclass(frozen=True)

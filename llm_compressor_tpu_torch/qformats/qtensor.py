@@ -14,19 +14,22 @@ moves between the two unchanged:
 * Storage is flat: codes for an (N, C) weight are (N, C/2) uint8 or (N, C)
   int8 / fp8; ``scales`` / ``zeros`` are (N, G) float32. The stacked
   serving form adds a leading layer axis to every array.
+* fp4 e2m1 codes (the fp, MX and NVFP4 formats) are 4-bit sign /
+  exponent / mantissa fields, ``sign << 3 | index on FP4_GRID``, two per
+  byte in the group-halves layout; MX-int4 and MX-int8 codes are the grid
+  values times ``2**(mbits - 2)`` (int4 biased by +8 in group halves,
+  int8 as is).
 * ``zeros``: the int formats keep them only with a zero point (in the
-  quantized domain, subtracted); the fp formats always keep them (a
-  real-domain midpoint, added; all zero without a zero point), as the JAX
-  package does.
-
-fp4 e2m1, MX and NVFP4 codes are queued in ROADMAP.md (queue A item 2);
-fp4 fake quantization is ported.
+  quantized domain, subtracted); the fp, MX and NVFP formats always keep
+  them (a real-domain midpoint, added; all zero without a zero point), as
+  the JAX package does.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
+from functools import lru_cache
 from typing import Optional
 
 import torch
@@ -34,9 +37,11 @@ import torch
 from .blocking import BlockMeta, unblock
 from .formats import ElemFormat
 from .numerics import quantize_elemwise
-from .quantize import Quantizer, _check_ported, block_for, find_params_blocked
+from .quantize import Quantizer, block_for, find_params_blocked
 
 FP8_DTYPES = {ElemFormat.fp8_e4m3: torch.float8_e4m3fn, ElemFormat.fp8_e5m2: torch.float8_e5m2}
+# positive fp4 e2m1 values, index == 3-bit magnitude code (exp << 1 | mant)
+FP4_GRID = (0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0)
 
 
 @dataclass
@@ -126,10 +131,30 @@ def _flatten_groups(arr: torch.Tensor, a: int) -> torch.Tensor:
 
 
 def _check_packable(q: Quantizer) -> None:
-    _check_ported(q)
-    if q.qtype == "fp" and q.fmt not in FP8_DTYPES:
-        raise NotImplementedError(
-            f"{q.fmt.value} codes are not packed yet: ROADMAP.md queue A item 2")
+    if q.qtype not in ("int", "fp", "mx", "nvfp"):
+        raise ValueError(f"cannot pack qtype {q.qtype}")
+
+
+def _encode_fp4(x32: torch.Tensor) -> torch.Tensor:
+    """4-bit codes (sign << 3 | magnitude index) of values already on the
+    fp4 grid."""
+    sign = (x32 < 0).to(torch.uint8)
+    grid = torch.tensor(FP4_GRID[1:], dtype=torch.float32, device=x32.device)
+    idx = (torch.abs(x32)[..., None] >= grid).sum(-1).to(torch.uint8)
+    return (sign << 3) | idx
+
+
+@lru_cache(maxsize=None)
+def _fp4_values(device: torch.device) -> torch.Tensor:
+    """The 16 fp4 values by code, made once per device: a copy to the card
+    cannot run while a CUDA graph is being captured."""
+    return torch.tensor(FP4_GRID + tuple(-v for v in FP4_GRID), dtype=torch.float32,
+                        device=device)
+
+
+def _decode_fp4(codes4: torch.Tensor) -> torch.Tensor:
+    """f32 values of 4-bit fp4 codes (code 8 is -0.0)."""
+    return _fp4_values(codes4.device)[codes4.long()]
 
 
 def quantize_pack(q: Quantizer, x: torch.Tensor, scales: Optional[torch.Tensor] = None,
@@ -147,12 +172,22 @@ def quantize_pack(q: Quantizer, x: torch.Tensor, scales: Optional[torch.Tensor] 
     intra_axis = axes % xb.dim()
     pairs = pair_planes_for(q, xb.shape[meta.axis], xb.shape[intra_axis])
     z = zeros if zeros is not None else 0.0
-    if q.qtype == "fp":
-        qv = quantize_elemwise((xb.float() - z) / scales, q.params, round="nearest",
+    p = q.params
+    if q.qtype != "int":
+        qv = quantize_elemwise((xb.float() - z) / scales, p, round="nearest",
                                saturate_normals=True)
-        codes = qv.to(FP8_DTYPES[q.fmt])
+        if q.fmt in FP8_DTYPES:
+            codes = qv.to(FP8_DTYPES[q.fmt])
+        elif q.fmt == ElemFormat.fp4_e2m1:
+            codes = _pack_nibbles(_encode_fp4(qv), intra_axis)
+        else:  # MX int4 / int8: the grid in [-max_norm, max_norm] * 2**(mbits - 2)
+            iv = qv * 2.0 ** (p.mbits - 2)
+            if q.fmt == ElemFormat.int8:
+                codes = iv.to(torch.int8)
+            else:
+                codes = _pack_nibbles((iv + 8.0).to(torch.uint8), intra_axis)
     else:
-        qmax = float(q.params.int_max)
+        qmax = float(p.int_max)
         qv = torch.clamp(torch.round(xb.float() / scales + z), -qmax, qmax)
         if q.fmt == ElemFormat.int8:
             codes = qv.to(torch.int8)
@@ -179,9 +214,24 @@ def quantize_pack(q: Quantizer, x: torch.Tensor, scales: Optional[torch.Tensor] 
     )
 
 
+def to_group_halves(qt: QTensor) -> QTensor:
+    """The same int4 QTensor in the group-halves layout (a byte permutation)
+    when it is in pair planes; any other QTensor as it is."""
+    if not qt.pair_planes:
+        return qt
+    cs = qt.codes.shape
+    G = qt.scales.shape[-1]
+    gp = cs[-1] // G
+    a = len(cs) - 1
+    vals = _unpack_nibbles_pairs(qt.codes.reshape(tuple(cs[:-1]) + (G // 2, 2 * gp)), a)
+    legacy = _pack_nibbles(vals, a + 1)
+    return replace(qt, codes=legacy.reshape(cs).contiguous(), pair_planes=False)
+
+
 def unpack_int_codes(qt: QTensor) -> torch.Tensor:
     """Signed integer values (int8 tensor, blocked ``(.., G, g, ..)`` view
-    along the packed axis) of an int4/int8 QTensor."""
+    along the packed axis) of an int4/int8 QTensor (integer or MX grid
+    codes)."""
     a = qt.ngroups_axis
     G = qt.scales.shape[a]
     cs = qt.codes.shape
@@ -198,9 +248,10 @@ def unpack_int_codes(qt: QTensor) -> torch.Tensor:
 
 
 def dequantize(qt: QTensor) -> torch.Tensor:
-    """Plain dequantization: (code - z) * s for the int formats, code * s
-    + z for the fp formats, in f32, cast to ``qt.dtype`` (the kernels fuse
-    this into the matmul with their own roundings)."""
+    """Plain dequantization: (code - z) * s for the int formats, value * s
+    + z for the fp, MX and NVFP formats (an MX integer code's value is
+    ``code / 2**(mbits - 2)``), in f32, cast to ``qt.dtype`` (the kernels
+    fuse this into the matmul with their own roundings)."""
     q = qt.quantizer
     _check_packable(q)
     a = qt.ngroups_axis
@@ -209,10 +260,16 @@ def dequantize(qt: QTensor) -> torch.Tensor:
     grouped = lambda t: t.reshape(tuple(ss[:a]) + (G, -1) + tuple(ss[a + 1:]))
     scales_b = grouped(qt.scales)
     z = 0.0 if qt.zeros is None else grouped(qt.zeros)
-    if q.qtype == "fp":
-        vals = grouped(qt.codes).float() * scales_b + z
-    else:
+    if q.qtype == "int":
         vals = (unpack_int_codes(qt).float() - z) * scales_b
+    else:
+        if q.fmt in FP8_DTYPES:
+            qv = grouped(qt.codes).float()
+        elif q.fmt == ElemFormat.fp4_e2m1:
+            qv = _decode_fp4(_unpack_nibbles(grouped(qt.codes), a + 1))
+        else:
+            qv = unpack_int_codes(qt).float() / 2.0 ** (q.params.mbits - 2)
+        vals = qv * scales_b + z
     blocked = tuple(vals.shape)
     padded = math.prod(qt.blocked_shape) != math.prod(qt.shape)
     orig_len = qt.shape[a] if padded else blocked[a] * blocked[a + 1]

@@ -7,6 +7,11 @@ Config: a tiny Llama (hidden 128, intermediate 256, 4 heads / 2 KV heads,
 head_dim 32, 2 layers, vocab 256), float32 and bfloat16, RTN in each
 package from the same initial weights, then ``pack_model``.
 
+Formats: int4 (pair planes and group halves, with zero points), int8, fp8,
+MXINT4, NVFP4 (fp4 codes, fp8 group scales) and an MPQ plan (int4 layers
+and one int8 layer, each op's quantizer resolved through ``qcfg.for_op``;
+its packed layers are served unstacked, in both packages).
+
 Tolerances: none, apart from ``transformers``' logits.
 * files: ``model.safetensors`` and ``packed.npz`` hold the same names,
   dtypes, shapes and bytes as the JAX package's: the safetensors file byte
@@ -46,12 +51,14 @@ from llm_compressor_tpu.models.params import load_hf_checkpoint as j_load_hf
 from llm_compressor_tpu.models.params import save_compressed as j_save_compressed
 from llm_compressor_tpu.qformats import QTensor as JQTensor
 from llm_compressor_tpu.qformats import build_quant_config as jbuild
+from llm_compressor_tpu.qformats import register_4_to_8bit as j_register_4_to_8bit
 from llm_compressor_tpu_torch import algorithms as talg
 from llm_compressor_tpu_torch import engine as te
 from llm_compressor_tpu_torch import models as tm
 from llm_compressor_tpu_torch.convert import params_from_numpy
-from llm_compressor_tpu_torch.qformats import QTensor, dequantize
+from llm_compressor_tpu_torch.qformats import QTensor, dequantize, qspec_string
 from llm_compressor_tpu_torch.qformats import build_quant_config as tbuild
+from llm_compressor_tpu_torch.qformats import register_4_to_8bit as t_register_4_to_8bit
 from llm_compressor_tpu_torch.utils import safetensors_io
 from torch_port_util import jax_to_numpy, one_torch_thread  # noqa: F401
 
@@ -122,11 +129,19 @@ CASES = {
     "int8_channel": ("int8-g[-1]-rw", "int8-g[-1]-rw", None, True),
     "int8_g128_tied_head": ("int8-g[128]-rw", None, "int8-g[128]-rw", True),
     "int8_g128_untied_head": ("int8-g[128]-rw", None, "int8-g[128]-rw", False),
+    "mxint4": ("mxint4-g[32]-rw", None, None, True),
+    "nvfp4": ("nvfp4_e2m1-g[16]-rw", None, "int8-g[128]-rw", True),
+    "mpq_int4_int8": ("int4-g[64]-rw", "int8-g[-1]-rw", "int8-g[128]-rw", True),
 }
+# MPQ plans: the weights promoted to 8 bits (register_4_to_8bit), by case
+MPQ = {"mpq_int4_int8": [f"layers.1.{n}.weight" for n in (
+    "self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj", "self_attn.o_proj",
+    "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj")]}
 # served greedily in both packages (prefill + 3 steps); float32 only: the
 # JAX package's CPU backend has no bf16 x bf16 -> f32 dot
 SERVED = {("int4_pairs_w4a8", "float32"), ("int4_zp", "float32"),
-          ("int8_g128_untied_head", "float32")}
+          ("int8_g128_untied_head", "float32"), ("mxint4", "float32"), ("nvfp4", "float32"),
+          ("mpq_int4_int8", "float32")}
 FP8 = ["fp8_e4m3-g[64]-rw", "fp8_e5m2-g[64]-rw"]
 
 
@@ -135,10 +150,13 @@ def _configs(dtype, tied):
     return jm.tiny_config("llama", **over), tm.tiny_config("llama", **over)
 
 
-def _packed_pair(weight, act, head, tied, dtype, seed=0):
-    """The same initial weights, RTN and packed in each package."""
+def _packed_pair(weight, act, head, tied, dtype, seed=0, mpq=None):
+    """The same initial weights, RTN and packed in each package; ``mpq``
+    names the weights an MPQ plan promotes to 8 bits."""
     jcfg, tcfg = _configs(dtype, tied)
     jq, tq = jbuild(weight, act, None, head), tbuild(weight, act, None, head)
+    if mpq:
+        jq, tq = j_register_4_to_8bit(jq, mpq), t_register_4_to_8bit(tq, mpq)
     jp = jm.init_params(jcfg, jax.random.PRNGKey(seed))
     tp = params_from_numpy(jax_to_numpy(jp), "cpu")
     jalg.rtn(jp, jcfg, jq, verbose=False)
@@ -162,12 +180,12 @@ def _fields(qt) -> dict:
             d["codes"].dtype.kind not in "iu" else d["codes"]
         return dict(codes=codes, scales=d["scales"], zeros=d["zeros"], pair=d["pair_planes"],
                     shape=tuple(d["shape"]), blocked=tuple(d["blocked_shape"]),
-                    axes=(d["group_axis"], d["ngroups_axis"]))
+                    axes=(d["group_axis"], d["ngroups_axis"]), qspec=d["qspec"])
     codes = qt.codes.view(torch.uint8) if qt.codes.dtype.is_floating_point else qt.codes
     return dict(codes=codes.numpy(), scales=qt.scales.numpy(),
                 zeros=None if qt.zeros is None else qt.zeros.numpy(), pair=qt.pair_planes,
                 shape=tuple(qt.shape), blocked=tuple(qt.blocked_shape),
-                axes=(qt.group_axis, qt.ngroups_axis))
+                axes=(qt.group_axis, qt.ngroups_axis), qspec=qspec_string(qt.quantizer))
 
 
 def _assert_same_qtensor(a, b, what):
@@ -205,12 +223,16 @@ def _assert_same_files(dir_a, dir_b):
 
 
 def _serve_jax(jp, jcfg, jq):
-    p = jm.stack_model(jm.fuse_model(jp, jcfg, jq))
+    p = jm.fuse_model(jp, jcfg, jq)
+    if not jq.overrides:   # packed layers of two formats do not stack
+        p = jm.stack_model(p)
     return np.asarray(j_generate(p, jcfg, PROMPT, max_new_tokens=3, qcfg=jq))
 
 
 def _serve_port(tp, tcfg, tq):
-    p = tm.stack_model(tm.fuse_model(tp, tcfg, tq))
+    p = tm.fuse_model(tp, tcfg, tq)
+    if not tq.overrides:
+        p = tm.stack_model(p)
     return te.generate(p, tcfg, PROMPT, max_new_tokens=3, qcfg=tq)
 
 
@@ -218,7 +240,8 @@ def _serve_port(tp, tcfg, tq):
 @pytest.mark.parametrize("case", list(CASES))
 def test_checkpoint_round_trip(tmp_path, case, dtype):
     weight, act, head, tied = CASES[case]
-    jcfg, tcfg, jq, tq, jp, tp = _packed_pair(weight, act, head, tied, dtype)
+    jcfg, tcfg, jq, tq, jp, tp = _packed_pair(weight, act, head, tied, dtype,
+                                              mpq=MPQ.get(case))
     # RTN packs the same payload in both packages (eager rounding on the
     # linears, the jitted rounding on the head)
     for i in range(jcfg.num_layers):

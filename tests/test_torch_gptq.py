@@ -243,12 +243,30 @@ def test_whole_gptq_timings(whole_gptq):
 
 
 def test_mse_raises():
-    jcfg, tcfg, _, tp = _models()
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        talg.common.weight_quantizer_for(tcfg, tbuild(*QARGS), 0, "q", mse=True)
-    ctx = tpipe.capture_layer0(tp, tcfg, t_synth(2, 8, tcfg.vocab_size))
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        talg.gptq(tp, tcfg, ctx, tbuild(*QARGS), mse=True)
+    """``mse=True`` used to raise; it now runs the MSE clip search, as the
+    JAX package does: the slot's quantizer carries the flag, the whole GPTQ
+    holds teacher-forced against JAX's functions with the MSE quantizers
+    (``check_gptq_chain(mse=True)``), layer 0's scales equal JAX's whole
+    run's bitwise, and the tied head is RTN'd with the search (jitted)
+    bitwise as in JAX."""
+    jcfg, tcfg, jp, tp = _models(seed=3)
+    jq, tq = jbuild(*QARGS), tbuild(*QARGS)
+    assert talg.common.weight_quantizer_for(tcfg, tq, 0, "q", mse=True).mse
+    assert not talg.common.weight_quantizer_for(tcfg, tq, 0, "q").mse
+    toks = j_synth(4, 32, jcfg.vocab_size, 4)
+    jsb, tsb = {}, {}
+    jctx = jpipe.capture_layer0(jp, jcfg, jnp.asarray(toks))
+    jhidden0 = np.asarray(jctx.hidden)
+    jalg.gptq(jp, jcfg, jctx, jq, mse=True, scale_book=jsb, verbose=False)
+    with recording_gptq_chain() as calls:
+        talg.gptq(tp, tcfg, tpipe.capture_layer0(tp, tcfg, toks), tq, mse=True, scale_book=tsb)
+    gptq_w = {(i, s): talg.common.get_weight(lp, s)
+              for i, lp in enumerate(tp["layers"]) for s in SLOTS}
+    check_gptq_chain(calls, jcfg, jq, gptq_w, tsb, jhidden0, mse=True)
+    for s in SLOTS:
+        np.testing.assert_array_equal(tsb[(0, s)][0].numpy(), np.asarray(jsb[(0, s)][0]))
+    jh = params_from_numpy(jax_to_numpy(jp["embed"]), "cpu")["weight"]
+    np.testing.assert_array_equal(tp["embed"]["weight"].numpy(), jh.numpy())
 
 
 def test_full_f32_matmul_turns_tf32_off_and_restores():

@@ -17,8 +17,6 @@ powers of two. Those values are held to 2**-20 relative (and a tie there can
 round the other way); every other format and exponent is bitwise.
 """
 
-import dataclasses
-
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -142,19 +140,27 @@ def test_build_quant_config_slots():
 
 @pytest.mark.parametrize("spec", ["nvfp4_e2m1-g[16]-rw", "mxint4-g[32]-rw"])
 def test_float_formats_not_ported_yet(spec):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tq.quantize_dequant(tq.parse_qspec(spec), torch.ones(4, 32))
+    """Once refused, the MX and NVFP4 quantizers now run: the port's
+    ``quantize_dequant`` equals the jitted JAX one bitwise (the formats'
+    own tests are in test_torch_formats.py)."""
+    x = _x((64, 256), seed=6)
+    a = np.asarray(jq.quantize_dequant(jq.parse_qspec(spec), jnp.asarray(x)))
+    b = tq.quantize_dequant(tq.parse_qspec(spec), torch.from_numpy(x))
+    np.testing.assert_array_equal(a, b.numpy())
 
 
 @pytest.mark.parametrize("spec", ["fp4_e2m1-g[32]-rw", "fp4_e2m1-g[16]-zp-cw"])
 def test_fp4_codes_not_packed_yet(spec):
-    """fp4 fake quantization is ported (above); its packed codes are not."""
-    q = tq.parse_qspec(spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tq.quantize_pack(q, torch.ones(32, 64))
-    fp8 = tq.quantize_pack(tq.parse_qspec("fp8_e4m3-g[16]-rw"), torch.ones(32, 64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tq.dequantize(dataclasses.replace(fp8, quantizer=q))
+    """Once refused, fp4 codes now pack: the same bytes, scales and zeros as
+    the JAX package, and ``dequantize`` gives its values bitwise."""
+    x = _x((32, 64), seed=7)
+    a = jq.quantize_pack(jq.parse_qspec(spec), jnp.asarray(x))
+    b = tq.quantize_pack(tq.parse_qspec(spec), torch.from_numpy(x))
+    assert b.codes.dtype == torch.uint8 and not b.pair_planes
+    np.testing.assert_array_equal(np.asarray(a.codes), b.codes.numpy())
+    np.testing.assert_array_equal(np.asarray(a.scales), b.scales.numpy())
+    np.testing.assert_array_equal(np.asarray(a.zeros), b.zeros.numpy())
+    np.testing.assert_array_equal(np.asarray(jq.dequantize(a)), tq.dequantize(b).numpy())
 
 
 # powers of two and their f32 neighbours (the exponent's edge cases), ties

@@ -268,11 +268,43 @@ def test_non_llama_and_optimize_raise():
     qcfg = tbuild(*QARGS)
     with pytest.raises(NotImplementedError, match="queue A item 9"):
         talg.spinquant(tp, tcfg, toks, qcfg, mode="optimize")
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        talg.spinquant(tp, tcfg, toks, qcfg, mse=True)
     # a config of another family (the constructor refuses one today; the
     # algorithm keeps refusing it once more families are ported)
     other = dataclasses.replace(tcfg)
     object.__setattr__(other, "arch", "opt")
     with pytest.raises(NotImplementedError, match="llama family"):
         talg.spinquant(tp, other, toks, qcfg)
+
+
+def test_spinquant_mse_matches_jax(tmp_path):
+    """``spinquant(mse=True)``, refused before, threads the MSE clip search
+    into GPTQ and the head's RTN as the JAX package does: both packages
+    from one R.npz, the port's GPTQ chain teacher-forced against JAX's
+    functions with the MSE quantizers (``check_gptq_chain(mse=True)``),
+    layer 0's scale book and the untied head (RTN with the search) equal to JAX's whole
+    run bitwise."""
+    jcfg, tcfg, jp, tp = _models(seed=5)
+    R1, R2s = _rotations(jcfg, seed=6)
+    jsq.save_rotations(tmp_path / "R.npz", R1, R2s)
+    jq, tq = jbuild(*QARGS, head_act=HEAD_ACT), tbuild(*QARGS, head_act=HEAD_ACT)
+    calib = synthetic_tokens(4, 32, jcfg.vocab_size, 2)
+    jsb, tsb, jhidden0 = {}, {}, []
+
+    def capture(*args, **kw):
+        ctx = jpipe.capture_layer0(*args, **kw)
+        jhidden0.append(np.asarray(ctx.hidden))
+        return ctx
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jsq, "capture_layer0", capture)
+        jcfg2 = jalg.spinquant(jp, jcfg, calib, jq, rotation_path=str(tmp_path), mse=True,
+                               verbose=False, scale_book=jsb)
+    with recording_gptq_chain() as calls:
+        talg.spinquant(tp, tcfg, calib, tq, rotation_path=str(tmp_path), mse=True,
+                       scale_book=tsb)
+    gptq_w = {(i, s): get_weight(lp, s) for i, lp in enumerate(tp["layers"]) for s in SLOTS}
+    check_gptq_chain(calls, jcfg2, jq, gptq_w, tsb, jhidden0[0], mse=True)
+    for s in SLOTS:
+        np.testing.assert_array_equal(tsb[(0, s)][0].numpy(), np.asarray(jsb[(0, s)][0]))
+    np.testing.assert_array_equal(tp["lm_head"]["weight"].numpy(),
+                                  np.asarray(jp["lm_head"]["weight"]))

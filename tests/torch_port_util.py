@@ -20,9 +20,10 @@ from llm_compressor_tpu_torch.capture import pipeline as tpipe
 
 
 def jax_qspec(q) -> str:
-    """DSL string of a JAX Quantizer (int formats)."""
+    """DSL string of a JAX Quantizer (``qformats.config.qspec_string``)."""
+    prefix = {"int": "", "fp": "", "mx": "mx", "nvfp": "nv"}[q.qtype]
     zp = "zp-" if q.zero_point else ""
-    return f"{q.fmt.value}-g[{q.group_size}]-{zp}{'rw' if q.axes == -1 else 'cw'}"
+    return f"{prefix}{q.fmt.value}-g[{q.group_size}]-{zp}{'rw' if q.axes == -1 else 'cw'}"
 
 
 def jax_to_numpy(tree):
@@ -103,7 +104,8 @@ def _rel_err(got, want):
     return float(np.abs(np.asarray(got) - want).max() / np.abs(want).max())
 
 
-def check_gptq_chain(calls, jcfg, jqcfg, gptq_w, scale_book, hidden0, hidden_tol=1e-3):
+def check_gptq_chain(calls, jcfg, jqcfg, gptq_w, scale_book, hidden0, hidden_tol=1e-3,
+                     mse=False):
     """The port's GPTQ chain, teacher-forced, against the JAX package's
     functions. ``calls`` from ``recording_gptq_chain``, ``gptq_w`` the
     port's GPTQ weights by (layer, slot), ``scale_book`` its (scales,
@@ -122,7 +124,8 @@ def check_gptq_chain(calls, jcfg, jqcfg, gptq_w, scale_book, hidden0, hidden_tol
       of the layer precedes, within 1e-5 of the largest entry, the others
       within 1e-3 (``test_capture_and_hessians_w4a8``'s bounds);
     * each linear against JAX's GPTQ core on the same weight and the
-      port's Hessian: scale-book entry bitwise, codes by ``check_codes``.
+      port's Hessian (with the MSE clip search when ``mse``): scale-book
+      entry bitwise, codes by ``check_codes``.
 
     Returns the largest relative errors seen, by kind."""
     to_jax = lambda tree: jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()), tree)
@@ -175,7 +178,7 @@ def check_gptq_chain(calls, jcfg, jqcfg, gptq_w, scale_book, hidden0, hidden_tol
                 W = jcommon.get_weight(c0["params"], s)
                 jQ, js, jz = jobs.gptq_update_with_params(
                     jnp.asarray(W.numpy()), jnp.asarray(c["H"][tap].numpy()),
-                    jcommon.weight_quantizer_for(jcfg, jqcfg, i, s))
+                    jcommon.weight_quantizer_for(jcfg, jqcfg, i, s, mse))
                 ts, tz = (v.numpy() for v in scale_book[(i, s)])
                 np.testing.assert_array_equal(ts, np.asarray(js))
                 np.testing.assert_array_equal(tz, np.asarray(jz))
