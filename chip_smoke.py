@@ -129,12 +129,33 @@ Phases (each prints a line; any failure exits non-zero):
    step) and ``mpq_w4a8`` (layers 0 and 15 promoted to int8 weights by
    ``register_4_to_8bit``, served unstacked: B3 on every projection, 65 a
    step, and 16 B4).
+10. archs — the other architectures, after the formats phase, each from
+   its published config.json (``ARCH_CONFIGS``) through
+   ``from_hf_config``, random bf16 weights from ``--seed``, W4A8 as in
+   step 5. ``gemma2_2b_w4a8``: Gemma-2-2B at full width and depth (26
+   layers, 8 / 4 heads, head_dim 256, windows of 4096 on even layers,
+   softcaps 50 and 30, gelu-tanh), served as the slices of step 5 (78 B1,
+   26 B2, 1 B3 and 26 B4 a step asserted, equal to the replay's trace).
+   The window check, Gemma-2-2B at 2 layers: 4 slots, prompts of 4064
+   tokens, 64 steps over a cache of 4224 rows, so layer 0's window drops
+   keys from position 4096 on; kernel path against plain path in the
+   three decode modes (tokens as in step 4); then the kernel path without
+   the window, fed the same tokens, must give the windowed logits bitwise
+   before position 4096 and other logits from there on. The families at 2
+   layers of their published widths (Qwen2.5-1.5B with q/k/v biases,
+   Qwen3-1.7B with q/k norms, Gemma-2B at r = 8, Gemma-3-1B with group-
+   half int4 weights, a window of 512 and a local rope theta, its prompt
+   past the window): kernel path against plain path, and graph and eager
+   decode bitwise equal (``run_slice``). Step 3 adds the kernels at
+   Gemma's shapes: B1 qkv 4096 x 2304, B2 gelu-tanh 2·9216 x 2304, B3
+   head 256000 x 2304, B4 at D = 256 (r = 2 with softcap 50, window 0
+   and 4096; r = 8), B6 and B7 at r = 2, D = 256 with a window.
 The ``kernels`` JSON object, nvidia-smi's name and power limit and the
 slices' and serving engine's numbers (TTFT, decode tok/s over the graph,
 first-call and capture seconds, the eager loop's tok/s, peak memory; calibration seconds
 for ``spinquant_gptq``, RTN seconds for the formats slices; the formats phase's 2-layer
-checks) come on the three lines before the last; the last
-is ``{"ok": true, "device": {...}}``.
+checks; the archs phase's checks) come on the three lines before the
+last; the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -319,8 +340,9 @@ def _grid_fields(wrapper, run, label, reduce="w4a8_reduce"):
     return out
 
 
-def check_w4a8(gen, label, kind, M, N, C, wfmt):
-    """One W4A8 case; ``kind`` is 'stacked', 'flat' or 'gateup' (N = 2I).
+def check_w4a8(gen, label, kind, M, N, C, wfmt, act="silu"):
+    """One W4A8 case; ``kind`` is 'stacked', 'flat' or 'gateup' (N = 2I,
+    activation ``act``).
     Each is held against the plain version summed in the splits the
     wrapper launched: B1 and B3 bitwise, B2 to one bf16 ulp (its f32
     activation); two launches must give the same bits."""
@@ -348,8 +370,8 @@ def check_w4a8(gen, label, kind, M, N, C, wfmt):
         n_out = N
     else:
         wrapper = wm.gateup_silu
-        run = lambda: wm.gateup_silu(x_i8, codes, scales, sx, 1, wfmt, "silu", bf)
-        plain = lambda: wm.gateup_plain(x_i8, codes[1], scales[1], sx, wfmt, "silu", bf,
+        run = lambda: wm.gateup_silu(x_i8, codes, scales, sx, 1, wfmt, act, bf)
+        plain = lambda: wm.gateup_plain(x_i8, codes[1], scales[1], sx, wfmt, act, bf,
                                         splits=wrapper.last_grid[2])
         n_out = N // 2
     got = run()
@@ -386,7 +408,8 @@ def check_w4a8(gen, label, kind, M, N, C, wfmt):
     return case
 
 
-def check_decode_attention(gen, B=128, KV=8, r=4, D=64, S=256, pos=144):
+def check_decode_attention(gen, B=128, KV=8, r=4, D=64, S=256, pos=144, window=0,
+                           softcap=None):
     from llm_compressor_tpu_torch.kernels import decode_attention as da
 
     q = torch.randn((B, KV, r, D), generator=gen, device="cuda")
@@ -401,9 +424,10 @@ def check_decode_attention(gen, B=128, KV=8, r=4, D=64, S=256, pos=144):
     p = torch.full((B,), pos, dtype=torch.int32, device="cuda")
     scale = D ** -0.5
     bufs = [t.clone() for t in (kc, vc, ks, vs)]
-    got = da.decode_attention_append(q, nk, nv, nks, nvs, *bufs, p, scale=scale)
+    kw = dict(window=window, scale=scale, softcap=softcap)
+    got = da.decode_attention_append(q, nk, nv, nks, nvs, *bufs, p, **kw)
     ref_bufs = [t.clone() for t in (kc, vc, ks, vs)]
-    want = da.decode_attention_append_plain(q, nk, nv, nks, nvs, *ref_bufs, p, scale=scale)
+    want = da.decode_attention_append_plain(q, nk, nv, nks, nvs, *ref_bufs, p, **kw)
     torch.cuda.synchronize()
     for a, b in zip(bufs, ref_bufs):
         if not torch.equal(a, b):
@@ -413,7 +437,7 @@ def check_decode_attention(gen, B=128, KV=8, r=4, D=64, S=256, pos=144):
     flip = float(vs.max())  # one flipped prob code moves an output by <= max v_scale
     if not bool((err <= ulps + flip).all()) or float((err > ulps).float().mean()) > 0.01:
         raise AssertionError(f"B4: kernel disagrees with plain (max err {float(err.max())})")
-    n = pos + 1
+    n = pos + 1 if window <= 0 else min(pos + 1, window)   # kept rows of a slot
     nbytes = (q.numel() * 4 + 2 * B * KV * (D + 4)          # q, new token
               + 2 * B * KV * n * (D + 4)                   # K/V window codes + scales
               + 2 * B * KV * (D + 4) + got.numel() * 4)    # token written, out
@@ -422,12 +446,15 @@ def check_decode_attention(gen, B=128, KV=8, r=4, D=64, S=256, pos=144):
     kd = (kc.float() * ks[..., None]).to(torch.bfloat16)   # dequantized (B, KV, S, D)
     vd = (vc.float() * vs[..., None]).to(torch.bfloat16)
     qh = q.reshape(B, KV * r, 1, D).to(torch.bfloat16)
-    mask = (torch.arange(S, device="cuda") <= pos)[None, None, None, :]
+    s_ids = torch.arange(S, device="cuda")
+    mask = ((s_ids <= pos) & ((window <= 0) | (s_ids > pos - window)))[None, None, None, :]
     lib = lambda: torch.nn.functional.scaled_dot_product_attention(
         qh, kd, vd, attn_mask=mask, enable_gqa=True)
-    run = lambda: da.decode_attention_append(q, nk, nv, nks, nvs, *bufs, p, scale=scale)
-    plain = lambda: da.decode_attention_append_plain(q, nk, nv, nks, nvs, *ref_bufs, p, scale=scale)
-    return {"case": f"decode B={B} KV={KV} r={r} D={D} S={S} pos={pos}",
+    run = lambda: da.decode_attention_append(q, nk, nv, nks, nvs, *bufs, p, **kw)
+    plain = lambda: da.decode_attention_append_plain(q, nk, nv, nks, nvs, *ref_bufs, p, **kw)
+    cap = "" if softcap is None else f" softcap={softcap}"
+    win = "" if window <= 0 else f" window={window}"
+    return {"case": f"decode B={B} KV={KV} r={r} D={D} S={S} pos={pos}{win}{cap}",
             "tolerance": "codes bitwise; f32 ulps + one prob code on <= 1% of outputs",
             "max_abs_err": float(err.max()), "ms": time_ms(run),
             "plain_ms": time_ms(plain, reps=3, warmup=1), "bound_ms": b_ms,
@@ -754,21 +781,30 @@ def kernel_cases(gen):
     from llm_compressor_tpu_torch.kernels import dequant_matmul as dm
 
     E, I, V = 2048, 8192, 128256
+    # Gemma-2-2B (the archs phase's slice): hidden, intermediate, vocab
+    gE, gI, gV = 2304, 9216, 256000
     return {
         "B1_w4a8_stacked": lambda: [
             check_w4a8(gen, "decode qkv", "stacked", 128, 3072, E, 1),
             check_w4a8(gen, "decode o", "stacked", 128, E, E, 1),
-            check_w4a8(gen, "decode down", "stacked", 128, E, I, 1)],
+            check_w4a8(gen, "decode down", "stacked", 128, E, I, 1),
+            check_w4a8(gen, "gemma-2-2b decode qkv", "stacked", 128, 4096, gE, 1)],
         "B2_w4a8_gateup_silu": lambda: [
             check_w4a8(gen, "decode gate|up", "gateup", 128, 2 * I, E, 1),
-            check_w4a8(gen, "prefill gate|up 128x128 rows", "gateup", 128 * 128, 2 * I, E, 1)],
+            check_w4a8(gen, "prefill gate|up 128x128 rows", "gateup", 128 * 128, 2 * I, E, 1),
+            check_w4a8(gen, "gemma-2-2b decode gate|up gelu_tanh", "gateup", 128, 2 * gI, gE,
+                       1, act="gelu_tanh")],
         "B3_w4a8_flat": lambda: [
             check_w4a8(gen, "decode int8 head", "flat", 128, V, E, 0),
             check_w4a8(gen, "prefill qkv 128x128 rows", "flat", 128 * 128, 3072, E, 1),
-            check_w4a8(gen, "prefill o 128x128 rows", "flat", 128 * 128, E, E, 1)],
+            check_w4a8(gen, "prefill o 128x128 rows", "flat", 128 * 128, E, E, 1),
+            check_w4a8(gen, "gemma-2-2b decode int8 head", "flat", 128, gV, gE, 0)],
         "B4_decode_attention_append": lambda: [
             check_decode_attention(gen),
-            check_decode_attention(gen, B=4, S=LONG_S, pos=LONG_S - 1)],
+            check_decode_attention(gen, B=4, S=LONG_S, pos=LONG_S - 1),
+            check_decode_attention(gen, KV=4, r=2, D=256, softcap=50.0),
+            check_decode_attention(gen, KV=4, r=2, D=256, window=4096, softcap=50.0),
+            check_decode_attention(gen, KV=1, r=8, D=256)],
         "B5_dequant_matmul": lambda: [
             check_dequant_matmul(gen, "decode qkv int4-g128 zp", 128, 3072, E, dm.F_INT4_PAIRS, True),
             check_dequant_matmul(gen, "decode o int4-g128 zp", 128, E, E, dm.F_INT4_PAIRS, True),
@@ -782,11 +818,13 @@ def kernel_cases(gen):
                                  dm.F_FP8_E4M3, True)],
         "B6_decode_attention_stats": lambda: [
             check_stats(gen), check_stats(gen, window=64, softcap=50.0),
-            check_stats(gen, B=4, S=LONG_S, len0=LONG_S - 17)],
+            check_stats(gen, B=4, S=LONG_S, len0=LONG_S - 17),
+            check_stats(gen, window=64, softcap=50.0, KV=4, r=2, D=256)],
         "B7_decode_attention": lambda: [
             check_two_part(gen, True), check_two_part(gen, False),
             check_two_part(gen, True, window=64, softcap=50.0),
-            check_two_part(gen, True, B=4, S=LONG_S, len0=LONG_S - 17)],
+            check_two_part(gen, True, B=4, S=LONG_S, len0=LONG_S - 17),
+            check_two_part(gen, True, window=64, softcap=50.0, KV=4, r=2, D=256)],
         "B8_fresh_write": lambda: [check_fresh_write(gen)],
         "B9_w4a8_actq": lambda: [
             check_w4a8_actq(gen, "int8 head, raw bf16 acts", 128, V, E, 0),
@@ -838,15 +876,16 @@ def flagship_cfg(layers: int):
         tie_word_embeddings=True, dtype="bfloat16")
 
 
-def build_model(layers: int, seed: int, serving):
+def build_model(layers: int, seed: int, serving, cfg=None):
     """RTN -> pack -> fuse -> stack of random full-width weights for a
-    serving config (``W4A8``, ``WEIGHT_ONLY``, ...)."""
+    serving config (``W4A8``, ``WEIGHT_ONLY``, ...): the flagship at
+    ``layers`` layers, or ``cfg``."""
     from llm_compressor_tpu_torch.algorithms import pack_model, rtn
     from llm_compressor_tpu_torch.models import fuse_model, init_params, stack_model
     from llm_compressor_tpu_torch.qformats import build_quant_config
 
     qargs, head_act, _ = serving
-    cfg = flagship_cfg(layers)
+    cfg = cfg or flagship_cfg(layers)
     qcfg = build_quant_config(*qargs, head_act=head_act)
     params = init_params(cfg, seed=seed)
     rtn(params, cfg, qcfg)
@@ -1052,56 +1091,69 @@ def _side_block_decode(params, cfg, qcfg, cache, tok, steps, attention, feed):
     return all_logits
 
 
+def teacher_forced(model, serving, toks, steps: int, max_len: int, mode="append", feed=None):
+    """Prefill ``toks`` into a new cache of ``max_len`` rows, then ``steps``
+    greedy decode steps in the ``mode`` (eagerly, step by step), fed the
+    tokens of ``feed`` where given -> (the logits of the prefill and of each
+    step, the cache)."""
+    from llm_compressor_tpu_torch.engine import decode_step, prefill
+
+    cfg, qcfg, params = model
+    cache = new_cache(cfg, toks.shape[0], max_len, serving)
+    logits, cache = prefill(params, toks, cache, cfg=cfg, qcfg=qcfg)
+    all_logits = [logits]
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    if mode != "append":
+        return all_logits + _side_block_decode(params, cfg, qcfg, cache, tok, steps, mode,
+                                               feed), cache
+    for i in range(steps):
+        if feed is not None:
+            tok = feed[i]
+        logits, cache = decode_step(params, tok, cache, cfg=cfg, qcfg=qcfg, graph=False)
+        all_logits.append(logits)
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    return all_logits, cache
+
+
 def check_reduced_depth(seed: int, serving, kernel_names, gap_tol: float = 0.1, build=None,
-                        attention="append"):
+                        attention="append", model=None, shape=(16, 32, 8, 64)):
     """2 layers, full width: teacher-force the plain path's greedy tokens
     through both paths; where the plain logits' top-2 gap exceeds
     ``gap_tol`` the kernel path's argmax must be the same token. The kernel
     run must launch every kernel of ``kernel_names`` and no other.
     ``build(layers)`` makes the model, by default RTN (``build_model``),
     once for both paths; a given ``build`` runs once on each path (under
-    ``plain_kernels`` for the reference), as part of that path's run.
-    ``attention`` is the decode mode; a side-block mode also runs the
-    kernel path's in-place B4 decode on the same tokens and returns how many
-    of its tokens and how many merged-cache codes differ from that."""
+    ``plain_kernels`` for the reference), as part of that path's run; a
+    given ``model`` (cfg, qcfg, params) serves both paths. ``shape`` is
+    (slots, prompt tokens, decode steps, cache rows). ``attention`` is the
+    decode mode; a side-block mode also runs the kernel path's in-place B4
+    decode on the same tokens and returns how many of its tokens and how
+    many merged-cache codes differ from that."""
     from llm_compressor_tpu_torch import kernels
-    from llm_compressor_tpu_torch.engine import decode_step, prefill
 
     kernels.reset_counts()
-    if build is None:
+    if model is not None:
+        ref_model = model
+    elif build is None:
         ref_model = build_model(2, seed, serving)
     else:
         with plain_kernels():
             ref_model = build(2)
     cfg = ref_model[0]
-    B, T, steps = 16, 32, 8
+    B, T, steps, max_len = shape
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device="cuda",
                          dtype=torch.int32)
 
     def run(model, feed=None, mode=attention):
-        cfg, qcfg, params = model
-        cache = new_cache(cfg, B, 64, serving)
-        logits, cache = prefill(params, toks, cache, cfg=cfg, qcfg=qcfg)
-        all_logits = [logits]
-        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
-        if mode != "append":
-            return all_logits + _side_block_decode(params, cfg, qcfg, cache, tok, steps, mode,
-                                                   feed), cache
-        for i in range(steps):
-            if feed is not None:
-                tok = feed[i]
-            logits, cache = decode_step(params, tok, cache, cfg=cfg, qcfg=qcfg, graph=False)
-            all_logits.append(logits)
-            tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
-        return all_logits, cache
+        return teacher_forced(model, serving, toks, steps, max_len, mode, feed)
 
     with plain_kernels():
         ref, _ = run(ref_model)
     if any(kernels.launch_counts().values()):
         raise AssertionError(f"the plain run launched kernels: {kernels.launch_counts()}")
     feed = [torch.argmax(lg, -1).to(torch.int32)[:, None] for lg in ref[:-1]]
-    model = ref_model if build is None else build(2)
+    model = ref_model if build is None or model is not None else build(2)
     del ref_model
     got, got_cache = run(model, feed)
     counts = kernels.launch_counts()
@@ -2405,6 +2457,163 @@ def phase_formats(seed: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the other architectures (Qwen2, Qwen3, Gemma, Gemma2, Gemma3)
+# ---------------------------------------------------------------------------
+
+# Each model's published config.json (Hugging Face hub), the keys
+# ``from_hf_config`` reads; depth is cut where a run says so.
+ARCH_CONFIGS = {
+    "gemma2_2b": ("google/gemma-2-2b config.json", {
+        "model_type": "gemma2", "vocab_size": 256000, "hidden_size": 2304,
+        "intermediate_size": 9216, "num_hidden_layers": 26, "num_attention_heads": 8,
+        "num_key_value_heads": 4, "head_dim": 256, "query_pre_attn_scalar": 256,
+        "sliding_window": 4096, "attn_logit_softcapping": 50.0,
+        "final_logit_softcapping": 30.0, "hidden_activation": "gelu_pytorch_tanh",
+        "rope_theta": 10000.0, "rms_norm_eps": 1e-6, "max_position_embeddings": 8192}),
+    "qwen2_5_1_5b": ("Qwen/Qwen2.5-1.5B config.json (q/k/v biases: qwen2's default)", {
+        "model_type": "qwen2", "vocab_size": 151936, "hidden_size": 1536,
+        "intermediate_size": 8960, "num_hidden_layers": 28, "num_attention_heads": 12,
+        "num_key_value_heads": 2, "hidden_act": "silu", "rope_theta": 1000000.0,
+        "rms_norm_eps": 1e-6, "max_position_embeddings": 131072, "use_sliding_window": False,
+        "tie_word_embeddings": True}),
+    "qwen3_1_7b": ("Qwen/Qwen3-1.7B config.json", {
+        "model_type": "qwen3", "vocab_size": 151936, "hidden_size": 2048,
+        "intermediate_size": 6144, "num_hidden_layers": 28, "num_attention_heads": 16,
+        "num_key_value_heads": 8, "head_dim": 128, "hidden_act": "silu",
+        "rope_theta": 1000000.0, "rms_norm_eps": 1e-6, "max_position_embeddings": 40960,
+        "attention_bias": False, "use_sliding_window": False, "tie_word_embeddings": True}),
+    "gemma_2b": ("google/gemma-2b config.json", {
+        "model_type": "gemma", "vocab_size": 256000, "hidden_size": 2048,
+        "intermediate_size": 16384, "num_hidden_layers": 18, "num_attention_heads": 8,
+        "num_key_value_heads": 1, "head_dim": 256, "hidden_act": "gelu",
+        "rope_theta": 10000.0, "rms_norm_eps": 1e-6, "max_position_embeddings": 8192}),
+    "gemma3_1b": ("google/gemma-3-1b-pt config.json (layer_types: sliding_window_pattern "
+                  "6, as transformers expands it)", {
+        "model_type": "gemma3_text", "vocab_size": 262144, "hidden_size": 1152,
+        "intermediate_size": 6912, "num_hidden_layers": 26, "num_attention_heads": 4,
+        "num_key_value_heads": 1, "head_dim": 256, "query_pre_attn_scalar": 256,
+        "sliding_window": 512, "rope_theta": 1000000.0, "rope_local_base_freq": 10000.0,
+        "hidden_activation": "gelu_pytorch_tanh", "rms_norm_eps": 1e-6,
+        "max_position_embeddings": 32768,
+        "layer_types": ["full_attention" if (i + 1) % 6 == 0 else "sliding_attention"
+                        for i in range(26)]}),
+}
+GEMMA2_LAYERS = 26
+# Gemma-2-2B's decode step: qkv, o and down per layer on B1, gate|up on B2,
+# the int8 head on B3, one B4 per layer
+GEMMA2_PER_STEP = {"w4a8_stacked": 3 * GEMMA2_LAYERS, "w4a8_gateup": GEMMA2_LAYERS,
+                   "w4a8_flat": 1, "decode_attention_append": GEMMA2_LAYERS}
+# the window check: layer 0 of 2 slides 4096; prompts of 4064 tokens and 64
+# steps put positions 4064..4127 in the cache, so from step 32 on (position
+# 4096) the window drops a slot's first keys
+WINDOW_SHAPE = (4, 4064, 64, 4224)
+# the four families at 2 layers: (slots, prompt, steps, cache rows); the
+# Gemma-3-1B prompt runs past its window of 512
+FAMILY_SHAPES = {"qwen2_5_1_5b": (16, 32, 8, 64), "qwen3_1_7b": (16, 32, 8, 64),
+                 "gemma_2b": (16, 32, 8, 64), "gemma3_1b": (16, 576, 8, 640)}
+
+
+def arch_cfg(name: str, layers: int, layer_types=None):
+    """The published config of ``name`` (``ARCH_CONFIGS``) through
+    ``from_hf_config``, bf16, cut to ``layers`` layers (``layer_types`` the
+    kept layers' types where the config lists them)."""
+    import dataclasses
+
+    from llm_compressor_tpu_torch.models import from_hf_config
+
+    cfg = from_hf_config(ARCH_CONFIGS[name][1])
+    types = cfg.layer_types
+    if types:
+        types = tuple(layer_types or types[:layers])
+    return dataclasses.replace(cfg, num_layers=layers, layer_types=types, dtype="bfloat16")
+
+
+def check_window(seed: int):
+    """Gemma-2-2B at 2 layers (layer 0 slides 4096), ``WINDOW_SHAPE``: the
+    kernel path against the plain path in the three decode modes (as
+    ``check_reduced_depth``), then the window bites: the kernel path
+    without the window, fed the windowed run's tokens, gives the same
+    logits bitwise up to position 4095 and other logits from 4096 on."""
+    import dataclasses
+
+    from llm_compressor_tpu_torch import kernels
+
+    cfg = arch_cfg("gemma2_2b", 2)
+    model = build_model(2, seed, W4A8, cfg=cfg)
+    out = {}
+    for mode, names in (("append", W4A8_KERNELS),
+                        ("two_part", W4A8_MATMULS + SIDE_KERNELS["two_part"]),
+                        ("hybrid", W4A8_MATMULS + SIDE_KERNELS["hybrid"])):
+        checked, total, max_err, vs_b4 = check_reduced_depth(
+            seed, W4A8, names, attention=mode, model=model, shape=WINDOW_SHAPE)
+        out[mode] = {"confident_tokens_equal": checked, "tokens": total,
+                     "max_abs_logit_diff": max_err}
+        if vs_b4 is not None:
+            out[mode]["vs_b4"] = vs_b4
+    B, T, steps, max_len = WINDOW_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    kernels.reset_counts()
+    windowed, _ = teacher_forced(model, W4A8, toks, steps, max_len)
+    feed = [torch.argmax(lg, -1).to(torch.int32)[:, None] for lg in windowed[:-1]]
+    full_model = (dataclasses.replace(cfg, sliding_window=None),) + model[1:]
+    full, _ = teacher_forced(full_model, W4A8, toks, steps, max_len, feed=feed)
+    first = cfg.sliding_window - T + 1       # logits index of position 4096
+    same = [torch.equal(a, b) for a, b in zip(windowed, full)]
+    if not all(same[:first]) or any(same[first:]):
+        raise AssertionError(f"window check: logits equal by step {same}; expected equal "
+                             f"before index {first} only")
+    out["window_bites"] = {"equal_before_4096": first,
+                           "max_abs_diff_from_4096": max(float((a - b).abs().max())
+                                                         for a, b in zip(windowed[first:],
+                                                                         full[first:]))}
+    del model, full_model
+    return out
+
+
+def check_family(name: str, seed: int):
+    """One family at 2 layers of its published widths, W4A8 with an int8
+    cache: the kernel path against the plain path (``check_reduced_depth``
+    at ``FAMILY_SHAPES``), then ``run_slice`` from the same params: the
+    CUDA graph's three calls and the eager loop bitwise equal."""
+    B, T, steps, max_len = FAMILY_SHAPES[name]
+    cfg = arch_cfg(name, 2, ("sliding_attention", "full_attention")
+                   if name == "gemma3_1b" else None)
+    model = build_model(2, seed, W4A8, cfg=cfg)
+    checked, total, max_err, _ = check_reduced_depth(seed, W4A8, W4A8_KERNELS, model=model,
+                                                     shape=FAMILY_SHAPES[name])
+    r = run_slice(model[2], cfg, model[1], W4A8, batch=B, prompt=T, steps=steps,
+                  max_len=max_len, seed=seed)
+    del model
+    return {"source": ARCH_CONFIGS[name][0], "layers": 2, "shape": [B, T, steps, max_len],
+            "confident_tokens_equal": checked, "tokens": total, "max_abs_logit_diff": max_err,
+            "graph_decode_tok_s": B * steps / (r["decode_ms"] / 1e3),
+            "eager_decode_tok_s": B * steps / (r["loop_ms"] / 1e3),
+            "replay_counts": r["replay_counts"]}
+
+
+def phase_archs(seed: int):
+    """Phase 10: the ``gemma2_2b_w4a8`` slice at full width and depth (as
+    ``phase_slice`` serves the flagship), the window check, the four
+    families."""
+    cfg = arch_cfg("gemma2_2b", GEMMA2_LAYERS)
+    t0 = time.perf_counter()
+    model = build_model(GEMMA2_LAYERS, seed, W4A8, cfg=cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    s = phase_slice(seed, W4A8, W4A8_KERNELS, model=model, per_step=GEMMA2_PER_STEP)
+    del s["params"], model
+    s["build_s"] = build_s
+    torch.cuda.empty_cache()
+    out = {"slice": s, "window": check_window(seed)}
+    torch.cuda.empty_cache()
+    out["families"] = {name: check_family(name, seed) for name in FAMILY_SHAPES}
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2417,9 +2626,9 @@ def main() -> int:
     from llm_compressor_tpu_torch.kernels import _build
 
     t_start = time.perf_counter()
-    name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    device_name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = nvidia_smi_line()
-    log(f"device: {name} x{count}; nvidia-smi: {smi}; torch {torch.__version__} "
+    log(f"device: {device_name} x{count}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
@@ -2613,6 +2822,41 @@ def main() -> int:
                 f"||W - Q_mse|| / ||W - Q_rtn|| and clipped groups by linear: "
                 f"{json.dumps(s['mse_vs_rtn_layer0'])}")
 
+    ar = phase_archs(args.seed)
+    s = slices["gemma2_2b_w4a8"] = ar["slice"]
+    log(f"slice gemma2_2b_w4a8: Gemma-2-2B ({ARCH_CONFIGS['gemma2_2b'][0]}) W4A8, "
+        f"{GEMMA2_LAYERS} layers, int8 KV cache, batch {BATCH}, prompt {PROMPT}, max_len "
+        f"{MAX_LEN} (RTN -> pack -> fuse -> stack {s['build_s']:.2f} s): prefill (TTFT) "
+        f"{s['ttft_ms']:.2f} ms, {STEPS} decode steps as one CUDA graph {s['decode_ms']:.2f} ms "
+        f"= {s['decode_tok_s']:.1f} tok/s (first call {s['first_call_s']:.2f} s, capture "
+        f"{s['capture_s']:.2f} s; eager loop {s['loop_decode_tok_s']:.1f} tok/s, tokens and "
+        f"cache bitwise equal), peak memory {s['peak_mem_gib']:.2f} GiB on {smi}; launches "
+        f"{s['counts']}, per decode step {s['per_step']}")
+    log(f"slice gemma2_2b_w4a8 decode profile (one replay of the {STEPS}-step graph, "
+        f"torch.profiler): {json.dumps(s['profile'])}")
+    for mode, c in ar["window"].items():
+        if mode == "window_bites":
+            log(f"archs window check, Gemma-2-2B at 2 layers: without the window the kernel "
+                f"path's logits equal the windowed run's bitwise at the first "
+                f"{c['equal_before_4096']} positions (up to 4095) and differ at every later "
+                f"one (max |diff| {c['max_abs_diff_from_4096']:.4g})")
+            continue
+        log(f"archs window check, Gemma-2-2B at 2 layers, {WINDOW_SHAPE[0]} slots, prompts of "
+            f"{WINDOW_SHAPE[1]} + {WINDOW_SHAPE[2]} steps ({mode}): {c['confident_tokens_equal']}"
+            f"/{c['tokens']} kernel-path tokens with a plain top-2 gap > 0.1 equal the plain "
+            f"path's; max |logit diff| {c['max_abs_logit_diff']:.4g}"
+            + ("" if "vs_b4" not in c else f"; against the in-place B4 path: "
+               f"{c['vs_b4']['tokens_equal']}/{c['tokens']} tokens equal, "
+               f"{c['vs_b4']['codes_differ_by_layer']} (by layer) of {c['vs_b4']['codes']} "
+               f"merged-cache codes differ"))
+    for fam, c in ar["families"].items():
+        log(f"archs family {fam} ({c['source']}), 2 layers, W4A8, shape {c['shape']}: "
+            f"{c['confident_tokens_equal']}/{c['tokens']} kernel-path tokens with a plain "
+            f"top-2 gap > 0.1 equal the plain path's; max |logit diff| "
+            f"{c['max_abs_logit_diff']:.4g}; graph {c['graph_decode_tok_s']:.1f} tok/s and eager "
+            f"loop {c['eager_decode_tok_s']:.1f} tok/s, bitwise equal; replay launches "
+            f"{c['replay_counts']}")
+
     metrics = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = lambda c: {k: c[k] for k in EXTRA_METRICS if k in c}
     runs = slices | {"actq_entry": actq}
@@ -2632,9 +2876,10 @@ def main() -> int:
     print(smi, flush=True)
     print(json.dumps({"slices": {k: _slice_numbers(v) for k, v in slices.items()},
                       "serving_engine": served,
-                      "formats_checks": {k: v for k, v in fm.items() if k != "slices"}}),
+                      "formats_checks": {k: v for k, v in fm.items() if k != "slices"},
+                      "archs_checks": {"window": ar["window"], "families": ar["families"]}}),
           flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": count}}),
           flush=True)
     return 0
 

@@ -49,7 +49,7 @@ def set_bias(layer_params, slot: str, value) -> None:
 
 
 def sequential_groups(cfg: ModelConfig) -> List[List[str]]:
-    """The sequential calibration groups of the Llama family (reference
+    """The sequential calibration groups of the gated-MLP families (reference
     ``get_sequential('true')``): each group's linears are calibrated on
     inputs that already see the earlier groups quantized."""
     return [["k", "v", "q"], ["o"], ["up", "gate"], ["down"]]

@@ -22,10 +22,10 @@ from ..device import full_f32_matmul
 from ..models.config import ModelConfig
 from ..models.transformer import (
     LayerOps,
-    causal_mask,
     decoder_layer,
     embed,
-    rope_for_positions,
+    make_causal_mask,
+    rope_for_layer,
 )
 
 TAP_KEYS = ("attn_in", "o_in", "mlp_in", "down_in")
@@ -68,12 +68,13 @@ def capture_layer0(params, cfg: ModelConfig, tokens, chunk: int = 8) -> CalibCon
 @torch.no_grad()
 def run_layer(ctx: CalibContext, layer_params, layer_idx: int,
               ops: Optional[LayerOps] = None, tap_keys: Tuple[str, ...] = ()):
-    """Yield (start, end, out_chunk, taps_chunk) for each calibration chunk."""
+    """Yield (start, end, out_chunk, taps_chunk) for each calibration chunk,
+    with the layer's own rope and mask (Gemma2/3's local layers)."""
     cfg = ctx.cfg
     for s, e in ctx.chunks():
         pos = ctx.positions[s:e]
-        cos, sin = rope_for_positions(cfg, pos)
-        mask = causal_mask(pos, pos)[:, None]
+        cos, sin = rope_for_layer(cfg, layer_idx, pos)
+        mask = make_causal_mask(cfg, layer_idx, pos, pos)
         taps: dict = {}
         y = decoder_layer(layer_params, cfg, ctx.hidden[s:e], cos, sin, mask, ops, taps)
         yield s, e, y, {k: taps[k] for k in tap_keys if k in taps}

@@ -7,8 +7,11 @@ are viewed back as the torch type). A packed QTensor arrives as
 a dict of its fields: ``codes``, ``scales``, ``zeros`` (or None),
 ``shape``, ``blocked_shape``, ``group_axis``, ``ngroups_axis``,
 ``pair_planes``, ``dtype`` (a name such as "float32") and ``qspec``, its
-quantizer's DSL string (``qformats.config.qspec_string``). Whoever
-extracts the tree from JAX does so; this module imports no JAX.
+quantizer's DSL string (``qformats.config.qspec_string``). The walk is
+generic: every leaf of every ported architecture's tree crosses as it is
+(Qwen2's q/k/v biases, the q/k norms, Gemma2/3's attention-output and
+feed-forward norms). Whoever extracts the tree from JAX does so; this
+module imports no JAX.
 """
 
 from __future__ import annotations

@@ -19,6 +19,13 @@ chooses it:
   SV activation quantizers as configured (JAX :306-363, which runs it
   outside any Pallas kernel).
 
+Each layer takes its own rope (Gemma3's local theta) and its own sliding
+window (Gemma2/3's local layers): in the float attention as its mask, in
+B4, B6 and B7 as the ``window`` argument, a Python int per layer that a
+CUDA graph bakes in as it bakes in the layer loop (the graph's key holds
+the config). Gemma2's attention softcap is applied after the scale and
+before the mask on every path.
+
 ``decode_greedy_steps(..., attention=...)`` also runs the JAX package's
 side-block decode (its "FreshKV" scan path, :469-653, :760-928), which
 the JAX package selects with import-time switches: ``"two_part"``
@@ -57,17 +64,17 @@ from ..kernels.decode_attention import (
     hybrid_decode_attention,
 )
 from ..models.config import ModelConfig
-from ..models.layers import apply_norm, int8_per_token, qlinear, qmatmul_qk, qmatmul_sv
+from ..models.layers import int8_per_token, qlinear, qmatmul_qk, qmatmul_sv, softcap
 from ..models.transformer import (
     LayerOps,
-    causal_mask,
     embed,
     head,
     iter_layers,
+    layer_masks,
     layer_ops,
-    mlp,
+    layer_ropes,
     project_qkv,
-    rope_for_positions,
+    residual_block,
     scan_segments,
 )
 from ..qformats import QuantConfig
@@ -123,7 +130,8 @@ def _float_attention(cfg: ModelConfig, layer: int, x, q, cache: KVCache,
     # works per row or per column, so the grouping of rows changes nothing
     q4 = q.reshape(B, T, KV, r, D).permute(0, 2, 3, 1, 4).reshape(B, KV, r * T, D)
     scores = qmatmul_qk(q4, K.transpose(-1, -2), ops.qk if ops is not None else None)
-    scores = scores.reshape(B, KV, r, T, S) * cfg.attn_scale + mask[:, None, None]
+    scores = softcap(scores.reshape(B, KV, r, T, S) * cfg.attn_scale, cfg.attn_logit_softcapping)
+    scores = scores + mask[:, None, None]
     probs = torch.softmax(scores, dim=-1).to(x.dtype).reshape(B, KV, r * T, S)
     out = qmatmul_sv(probs, V, ops.sv if ops is not None else None)
     out = out.reshape(B, KV, r, T, D).permute(0, 3, 1, 2, 4).reshape(B, T, H * D)
@@ -142,7 +150,8 @@ def _i8_decode_attention(cfg: ModelConfig, layer: int, q, k, v, cache: KVCache):
         kc[:, :, 0].contiguous(), vc[:, :, 0].contiguous(),
         ks[:, :, 0].contiguous(), vs[:, :, 0].contiguous(),
         cache.k[layer], cache.v[layer], cache.k_scale[layer], cache.v_scale[layer],
-        cache.lengths, scale=cfg.attn_scale)
+        cache.lengths, window=cfg.layer_window(layer), scale=cfg.attn_scale,
+        softcap=cfg.attn_logit_softcapping)
     return out.reshape(B, 1, H * D)                        # head h = kv * r + j
 
 
@@ -166,13 +175,6 @@ def _cached_attention(lp, cfg: ModelConfig, layer: int, x, cache: KVCache,
     return qlinear(out, lp["attn"]["o"]["weight"], None, ops.get("o") if ops else None)
 
 
-def _layer(lp, cfg: ModelConfig, x, ops, attend):
-    """Pre-norm residual block; ``attend`` maps the normed input to the
-    attention output."""
-    x = x + attend(apply_norm(cfg, x, lp["ln1"]))
-    return x + mlp(lp, cfg, apply_norm(cfg, x, lp["ln2"]), ops)
-
-
 def _forward_cached(params, cfg: ModelConfig, tokens, cache: KVCache, qcfg,
                     start: Optional[int]):
     """Hidden states (B, T, E) of ``tokens`` at positions [start, start + T)
@@ -186,12 +188,12 @@ def _forward_cached(params, cfg: ModelConfig, tokens, cache: KVCache, qcfg,
         positions = (start + torch.arange(T, device=dev))[None, :].expand(B, T)
     kv_pos = torch.arange(cache.max_len, device=dev)[None, :].expand(B, -1)
     h = embed(params, cfg, tokens)
-    cos, sin = rope_for_positions(cfg, positions)
-    mask = causal_mask(positions, kv_pos)
+    ropes = layer_ropes(cfg, positions)
+    masks = layer_masks(cfg, positions, kv_pos)
     for i, lp in iter_layers(params):
         ops = layer_ops(cfg, qcfg, i)
-        h = _layer(lp, cfg, h, ops, lambda xn: _cached_attention(
-            lp, cfg, i, xn, cache, ops, cos, sin, mask, start))
+        h = residual_block(lp, cfg, h, lambda xn: _cached_attention(
+            lp, cfg, i, xn, cache, ops, *ropes[i], masks[i], start), ops)
     return h
 
 
@@ -275,8 +277,9 @@ def _fresh_attention(lp, cfg: ModelConfig, layer: int, x, cache: KVCache, fresh:
     write_fresh(fresh, layer, t, *(a[:, :, 0].contiguous() for a in (kc, vc, ks, vs)))
     attend = decode_attention if mode == "two_part" else hybrid_decode_attention
     out = attend(q.reshape(B, KV, H // KV, D).float(), cache.k[layer], cache.v[layer],
-                 cache.k_scale[layer], cache.v_scale[layer], len0, len0 + t, 0, t,
-                 fresh.layer(layer), scale=cfg.attn_scale)
+                 cache.k_scale[layer], cache.v_scale[layer], len0, len0 + t,
+                 cfg.layer_window(layer), t, fresh.layer(layer), scale=cfg.attn_scale,
+                 softcap=cfg.attn_logit_softcapping)
     out = out.to(x.dtype).reshape(B, 1, H * D)             # head h = kv * r + j
     return qlinear(out, lp["attn"]["o"]["weight"], None, ops.get("o") if ops else None)
 
@@ -287,11 +290,11 @@ def _forward_decode_fresh(params, cfg: ModelConfig, tokens, cache: KVCache, fres
     (JAX :760-904, non-append branches)."""
     positions = len0.long()[:, None] + t
     h = embed(params, cfg, tokens)
-    cos, sin = rope_for_positions(cfg, positions)
+    ropes = layer_ropes(cfg, positions)
     for i, lp in iter_layers(params):
         ops = layer_ops(cfg, qcfg, i)
-        h = _layer(lp, cfg, h, ops, lambda xn: _fresh_attention(
-            lp, cfg, i, xn, cache, fresh, t, len0, ops, cos, sin, mode))
+        h = residual_block(lp, cfg, h, lambda xn: _fresh_attention(
+            lp, cfg, i, xn, cache, fresh, t, len0, ops, *ropes[i], mode), ops)
     return h
 
 

@@ -1,6 +1,13 @@
-"""models — the Llama transformer core (port of ``llm_compressor_tpu.models``)."""
+"""models — the transformer core of the rope / RMSNorm families (port of
+``llm_compressor_tpu.models``)."""
 
-from .config import ModelConfig, RopeScaling, SUPPORTED_ARCHS, from_hf_config, to_hf_config
+from .config import (
+    SUPPORTED_ARCHS,
+    ModelConfig,
+    RopeScaling,
+    from_hf_config,
+    to_hf_config,
+)
 from .params import (
     init_params,
     load_compressed,
@@ -23,12 +30,9 @@ from .transformer import (
 
 
 def tiny_config(arch: str = "llama", **overrides) -> ModelConfig:
-    """Small random-init config for tests (no checkpoint needed)."""
-    if arch != "llama":
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: ROADMAP.md queue A item 7")
-    cfg = dict(
-        arch=arch,
+    """Small random-init config for tests (no checkpoint needed), each
+    architecture's as the JAX package's ``tiny_config`` builds it."""
+    base = dict(
         vocab_size=256,
         hidden_size=64,
         intermediate_size=128,
@@ -39,7 +43,26 @@ def tiny_config(arch: str = "llama", **overrides) -> ModelConfig:
         max_position_embeddings=128,
         dtype="float32",
     )
+    gemma = dict(hidden_act="gelu_pytorch_tanh", norm_weight_plus_one=True, embed_scale=8.0,
+                 tie_word_embeddings=True)
+    if arch == "gemma":
+        cfg = dict(base, arch=arch, num_kv_heads=4, **gemma)
+    elif arch == "gemma2":
+        cfg = dict(base, arch=arch, **gemma, query_pre_attn_scalar=16.0,
+                   attn_logit_softcapping=50.0, final_logit_softcapping=30.0,
+                   sliding_window=8, pre_post_ffw_norm=True, post_attn_residual_norm=True)
+    elif arch == "gemma3":
+        cfg = dict(base, arch=arch, **gemma, query_pre_attn_scalar=16.0, qk_norm=True,
+                   sliding_window=8, rope_local_theta=10000.0, rope_theta=1000000.0,
+                   pre_post_ffw_norm=True, post_attn_residual_norm=True)
+    else:   # llama, qwen2, qwen3; ModelConfig refuses the others
+        cfg = dict(base, arch=arch, attention_bias=arch == "qwen2", qk_norm=arch == "qwen3")
     cfg.update(overrides)
+    if arch == "gemma3" and "layer_types" not in cfg:
+        # gemma3's alternating local/global pattern, sized to num_layers
+        cfg["layer_types"] = tuple(
+            "sliding_attention" if i % 2 == 0 else "full_attention"
+            for i in range(cfg["num_layers"]))
     return ModelConfig(**cfg)
 
 

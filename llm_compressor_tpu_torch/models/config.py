@@ -1,19 +1,29 @@
 """Model configuration (port of ``models/config.py``).
 
-The port's transformer runs the Llama family only; the other eight
-architectures of the JAX package are queued in ROADMAP.md (queue A item 7).
-The config keeps the fields the Llama path reads. ``from_hf_config`` maps a
-HuggingFace Llama config (object or dict) onto it and refuses what the
-port cannot run: another ``model_type``, or biased projections;
-``to_hf_config`` writes the dict it reads back field for field.
+The port's transformer runs the rope / RMSNorm / gated-MLP families:
+Llama, Qwen2, Qwen3, Gemma, Gemma2 and Gemma3. Their differences are flags,
+as in the JAX package: projection biases (Qwen2), q/k norms (Qwen3,
+Gemma3), ``(1 + w)`` norms and an embedding scale (Gemma), attention and
+final-logit softcaps (Gemma2), per-layer sliding windows (Gemma2, Gemma3),
+a second rope theta on the local layers (Gemma3) and pre/post feed-forward
+norms (Gemma2, Gemma3). OPT, BLOOM and Phi are queued in ROADMAP.md (queue
+A item 7b). ``from_hf_config`` maps a HuggingFace config (object or dict)
+onto the config and refuses what the port cannot run; ``to_hf_config``
+writes the dict it reads back field for field.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
-SUPPORTED_ARCHS = ("llama",)
+SUPPORTED_ARCHS = ("llama", "qwen2", "qwen3", "gemma", "gemma2", "gemma3")
+NOT_PORTED = ("opt", "bloom", "phi")
+
+
+def _not_ported(arch) -> NotImplementedError:
+    return NotImplementedError(
+        f"arch {arch!r} is not ported yet: ROADMAP.md queue A item 7b (OPT, BLOOM, Phi)")
 
 
 @dataclass(frozen=True)
@@ -38,17 +48,32 @@ class ModelConfig:
     max_position_embeddings: int = 2048
     hidden_act: str = "silu"
     rms_norm_eps: float = 1e-6
+    norm_weight_plus_one: bool = False  # gemma: (1 + w) RMSNorm
     rope_theta: float = 10000.0
     rope_scaling: Optional[RopeScaling] = None
+    rope_local_theta: Optional[float] = None  # gemma3: the local layers' theta
+    attention_bias: bool = False        # qwen2: q/k/v biases
+    qk_norm: bool = False               # qwen3, gemma3: RMS q/k norm over head_dim
+    query_pre_attn_scalar: Optional[float] = None  # gemma2/3: scores * qpas ** -0.5
+    attn_logit_softcapping: Optional[float] = None   # gemma2
+    final_logit_softcapping: Optional[float] = None  # gemma2
+    sliding_window: Optional[int] = None
+    layer_types: Tuple[str, ...] = ()   # per layer "full_attention" / "sliding_attention"
+    pre_post_ffw_norm: bool = False     # gemma2/3: norms before and after the MLP
+    post_attn_residual_norm: bool = False  # gemma2/3: a norm on the attention output
+    embed_scale: Optional[float] = None  # gemma: hidden *= sqrt(hidden_size)
     tie_word_embeddings: bool = True
     dtype: str = "bfloat16"
 
     def __post_init__(self):
+        if self.arch in NOT_PORTED:
+            raise _not_ported(self.arch)
         if self.arch not in SUPPORTED_ARCHS:
-            raise NotImplementedError(
-                f"arch {self.arch!r} is not ported yet: ROADMAP.md queue A item 7")
+            raise ValueError(f"unknown arch {self.arch!r} (supported: {SUPPORTED_ARCHS})")
         if self.num_heads % self.num_kv_heads:
             raise ValueError("num_heads must be a multiple of num_kv_heads")
+        if self.layer_types and len(self.layer_types) != self.num_layers:
+            raise ValueError("layer_types must name every layer")
 
     @property
     def q_size(self) -> int:
@@ -60,7 +85,24 @@ class ModelConfig:
 
     @property
     def attn_scale(self) -> float:
+        if self.query_pre_attn_scalar is not None:
+            return self.query_pre_attn_scalar ** -0.5
         return self.head_dim ** -0.5
+
+    def layer_type(self, i: int) -> str:
+        if self.layer_types:
+            return self.layer_types[i]
+        if self.sliding_window is not None and self.arch == "gemma2":
+            return "sliding_attention" if i % 2 == 0 else "full_attention"
+        return "full_attention"
+
+    def layer_window(self, i: int) -> int:
+        """Layer ``i``'s sliding window, 0 for full attention (the
+        kernels' convention; JAX ``models/transformer.py::layer_window``
+        gives None)."""
+        if self.sliding_window is not None and self.layer_type(i) == "sliding_attention":
+            return int(self.sliding_window)
+        return 0
 
 
 def _rope_scaling_from_hf(rs) -> Optional[RopeScaling]:
@@ -82,55 +124,111 @@ def _rope_scaling_from_hf(rs) -> Optional[RopeScaling]:
 
 def from_hf_config(hf) -> ModelConfig:
     """A ModelConfig from a HuggingFace config object or dict, with the JAX
-    function's defaults for absent keys. Only ``model_type == "llama"``
-    without projection biases: the others raise ``NotImplementedError``."""
+    function's defaults for absent keys (``model_type`` llama, qwen2, qwen3,
+    gemma, gemma2, gemma3 or gemma3_text). OPT, BLOOM and Phi, and a config
+    with ``mlp_bias`` (which the JAX function does not read), raise
+    ``NotImplementedError``."""
     get = (lambda k, d=None: hf.get(k, d)) if isinstance(hf, dict) else (
         lambda k, d=None: getattr(hf, k, d))
     mt = get("model_type")
-    if mt != "llama":
+    if mt in NOT_PORTED:
+        raise _not_ported(mt)
+    if get("mlp_bias", False):
         raise NotImplementedError(
-            f"model_type {mt!r} is not ported yet: ROADMAP.md queue A item 7")
-    for key in ("attention_bias", "mlp_bias"):
-        if get(key, False):
-            raise NotImplementedError(
-                f"a Llama config with {key}=True: the port's projections have no "
-                "bias (ROADMAP.md queue A item 7)")
+            "a config with mlp_bias=True: the gated MLP has no biases here, nor in the JAX "
+            "package (the biased MLPs of OPT, BLOOM and Phi are ROADMAP.md queue A item 7b)")
     heads = get("num_attention_heads")
-    return ModelConfig(
-        arch=mt,
-        vocab_size=get("vocab_size"),
-        hidden_size=get("hidden_size"),
-        intermediate_size=get("intermediate_size"),
-        num_layers=get("num_hidden_layers"),
-        num_heads=heads,
-        num_kv_heads=get("num_key_value_heads", heads),
-        head_dim=get("head_dim") or get("hidden_size") // heads,
-        max_position_embeddings=get("max_position_embeddings", 2048),
-        hidden_act=get("hidden_act", "silu"),
-        rms_norm_eps=get("rms_norm_eps", 1e-6),
-        rope_theta=get("rope_theta", 10000.0),
-        rope_scaling=_rope_scaling_from_hf(get("rope_scaling")),
-        tie_word_embeddings=get("tie_word_embeddings", False),
-    )
+    if mt in ("llama", "qwen2", "qwen3"):
+        return ModelConfig(
+            arch=mt,
+            vocab_size=get("vocab_size"),
+            hidden_size=get("hidden_size"),
+            intermediate_size=get("intermediate_size"),
+            num_layers=get("num_hidden_layers"),
+            num_heads=heads,
+            num_kv_heads=get("num_key_value_heads", heads),
+            head_dim=get("head_dim") or get("hidden_size") // heads,
+            max_position_embeddings=get("max_position_embeddings", 2048),
+            hidden_act=get("hidden_act", "silu"),
+            rms_norm_eps=get("rms_norm_eps", 1e-6),
+            rope_theta=get("rope_theta", 10000.0),
+            rope_scaling=_rope_scaling_from_hf(get("rope_scaling")),
+            attention_bias=bool(get("attention_bias", mt == "qwen2")),
+            qk_norm=(mt == "qwen3"),
+            sliding_window=get("sliding_window") if get("use_sliding_window", False) else None,
+            tie_word_embeddings=get("tie_word_embeddings", False),
+        )
+    if mt in ("gemma", "gemma2", "gemma3", "gemma3_text"):
+        arch = "gemma3" if mt == "gemma3_text" else mt
+        hidden = get("hidden_size")
+        return ModelConfig(
+            arch=arch,
+            vocab_size=get("vocab_size"),
+            hidden_size=hidden,
+            intermediate_size=get("intermediate_size"),
+            num_layers=get("num_hidden_layers"),
+            num_heads=heads,
+            num_kv_heads=get("num_key_value_heads", heads),
+            head_dim=get("head_dim") or hidden // heads,
+            max_position_embeddings=get("max_position_embeddings", 8192),
+            hidden_act=(get("hidden_activation") or get("hidden_act") or "gelu_pytorch_tanh"),
+            rms_norm_eps=get("rms_norm_eps", 1e-6),
+            norm_weight_plus_one=True,
+            rope_theta=get("rope_theta", 10000.0),
+            rope_local_theta=get("rope_local_base_freq") if arch == "gemma3" else None,
+            rope_scaling=_rope_scaling_from_hf(get("rope_scaling")),
+            query_pre_attn_scalar=(get("query_pre_attn_scalar")
+                                   if arch in ("gemma2", "gemma3") else None),
+            attn_logit_softcapping=get("attn_logit_softcapping") if arch == "gemma2" else None,
+            final_logit_softcapping=get("final_logit_softcapping") if arch == "gemma2" else None,
+            sliding_window=get("sliding_window"),
+            layer_types=tuple(get("layer_types") or ()),
+            qk_norm=(arch == "gemma3"),
+            pre_post_ffw_norm=arch in ("gemma2", "gemma3"),
+            post_attn_residual_norm=arch in ("gemma2", "gemma3"),
+            embed_scale=float(hidden) ** 0.5,
+            tie_word_embeddings=True,
+        )
+    raise ValueError(f"Unsupported model_type {mt!r} (supported: {SUPPORTED_ARCHS})")
+
+
+_HF_NAMES = {"llama": ("llama", "LlamaForCausalLM"), "qwen2": ("qwen2", "Qwen2ForCausalLM"),
+             "qwen3": ("qwen3", "Qwen3ForCausalLM"), "gemma": ("gemma", "GemmaForCausalLM"),
+             "gemma2": ("gemma2", "Gemma2ForCausalLM"),
+             "gemma3": ("gemma3_text", "Gemma3ForCausalLM")}
 
 
 def to_hf_config(cfg: ModelConfig) -> dict:
-    """The HF ``config.json`` dict of a Llama ``cfg``: ``from_hf_config``
-    of it gives ``cfg`` back (the dtype as ``torch_dtype``, which
-    ``from_hf_config`` leaves at its default, as the JAX function does)."""
+    """The HF ``config.json`` dict of ``cfg``, under HF's ``model_type``
+    and ``architectures`` names: ``from_hf_config`` of it gives ``cfg``
+    back (the dtype as ``torch_dtype``, which ``from_hf_config`` leaves at
+    its default, as the JAX function does). A Gemma config reads back with
+    the embedding scale sqrt(hidden) and tied embeddings, which
+    ``from_hf_config`` sets."""
     rs = cfg.rope_scaling
-    return {
-        "model_type": cfg.arch, "architectures": ["LlamaForCausalLM"],
+    model_type, archs = _HF_NAMES[cfg.arch]
+    hf = {
+        "model_type": model_type, "architectures": [archs],
         "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
         "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_layers,
         "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
         "head_dim": cfg.head_dim, "max_position_embeddings": cfg.max_position_embeddings,
-        "hidden_act": cfg.hidden_act, "rms_norm_eps": cfg.rms_norm_eps,
-        "rope_theta": cfg.rope_theta,
+        "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta,
         "rope_scaling": None if rs is None else {
             "rope_type": rs.kind, "factor": rs.factor, "low_freq_factor": rs.low_freq_factor,
             "high_freq_factor": rs.high_freq_factor,
             "original_max_position_embeddings": rs.original_max_position},
-        "tie_word_embeddings": cfg.tie_word_embeddings, "attention_bias": False,
-        "mlp_bias": False, "torch_dtype": cfg.dtype,
+        "tie_word_embeddings": cfg.tie_word_embeddings, "torch_dtype": cfg.dtype,
     }
+    if cfg.arch in ("llama", "qwen2", "qwen3"):
+        hf.update(hidden_act=cfg.hidden_act, attention_bias=cfg.attention_bias,
+                  mlp_bias=False, use_sliding_window=cfg.sliding_window is not None,
+                  sliding_window=cfg.sliding_window)
+        return hf
+    hf.update(hidden_activation=cfg.hidden_act, sliding_window=cfg.sliding_window,
+              layer_types=list(cfg.layer_types) or None,
+              query_pre_attn_scalar=cfg.query_pre_attn_scalar,
+              attn_logit_softcapping=cfg.attn_logit_softcapping,
+              final_logit_softcapping=cfg.final_logit_softcapping,
+              rope_local_base_freq=cfg.rope_local_theta)
+    return hf

@@ -33,15 +33,21 @@ from ..qformats.config import OpQuantConfig
 from .config import RopeScaling
 
 
-def rms_norm(x, weight, eps: float):
+def rms_norm(x, weight, eps: float, plus_one: bool = False):
+    """RMSNorm in float32; with ``plus_one`` (Gemma) the weight is applied
+    as ``1 + w``, added in float32 after the normalisation."""
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+    x32 = x32 * torch.rsqrt(var + eps)
+    w = weight.float()
+    if plus_one:
+        w = 1.0 + w
+    return (x32 * w).to(x.dtype)
 
 
 def apply_norm(cfg, x, p):
     """The model's norm given a param dict {'weight': w}."""
-    return rms_norm(x, p["weight"], cfg.rms_norm_eps)
+    return rms_norm(x, p["weight"], cfg.rms_norm_eps, cfg.norm_weight_plus_one)
 
 
 def activation(name: str, x):

@@ -1,13 +1,18 @@
 """Parameters: random init, HF checkpoints and the compressed checkpoint
-(port of ``models/params.py``, the Llama family).
+(port of ``models/params.py``: Llama, Qwen2, Qwen3, Gemma, Gemma2, Gemma3).
 
 The params layout matches the JAX package (weights in (out, in)
 orientation):
 
     params = {"embed": {"weight"},
-              "layers": [{"ln1", "ln2", "attn": {"q","k","v","o"},
+              "layers": [{"ln1", ["ln2"] | ["pre_ffw_norm", "post_ffw_norm"],
+                          ["post_attn_norm"],
+                          "attn": {"q","k","v","o"} [+ "q_norm", "k_norm"],
                           "mlp": {"gate","up","down"}}, ...],
               "final_norm", ["lm_head"]}
+
+q, k and v carry a ``bias`` where the config has ``attention_bias``
+(Qwen2). A Gemma norm's weight is stored as ``w`` of ``(1 + w)``.
 
 A compressed checkpoint is the JAX package's, byte for byte per entry:
 ``model.safetensors`` holds every leaf as float32 under its HF name (packed
@@ -49,7 +54,8 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch
 def init_params(cfg: ModelConfig, seed: int = 0, scale: float = 0.02,
                 device=None) -> Params:
     """Normal(0, scale) weights from ``torch.Generator(seed)``, ones for the
-    norms, in ``cfg.dtype`` on ``device`` (the card unless told otherwise).
+    norms (zeros for Gemma's ``(1 + w)`` norms), zeros for the biases, in
+    ``cfg.dtype`` on ``device`` (the card unless told otherwise).
     The draws do not equal ``jax.random``'s; tests hand the JAX package's
     params over through ``convert.py`` instead."""
     dev = resolve_device(device)
@@ -60,21 +66,35 @@ def init_params(cfg: ModelConfig, seed: int = 0, scale: float = 0.02,
         return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
                 * scale).to(dt)
 
-    def norm():
-        return {"weight": torch.ones((cfg.hidden_size,), dtype=dt, device=dev)}
+    fill = torch.zeros if cfg.norm_weight_plus_one else torch.ones
 
-    E, I = cfg.hidden_size, cfg.intermediate_size
+    def norm(n=cfg.hidden_size):
+        return {"weight": fill((n,), dtype=dt, device=dev)}
+
+    def lin(out_d, in_d, bias=False):
+        p = {"weight": w(out_d, in_d)}
+        if bias:
+            p["bias"] = torch.zeros((out_d,), dtype=dt, device=dev)
+        return p
+
+    E, I, ab = cfg.hidden_size, cfg.intermediate_size, cfg.attention_bias
     params: Params = {"embed": {"weight": w(cfg.vocab_size, E)}}
     layers = []
     for _ in range(cfg.num_layers):
-        layers.append({
-            "ln1": norm(),
-            "attn": {"q": {"weight": w(cfg.q_size, E)}, "k": {"weight": w(cfg.kv_size, E)},
-                     "v": {"weight": w(cfg.kv_size, E)}, "o": {"weight": w(E, cfg.q_size)}},
-            "mlp": {"gate": {"weight": w(I, E)}, "up": {"weight": w(I, E)},
-                    "down": {"weight": w(E, I)}},
-            "ln2": norm(),
-        })
+        lp = {"ln1": norm(),
+              "attn": {"q": lin(cfg.q_size, E, ab), "k": lin(cfg.kv_size, E, ab),
+                       "v": lin(cfg.kv_size, E, ab), "o": lin(E, cfg.q_size)},
+              "mlp": {"gate": lin(I, E), "up": lin(I, E), "down": lin(E, I)}}
+        if cfg.qk_norm:
+            lp["attn"]["q_norm"] = norm(cfg.head_dim)
+            lp["attn"]["k_norm"] = norm(cfg.head_dim)
+        if cfg.pre_post_ffw_norm:
+            lp["pre_ffw_norm"], lp["post_ffw_norm"] = norm(), norm()
+        else:
+            lp["ln2"] = norm()
+        if cfg.post_attn_residual_norm:
+            lp["post_attn_norm"] = norm()
+        layers.append(lp)
     params["layers"] = layers
     params["final_norm"] = norm()
     if not cfg.tie_word_embeddings:
@@ -88,9 +108,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, scale: float = 0.02,
 
 
 def _hf_key_map(cfg: ModelConfig, i: int) -> Dict[str, tuple]:
-    """HF module name -> params path for layer ``i``."""
+    """HF module name -> params path for layer ``i`` (JAX :130-153): in
+    Gemma2/3 HF's ``post_attention_layernorm`` is the norm on the attention
+    output, elsewhere the MLP's input norm."""
     p = f"model.layers.{i}"
-    return {
+    m = {
         f"{p}.self_attn.q_proj": ("attn", "q"),
         f"{p}.self_attn.k_proj": ("attn", "k"),
         f"{p}.self_attn.v_proj": ("attn", "v"),
@@ -99,8 +121,17 @@ def _hf_key_map(cfg: ModelConfig, i: int) -> Dict[str, tuple]:
         f"{p}.mlp.up_proj": ("mlp", "up"),
         f"{p}.mlp.down_proj": ("mlp", "down"),
         f"{p}.input_layernorm": ("ln1",),
-        f"{p}.post_attention_layernorm": ("ln2",),
     }
+    if cfg.qk_norm:
+        m[f"{p}.self_attn.q_norm"] = ("attn", "q_norm")
+        m[f"{p}.self_attn.k_norm"] = ("attn", "k_norm")
+    if cfg.pre_post_ffw_norm:
+        m[f"{p}.post_attention_layernorm"] = ("post_attn_norm",)
+        m[f"{p}.pre_feedforward_layernorm"] = ("pre_ffw_norm",)
+        m[f"{p}.post_feedforward_layernorm"] = ("post_ffw_norm",)
+    else:
+        m[f"{p}.post_attention_layernorm"] = ("ln2",)
+    return m
 
 
 def _hf_top_map(cfg: ModelConfig) -> Dict[str, tuple]:
@@ -245,7 +276,7 @@ def load_compressed(path, cfg: ModelConfig, qcfg: Optional[QuantConfig] = None,
 
 
 def load_hf_checkpoint(path, dtype: Optional[str] = None, device=None):
-    """(cfg, params) of a local HF Llama directory: ``config.json`` and
+    """(cfg, params) of a local HF directory of a ported architecture: ``config.json`` and
     every ``*.safetensors`` in it (shards included), on ``device`` (the
     card unless told otherwise), in ``dtype`` (the config's default,
     bfloat16, if None)."""

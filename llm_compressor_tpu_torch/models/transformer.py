@@ -1,11 +1,17 @@
-"""The Llama transformer core (port of ``models/transformer.py``).
+"""The transformer core of the rope / RMSNorm families: Llama, Qwen2,
+Qwen3, Gemma, Gemma2, Gemma3 (port of ``models/transformer.py``).
 
 Plain functions over a params dict:
 
-    embed()    tokens -> hidden
+    embed()    tokens -> hidden (Gemma: times the embedding scale)
     attention(), mlp(), decoder_layer()
-    head()     hidden -> logits (final norm + lm_head)
+    head()     hidden -> logits (final norm + lm_head, Gemma2's softcap)
     forward()  the full model
+
+Each layer has its own rope (:func:`rope_for_layer`: Gemma3's local layers
+take their own theta) and its own mask (:func:`make_causal_mask`: a
+sliding window on the local layers of Gemma2 and Gemma3), computed once per
+variant (:func:`layer_ropes`).
 
 Quantization is threaded through as a :class:`LayerOps`, the per-layer
 resolution of a :class:`~..qformats.QuantConfig`. A ``taps`` dict passed
@@ -44,8 +50,10 @@ from .layers import (
     qlinear,
     qmatmul_qk,
     qmatmul_sv,
+    rms_norm,
     rope_cos_sin,
     rope_inv_freq,
+    softcap,
 )
 
 Params = Dict[str, Any]
@@ -56,7 +64,7 @@ SLOTS = ("q", "k", "v", "o", "gate", "up", "down")
 
 def arch_slots(cfg: ModelConfig) -> tuple:
     """Linear slots of the architecture, in the reference's module order
-    (the Llama family: a gated MLP)."""
+    (every ported family has a gated MLP)."""
     return SLOTS
 
 
@@ -108,48 +116,95 @@ def _tap(taps: Optional[dict], key: str, value) -> None:
 
 
 def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Token ids (B, T) -> hidden states (B, T, hidden)."""
-    return params["embed"]["weight"][tokens.long()]
+    """Token ids (B, T) -> hidden states (B, T, hidden). Gemma's scale is
+    first rounded to the embedding's dtype, then multiplied (JAX :164-168;
+    HF rounds sqrt(hidden) the same way)."""
+    h = params["embed"]["weight"][tokens.long()]
+    if cfg.embed_scale is not None:
+        # rounded on the host (no copy to the card, which a CUDA graph's
+        # capture refuses); the product of two values of h's dtype is exact
+        # in float32 and rounds once, as the JAX product does
+        h = h * torch.tensor(cfg.embed_scale, dtype=h.dtype).item()
+    return h
 
 
 def head(params: Params, cfg: ModelConfig, h: torch.Tensor,
          qcfg: Optional[QuantConfig] = None) -> torch.Tensor:
-    """Final norm + lm_head -> f32 logits (B, T, vocab)."""
+    """Final norm + lm_head -> f32 logits (B, T, vocab), softcapped where
+    the config says (Gemma2)."""
     h = apply_norm(cfg, h, params["final_norm"])
     lm = params.get("lm_head")
     w = params["embed"]["weight"] if lm is None else lm["weight"]
     op = qcfg.for_op("lm_head", "head") if qcfg is not None else None
-    return qlinear(h, w, None, op).float()
+    return softcap(qlinear(h, w, None, op).float(), cfg.final_logit_softcapping)
 
 
-def rope_for_positions(cfg: ModelConfig, positions: torch.Tensor):
-    inv = rope_inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
-                        device=positions.device)
+def rope_for_layer(cfg: ModelConfig, layer_idx: int, positions: torch.Tensor):
+    """cos/sin (B, T, D) f32 for one layer: Gemma3's local layers take
+    ``rope_local_theta`` and no scaling (JAX :447-457)."""
+    theta, scaling = cfg.rope_theta, cfg.rope_scaling
+    if cfg.rope_local_theta is not None and cfg.layer_type(layer_idx) == "sliding_attention":
+        theta, scaling = cfg.rope_local_theta, None
+    inv = rope_inv_freq(cfg.head_dim, theta, scaling, device=positions.device)
     return rope_cos_sin(positions, inv)
 
 
-def causal_mask(q_positions, kv_positions) -> torch.Tensor:
-    """(B, T, S) additive f32 causal mask (0 / NEG_INF)."""
-    keep = kv_positions[:, None, :] <= q_positions[:, :, None]
+def layer_ropes(cfg: ModelConfig, positions: torch.Tensor) -> list:
+    """Every layer's (cos, sin), computed once per rope variant (the JAX
+    package's ``rope_stack``)."""
+    local = lambda i: (cfg.rope_local_theta is not None
+                       and cfg.layer_type(i) == "sliding_attention")
+    variants = {}
+    for i in range(cfg.num_layers):
+        if local(i) not in variants:
+            variants[local(i)] = rope_for_layer(cfg, i, positions)
+    return [variants[local(i)] for i in range(cfg.num_layers)]
+
+
+def window_mask(q_positions, kv_positions, window: int = 0) -> torch.Tensor:
+    """(B, T, S) additive f32 causal mask (0 / NEG_INF); a ``window`` > 0
+    keeps keys at positions > q - window as well (JAX :205-214)."""
+    qp, kp = q_positions[:, :, None], kv_positions[:, None, :]
+    keep = kp <= qp
+    if window > 0:
+        keep = keep & (kp > qp - window)
     zero = torch.zeros((), dtype=torch.float32, device=q_positions.device)
     return torch.where(keep, zero, torch.full_like(zero, NEG_INF))
 
 
+def make_causal_mask(cfg: ModelConfig, layer_idx: int, q_positions, kv_positions):
+    """(B, 1, T, S) additive f32 mask of one layer, sliding-window aware."""
+    return window_mask(q_positions, kv_positions, cfg.layer_window(layer_idx))[:, None]
+
+
+def layer_masks(cfg: ModelConfig, q_positions, kv_positions) -> list:
+    """Every layer's (B, T, S) mask, computed once per window size."""
+    masks = {}
+    for i in range(cfg.num_layers):
+        w = cfg.layer_window(i)
+        if w not in masks:
+            masks[w] = window_mask(q_positions, kv_positions, w)
+    return [masks[cfg.layer_window(i)] for i in range(cfg.num_layers)]
+
+
 def project_qkv(lp: Params, cfg: ModelConfig, x, ops: Optional[LayerOps], cos, sin):
-    """QKV projection + rope for a (B, T, E) slice -> q (B, T, H, D), k/v
-    (B, T, KV, D)."""
+    """QKV projection (biases where the layer has them), q/k norms, rope for
+    a (B, T, E) slice -> q (B, T, H, D), k/v (B, T, KV, D)."""
     B, T, _ = x.shape
     ap = lp["attn"]
     H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if "qkv_cat" in ap:
-        y = qlinear(x, ap["qkv_cat"]["weight"], None, _slot(ops, "q"))
+        y = qlinear(x, ap["qkv_cat"]["weight"], ap["qkv_cat"].get("bias"), _slot(ops, "q"))
         q = y[..., :H * D].reshape(B, T, H, D)
         k = y[..., H * D:(H + KV) * D].reshape(B, T, KV, D)
         v = y[..., (H + KV) * D:].reshape(B, T, KV, D)
     else:
-        q = qlinear(x, ap["q"]["weight"], None, _slot(ops, "q")).reshape(B, T, H, D)
-        k = qlinear(x, ap["k"]["weight"], None, _slot(ops, "k")).reshape(B, T, KV, D)
-        v = qlinear(x, ap["v"]["weight"], None, _slot(ops, "v")).reshape(B, T, KV, D)
+        q = qlinear(x, ap["q"]["weight"], ap["q"].get("bias"), _slot(ops, "q")).reshape(B, T, H, D)
+        k = qlinear(x, ap["k"]["weight"], ap["k"].get("bias"), _slot(ops, "k")).reshape(B, T, KV, D)
+        v = qlinear(x, ap["v"]["weight"], ap["v"].get("bias"), _slot(ops, "v")).reshape(B, T, KV, D)
+    if cfg.qk_norm:   # per-head-dim RMS norm (qwen3 plain, gemma3 plus-one)
+        q = rms_norm(q, ap["q_norm"]["weight"], cfg.rms_norm_eps, cfg.norm_weight_plus_one)
+        k = rms_norm(k, ap["k_norm"]["weight"], cfg.rms_norm_eps, cfg.norm_weight_plus_one)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
@@ -165,6 +220,7 @@ def attention(lp: Params, cfg: ModelConfig, x, cos, sin, mask,
     v = v[:, :, :, None, :].expand(B, T, KV, r, D).reshape(B, T, H, D)
     scores = qmatmul_qk(q.transpose(1, 2), k.permute(0, 2, 3, 1),
                         ops.qk if ops is not None else None) * cfg.attn_scale
+    scores = softcap(scores, cfg.attn_logit_softcapping)   # before the mask
     probs = torch.softmax(scores + mask, dim=-1).to(x.dtype)
     out = qmatmul_sv(probs, v.transpose(1, 2), ops.sv if ops is not None else None)
     out = out.to(x.dtype).transpose(1, 2).reshape(B, T, H * D)
@@ -207,11 +263,27 @@ def mlp(lp: Params, cfg: ModelConfig, x, ops: Optional[LayerOps] = None,
     return qlinear(h, mp["down"]["weight"], None, _slot(ops, "down"))
 
 
+def residual_block(lp: Params, cfg: ModelConfig, x, attend, ops: Optional[LayerOps] = None,
+                   taps: Optional[dict] = None) -> torch.Tensor:
+    """The pre-norm residual block around ``attend`` (normed input ->
+    attention output), with Gemma2/3's norm on the attention output and
+    their pre/post feed-forward norms (JAX :405-441); the MLP's ``mlp_in``
+    tap is its normed input."""
+    a = attend(apply_norm(cfg, x, lp["ln1"]))
+    if cfg.post_attn_residual_norm:
+        a = apply_norm(cfg, a, lp["post_attn_norm"])
+    x = x + a
+    if cfg.pre_post_ffw_norm:
+        m = mlp(lp, cfg, apply_norm(cfg, x, lp["pre_ffw_norm"]), ops, taps)
+        return x + apply_norm(cfg, m, lp["post_ffw_norm"])
+    return x + mlp(lp, cfg, apply_norm(cfg, x, lp["ln2"]), ops, taps)
+
+
 def decoder_layer(lp: Params, cfg: ModelConfig, x, cos, sin, mask,
                   ops: Optional[LayerOps] = None, taps: Optional[dict] = None) -> torch.Tensor:
     """One decoder block, the unit of layer-by-layer calibration."""
-    x = x + attention(lp, cfg, apply_norm(cfg, x, lp["ln1"]), cos, sin, mask, ops, taps)
-    return x + mlp(lp, cfg, apply_norm(cfg, x, lp["ln2"]), ops, taps)
+    return residual_block(lp, cfg, x, lambda xn: attention(lp, cfg, xn, cos, sin, mask, ops, taps),
+                          ops, taps)
 
 
 # ---------------------------------------------------------------------------
@@ -220,6 +292,8 @@ def decoder_layer(lp: Params, cfg: ModelConfig, x, cos, sin, mask,
 
 
 def _concat_linear(entries) -> Params:
+    """Linear entries concatenated along N; biases too (zeros for an entry
+    without one), as JAX :586-592 does."""
     ws = [e["weight"] for e in entries]
     if isinstance(ws[0], QTensor):
         q0 = ws[0]
@@ -234,7 +308,13 @@ def _concat_linear(entries) -> Params:
         )
     else:
         weight = torch.cat(ws)
-    return {"weight": weight}
+    out = {"weight": weight}
+    biases = [e.get("bias") for e in entries]
+    b0 = next((b for b in biases if b is not None), None)
+    if b0 is not None:
+        out["bias"] = torch.cat([b0.new_zeros(w.shape[0]) if b is None else b
+                                 for b, w in zip(biases, ws)])
+    return out
 
 
 def _fusible(entries, ops: Optional[LayerOps], slots) -> bool:
@@ -333,10 +413,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
     h = embed(params, cfg, tokens)
-    cos, sin = rope_for_positions(cfg, positions)
-    mask = causal_mask(positions, positions)[:, None]
+    ropes = layer_ropes(cfg, positions)
+    masks = layer_masks(cfg, positions, positions)
     for i, lp in iter_layers(params):
-        h = decoder_layer(lp, cfg, h, cos, sin, mask, layer_ops(cfg, qcfg, i))
+        h = decoder_layer(lp, cfg, h, *ropes[i], masks[i][:, None], layer_ops(cfg, qcfg, i))
     return head(params, cfg, h, qcfg)
 
 
@@ -354,9 +434,13 @@ def quant_uniform(cfg: ModelConfig, qcfg: Optional[QuantConfig]) -> bool:
 
 
 def uniform_layers(cfg: ModelConfig, qcfg: Optional[QuantConfig]) -> bool:
-    """True when every layer has the same static behaviour. The Llama
-    family's layers differ by their quantizers only (the JAX function also
-    checks the sliding windows and local rope of other architectures)."""
+    """True when every layer has the same static behaviour: no sliding
+    window or local rope theta, one layer type, equal quantizers (JAX
+    :460-468)."""
+    if cfg.sliding_window is not None or cfg.rope_local_theta is not None:
+        return False
+    if cfg.layer_types and len(set(cfg.layer_types)) > 1:
+        return False
     return quant_uniform(cfg, qcfg)
 
 

@@ -392,17 +392,36 @@ def test_to_hf_config_round_trips():
 
 
 @pytest.mark.parametrize("hf", [
-    transformers.Qwen2Config(vocab_size=256, hidden_size=64, num_hidden_layers=2,
-                             num_attention_heads=4),
-    {"model_type": "gemma", "vocab_size": 256},
-    transformers.LlamaConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
-                             num_attention_heads=4, attention_bias=True),
+    transformers.OPTConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+                           num_attention_heads=4),
+    {"model_type": "bloom", "vocab_size": 256},
+    transformers.PhiConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+                           num_attention_heads=4),
     transformers.LlamaConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
                              num_attention_heads=4, mlp_bias=True),
-], ids=["qwen2", "gemma", "llama_attention_bias", "llama_mlp_bias"])
+], ids=["opt", "bloom", "phi", "llama_mlp_bias"])
 def test_from_hf_config_refuses(hf):
+    """OPT, BLOOM and Phi are not ported yet; a gated MLP with biases is
+    read by neither package."""
     with pytest.raises(NotImplementedError, match="queue A item 7"):
         tm.from_hf_config(hf)
+
+
+@pytest.mark.parametrize("hf", [
+    transformers.Qwen2Config(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+                             num_attention_heads=4, num_key_value_heads=2),
+    {"model_type": "gemma", "vocab_size": 256, "hidden_size": 64, "intermediate_size": 128,
+     "num_hidden_layers": 2, "num_attention_heads": 4},
+    transformers.LlamaConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+                             num_attention_heads=4, attention_bias=True),
+], ids=["qwen2", "gemma", "llama_attention_bias"])
+def test_from_hf_config_takes_what_jax_takes(hf):
+    """Configs the port refused before it ran these architectures: read
+    field for field as the JAX package reads them (a biased Llama too)."""
+    a, b = jm.from_hf_config(hf), tm.from_hf_config(hf)
+    for f in dataclasses.fields(b):
+        assert getattr(a, f.name) == getattr(b, f.name), f.name
+    assert b.attention_bias == (b.arch != "gemma")
 
 
 def test_from_hf_config_defaults_match_jax():

@@ -319,6 +319,52 @@ def test_stats_attention(cuda, window, softcap, t, monkeypatch):
     torch.testing.assert_close(out, ref, rtol=1e-3, atol=2 * float(fresh[3].max()))
 
 
+@pytest.mark.parametrize("r", [2, 8])
+@pytest.mark.parametrize("kernel", ["append", "two_part", "stats"])
+@pytest.mark.parametrize("window,softcap", [(0, None), (100, 50.0)])
+def test_attention_head_dim_256(cuda, r, kernel, window, softcap):
+    """B4, B7 and B6 at Gemma's head dim 256 against their plain versions:
+    r = 2 (Gemma-2-2B) keeps the window resident, r = 8 (Gemma-2B) has a
+    cap of 128 keys under S = 256, so its windows go through the f32 score
+    scratch. Tolerances as at D = 64."""
+    B, KV, D, S, W, t = 3, 2, 256, 256, 16, 9
+    assert da.plan(r, D, S, W).scratch == (r == 8)
+    q, main, fresh = _attention_inputs(cuda, 7, B=B, KV=KV, r=r, D=D, S=S, W=W)
+    vmax = max(float(main[3].max()), float(fresh[3].max()))
+    kw = dict(scale=256 ** -0.5, softcap=softcap)
+    if kernel == "append":
+        g = torch.Generator(device="cpu").manual_seed(8)
+        new = (torch.randint(-127, 128, (B, KV, D), generator=g, dtype=torch.int8).to(cuda),
+               torch.randint(-127, 128, (B, KV, D), generator=g, dtype=torch.int8).to(cuda),
+               (torch.rand(B, KV, generator=g) * 0.02 + 1e-3).to(cuda),
+               (torch.rand(B, KV, generator=g) * 0.02 + 1e-3).to(cuda))
+        pos = torch.tensor([0, 137, 255], dtype=torch.int32, device=cuda)
+        caches = [a.clone() for a in main]
+        got = da.decode_attention_append(q, *new, *main, pos, window=window, **kw)
+        want = da.decode_attention_append_plain(q, *new, *caches, pos, window=window, **kw)
+        for a, b in zip(main, caches):
+            assert torch.equal(a, b)
+        _assert_attention_close(got, want, max(vmax, float(new[3].max())))
+        return
+    mlen = torch.tensor([0, 120, 240], dtype=torch.int32, device=cuda)
+    pos = mlen + t
+    if kernel == "two_part":
+        got = da.decode_attention(q, *main, mlen, pos, window, t, fresh, **kw)
+        want = da.decode_attention_plain(q, *main, mlen, pos, window, t, fresh, **kw)
+        assert bool(got.isfinite().all())
+        _assert_attention_close(got, want, vmax)
+        return
+    qi, qs = da.row_quant_i8(q)
+    m_f = torch.randn(qs.shape, device=cuda)
+    wfm = torch.rand(qs.shape, device=cuda) * 0.02
+    got = da.decode_attention_stats(qi, qs, m_f, wfm, *main, mlen, pos, window, **kw)
+    want = da.decode_attention_stats_plain(qi, qs, m_f, wfm, *main, mlen, pos, window, **kw)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+    d = (got[0] - want[0]).abs()
+    assert float((d > 0).float().mean()) <= 0.01 and float(d.max()) <= 127 * 127
+
+
 def _long_inputs(cuda, seed, B, KV, r, D, S, W=8):
     """Random codes and scales generated on the card (a 128K cache is too
     large for the host generator to be quick)."""

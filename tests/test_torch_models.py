@@ -134,8 +134,9 @@ def test_fuse_and_stack_match_jax():
 
 
 def test_tiny_config_rejects_unported_arch():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.tiny_config("gemma2")
+    for arch in ("opt", "bloom", "phi"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tm.tiny_config(arch)
 
 
 # Weight-only configs: no activation quantizers, so every small-M packed

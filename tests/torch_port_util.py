@@ -1,6 +1,7 @@
 """Helpers shared by the ``test_torch_*`` parity tests: hand the JAX
-package's params over to the port as numpy, cap torch's threads, and hold
-the port's GPTQ chain against the JAX package's functions, teacher-forced."""
+package's params over to the port as numpy, draw the norms and biases of
+such a tree from a seed, cap torch's threads, and hold the port's GPTQ
+chain against the JAX package's functions, teacher-forced."""
 
 import contextlib
 import importlib
@@ -43,6 +44,27 @@ def jax_to_numpy(tree):
     if isinstance(tree, (list, tuple)):
         return [jax_to_numpy(v) for v in tree]
     return np.asarray(tree)
+
+
+def randomize(tree, seed):
+    """The norms' weights and the biases of a numpy params tree
+    (``jax_to_numpy``) drawn from ``seed``, in place: N(0, 0.1) added to
+    every 1-D weight, N(0, 0.02) biases. ``init_params`` gives ones or
+    zeros, under which a norm's or a bias's misuse would not show."""
+    rng = np.random.default_rng(seed)
+
+    def walk(node):
+        items = enumerate(node) if isinstance(node, list) else list(node.items())
+        for k, v in items:
+            if isinstance(v, (dict, list)):
+                walk(v)
+            elif k == "bias":
+                node[k] = rng.normal(0, 0.02, v.shape).astype(v.dtype)
+            elif k == "weight" and v.ndim == 1:
+                node[k] = (v + rng.normal(0, 0.1, v.shape)).astype(v.dtype)
+
+    walk(tree)
+    return tree
 
 
 @pytest.fixture(autouse=True, scope="module")
