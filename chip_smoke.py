@@ -150,12 +150,29 @@ Phases (each prints a line; any failure exits non-zero):
    Gemma's shapes: B1 qkv 4096 x 2304, B2 gelu-tanh 2·9216 x 2304, B3
    head 256000 x 2304, B4 at D = 256 (r = 2 with softcap 50, window 0
    and 4096; r = 8), B6 and B7 at r = 2, D = 256 with a window.
+11. archs_b — OPT, BLOOM and Phi, after the archs phase, the same way.
+   ``phi_2_w4a8``: Phi-2 at full width and depth (32 layers, 32 / 32
+   heads, head_dim 80, partial rotary 0.4, an untied head with its bias),
+   served as the slices of step 5 (128 B1, 1 B3 and 32 B4 at r = 1, D = 80
+   a step asserted, equal to the replay's trace). The families at 2
+   layers of their published widths, in the three decode modes: kernel
+   path against plain path (tokens as in step 4) and graph decode bitwise
+   equal to the eager loop, each replay launching its mode's kernels:
+   OPT-1.3B (its query pre-scaled, scale 1.0 into B4, B7, B6 at r = 1,
+   D = 64; its 50272-row head, which neither B3 nor B5 takes, runs
+   dequantize + matmul and is timed), OPT-350m (project_in / project_out,
+   post-norm), BLOOM-560m (ALiBi: the float attention path in every mode,
+   so its modes decode alike and are checked against plain once; fused
+   qkv on B1, a 250880-row head on B3), Phi-2 (B7 and B6 at D = 80). Step
+   3 adds the kernels at Phi-2's shapes: B1 qkv 7680 x 2560, o, fc1 10240
+   x 2560, fc2 2560 x 10240, B3 head 51200 x 2560, B4 at r = 1, D = 80 and
+   D = 64 with scale 1.0, B6 and B7 at r = 1, D = 80.
 The ``kernels`` JSON object, nvidia-smi's name and power limit and the
 slices' and serving engine's numbers (TTFT, decode tok/s over the graph,
 first-call and capture seconds, the eager loop's tok/s, peak memory; calibration seconds
 for ``spinquant_gptq``, RTN seconds for the formats slices; the formats phase's 2-layer
-checks; the archs phase's checks) come on the three lines before the
-last; the last is ``{"ok": true, "device": {...}}``.
+checks; the archs and archs_b phases' checks) come on the three lines
+before the last; the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -409,7 +426,9 @@ def check_w4a8(gen, label, kind, M, N, C, wfmt, act="silu"):
 
 
 def check_decode_attention(gen, B=128, KV=8, r=4, D=64, S=256, pos=144, window=0,
-                           softcap=None):
+                           softcap=None, scale=None):
+    """One B4 case (``scale`` D ** -0.5 unless given: OPT's pre-scaled
+    query takes 1.0)."""
     from llm_compressor_tpu_torch.kernels import decode_attention as da
 
     q = torch.randn((B, KV, r, D), generator=gen, device="cuda")
@@ -422,7 +441,8 @@ def check_decode_attention(gen, B=128, KV=8, r=4, D=64, S=256, pos=144, window=0
     nk, nv = kc[:, :, 0].clone(), vc[:, :, 1].clone()
     nks, nvs = ks[:, :, 0].clone(), vs[:, :, 1].clone()
     p = torch.full((B,), pos, dtype=torch.int32, device="cuda")
-    scale = D ** -0.5
+    label_scale = "" if scale is None else f" scale={scale}"
+    scale = D ** -0.5 if scale is None else scale
     bufs = [t.clone() for t in (kc, vc, ks, vs)]
     kw = dict(window=window, scale=scale, softcap=softcap)
     got = da.decode_attention_append(q, nk, nv, nks, nvs, *bufs, p, **kw)
@@ -454,7 +474,7 @@ def check_decode_attention(gen, B=128, KV=8, r=4, D=64, S=256, pos=144, window=0
     plain = lambda: da.decode_attention_append_plain(q, nk, nv, nks, nvs, *ref_bufs, p, **kw)
     cap = "" if softcap is None else f" softcap={softcap}"
     win = "" if window <= 0 else f" window={window}"
-    return {"case": f"decode B={B} KV={KV} r={r} D={D} S={S} pos={pos}{win}{cap}",
+    return {"case": f"decode B={B} KV={KV} r={r} D={D} S={S} pos={pos}{win}{cap}{label_scale}",
             "tolerance": "codes bitwise; f32 ulps + one prob code on <= 1% of outputs",
             "max_abs_err": float(err.max()), "ms": time_ms(run),
             "plain_ms": time_ms(plain, reps=3, warmup=1), "bound_ms": b_ms,
@@ -783,12 +803,18 @@ def kernel_cases(gen):
     E, I, V = 2048, 8192, 128256
     # Gemma-2-2B (the archs phase's slice): hidden, intermediate, vocab
     gE, gI, gV = 2304, 9216, 256000
+    # Phi-2 (the archs_b phase's slice)
+    pE, pI, pV = 2560, 10240, 51200
     return {
         "B1_w4a8_stacked": lambda: [
             check_w4a8(gen, "decode qkv", "stacked", 128, 3072, E, 1),
             check_w4a8(gen, "decode o", "stacked", 128, E, E, 1),
             check_w4a8(gen, "decode down", "stacked", 128, E, I, 1),
-            check_w4a8(gen, "gemma-2-2b decode qkv", "stacked", 128, 4096, gE, 1)],
+            check_w4a8(gen, "gemma-2-2b decode qkv", "stacked", 128, 4096, gE, 1),
+            check_w4a8(gen, "phi-2 decode qkv", "stacked", 128, 3 * pE, pE, 1),
+            check_w4a8(gen, "phi-2 decode o", "stacked", 128, pE, pE, 1),
+            check_w4a8(gen, "phi-2 decode fc1", "stacked", 128, pI, pE, 1),
+            check_w4a8(gen, "phi-2 decode fc2", "stacked", 128, pE, pI, 1)],
         "B2_w4a8_gateup_silu": lambda: [
             check_w4a8(gen, "decode gate|up", "gateup", 128, 2 * I, E, 1),
             check_w4a8(gen, "prefill gate|up 128x128 rows", "gateup", 128 * 128, 2 * I, E, 1),
@@ -798,13 +824,16 @@ def kernel_cases(gen):
             check_w4a8(gen, "decode int8 head", "flat", 128, V, E, 0),
             check_w4a8(gen, "prefill qkv 128x128 rows", "flat", 128 * 128, 3072, E, 1),
             check_w4a8(gen, "prefill o 128x128 rows", "flat", 128 * 128, E, E, 1),
-            check_w4a8(gen, "gemma-2-2b decode int8 head", "flat", 128, gV, gE, 0)],
+            check_w4a8(gen, "gemma-2-2b decode int8 head", "flat", 128, gV, gE, 0),
+            check_w4a8(gen, "phi-2 decode int8 head", "flat", 128, pV, pE, 0)],
         "B4_decode_attention_append": lambda: [
             check_decode_attention(gen),
             check_decode_attention(gen, B=4, S=LONG_S, pos=LONG_S - 1),
             check_decode_attention(gen, KV=4, r=2, D=256, softcap=50.0),
             check_decode_attention(gen, KV=4, r=2, D=256, window=4096, softcap=50.0),
-            check_decode_attention(gen, KV=1, r=8, D=256)],
+            check_decode_attention(gen, KV=1, r=8, D=256),
+            check_decode_attention(gen, KV=32, r=1, D=80),
+            check_decode_attention(gen, KV=32, r=1, D=64, scale=1.0)],
         "B5_dequant_matmul": lambda: [
             check_dequant_matmul(gen, "decode qkv int4-g128 zp", 128, 3072, E, dm.F_INT4_PAIRS, True),
             check_dequant_matmul(gen, "decode o int4-g128 zp", 128, E, E, dm.F_INT4_PAIRS, True),
@@ -819,12 +848,14 @@ def kernel_cases(gen):
         "B6_decode_attention_stats": lambda: [
             check_stats(gen), check_stats(gen, window=64, softcap=50.0),
             check_stats(gen, B=4, S=LONG_S, len0=LONG_S - 17),
-            check_stats(gen, window=64, softcap=50.0, KV=4, r=2, D=256)],
+            check_stats(gen, window=64, softcap=50.0, KV=4, r=2, D=256),
+            check_stats(gen, KV=32, r=1, D=80)],
         "B7_decode_attention": lambda: [
             check_two_part(gen, True), check_two_part(gen, False),
             check_two_part(gen, True, window=64, softcap=50.0),
             check_two_part(gen, True, B=4, S=LONG_S, len0=LONG_S - 17),
-            check_two_part(gen, True, window=64, softcap=50.0, KV=4, r=2, D=256)],
+            check_two_part(gen, True, window=64, softcap=50.0, KV=4, r=2, D=256),
+            check_two_part(gen, True, KV=32, r=1, D=80)],
         "B8_fresh_write": lambda: [check_fresh_write(gen)],
         "B9_w4a8_actq": lambda: [
             check_w4a8_actq(gen, "int8 head, raw bf16 acts", 128, V, E, 0),
@@ -2267,7 +2298,7 @@ def format_serving(name):
 
 
 def format_config(name, layers: int):
-    from llm_compressor_tpu_torch.models.transformer import SLOTS, op_names
+    from llm_compressor_tpu_torch.models.transformer import arch_slots, op_names
     from llm_compressor_tpu_torch.qformats import build_quant_config, register_4_to_8bit
 
     f = FORMATS[name]
@@ -2275,7 +2306,7 @@ def format_config(name, layers: int):
     qcfg = build_quant_config(*f["qargs"], w_mse=f["mse"], head_act=f["head_act"])
     if f["mpq"]:
         qcfg = register_4_to_8bit(qcfg, [f"{op_names(cfg, i)[s]}.weight"
-                                         for i in (0, layers - 1) for s in SLOTS])
+                                         for i in (0, layers - 1) for s in arch_slots(cfg)])
     return cfg, qcfg
 
 
@@ -2293,15 +2324,16 @@ def build_format(name: str, layers: int, seed: int, keep_layer0: bool = False):
     from llm_compressor_tpu_torch.algorithms import pack_model, rtn
     from llm_compressor_tpu_torch.algorithms.common import get_weight
     from llm_compressor_tpu_torch.models import fuse_model, init_params, stack_model
-    from llm_compressor_tpu_torch.models.transformer import SLOTS
+    from llm_compressor_tpu_torch.models.transformer import arch_slots
     from llm_compressor_tpu_torch.qformats import dequantize
 
     f = FORMATS[name]
     cfg, qcfg = format_config(name, layers)
+    slots = arch_slots(cfg)
     params = init_params(cfg, seed=seed)
     info: dict = {}
     if keep_layer0:
-        info["layer0_w"] = {s: get_weight(params["layers"][0], s).clone() for s in SLOTS}
+        info["layer0_w"] = {s: get_weight(params["layers"][0], s).clone() for s in slots}
     book = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2311,7 +2343,7 @@ def build_format(name: str, layers: int, seed: int, keep_layer0: bool = False):
     torch.cuda.synchronize()
     info.update(rtn_s=time.perf_counter() - t0, rtn_counts=kernels.launch_counts(),
                 rtn_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    fake = {(i, s): get_weight(lp, s) for i, lp in enumerate(params["layers"]) for s in SLOTS}
+    fake = {(i, s): get_weight(lp, s) for i, lp in enumerate(params["layers"]) for s in slots}
     head_fake = params["embed"]["weight"]
     pack_model(params, cfg, qcfg, scale_book=book)
     for (i, s), w in fake.items():
@@ -2322,8 +2354,8 @@ def build_format(name: str, layers: int, seed: int, keep_layer0: bool = False):
     info["head_max_abs_diff"] = float((head.float() - head_fake.float()).abs().max())
     del head
     if keep_layer0:
-        info["layer0_q"] = {s: fake[(0, s)] for s in SLOTS}
-        info["layer0_book"] = {s: book[(0, s)] for s in SLOTS}
+        info["layer0_q"] = {s: fake[(0, s)] for s in slots}
+        info["layer0_book"] = {s: book[(0, s)] for s in slots}
     del fake, book
     params = fuse_model(params, cfg, qcfg)
     return cfg, qcfg, params if f["mpq"] else stack_model(params), info
@@ -2498,6 +2530,26 @@ ARCH_CONFIGS = {
         "max_position_embeddings": 32768,
         "layer_types": ["full_attention" if (i + 1) % 6 == 0 else "sliding_attention"
                         for i in range(26)]}),
+    "phi_2": ("microsoft/phi-2 config.json", {
+        "model_type": "phi", "vocab_size": 51200, "hidden_size": 2560,
+        "intermediate_size": 10240, "num_hidden_layers": 32, "num_attention_heads": 32,
+        "num_key_value_heads": 32, "partial_rotary_factor": 0.4, "hidden_act": "gelu_new",
+        "layer_norm_eps": 1e-5, "rope_theta": 10000.0, "max_position_embeddings": 2048,
+        "qk_layernorm": False, "tie_word_embeddings": False}),
+    "opt_1_3b": ("facebook/opt-1.3b config.json", {
+        "model_type": "opt", "vocab_size": 50272, "hidden_size": 2048, "ffn_dim": 8192,
+        "num_hidden_layers": 24, "num_attention_heads": 32, "activation_function": "relu",
+        "max_position_embeddings": 2048, "do_layer_norm_before": True,
+        "word_embed_proj_dim": 2048, "enable_bias": True}),
+    "opt_350m": ("facebook/opt-350m config.json", {
+        "model_type": "opt", "vocab_size": 50272, "hidden_size": 1024, "ffn_dim": 4096,
+        "num_hidden_layers": 24, "num_attention_heads": 16, "activation_function": "relu",
+        "max_position_embeddings": 2048, "do_layer_norm_before": False,
+        "word_embed_proj_dim": 512, "enable_bias": True}),
+    "bloom_560m": ("bigscience/bloom-560m config.json as BloomConfig(...).to_dict() writes it "
+                   "(the hub file's n_embed under hidden_size)", {
+        "model_type": "bloom", "vocab_size": 250880, "hidden_size": 1024, "n_layer": 24,
+        "n_head": 16, "layer_norm_epsilon": 1e-5}),
 }
 GEMMA2_LAYERS = 26
 # Gemma-2-2B's decode step: qkv, o and down per layer on B1, gate|up on B2,
@@ -2611,6 +2663,98 @@ def phase_archs(seed: int):
     torch.cuda.empty_cache()
     out["families"] = {name: check_family(name, seed) for name in FAMILY_SHAPES}
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: OPT, BLOOM and Phi
+# ---------------------------------------------------------------------------
+
+PHI2_LAYERS = 32
+B1_B3_B4 = ["B1_w4a8_stacked", "B3_w4a8_flat", "B4_decode_attention_append"]
+# Phi-2's decode step: qkv, o, fc1 and fc2 per layer on B1 (no gate|up, so
+# no B2), the int8 head (51200 rows, with its bias) on B3, one B4 per layer
+PHI2_PER_STEP = {"w4a8_stacked": 4 * PHI2_LAYERS, "w4a8_flat": 1,
+                 "decode_attention_append": PHI2_LAYERS}
+# the families at 2 layers: (slots, prompt, steps, cache rows)
+FAMILY_B_SHAPE = (16, 32, 8, 64)
+FAMILIES_B = ("opt_1_3b", "opt_350m", "bloom_560m", "phi_2")
+# each decode mode and its attention kernels
+ATTENTION_OF = {"append": ["B4_decode_attention_append"], **SIDE_KERNELS}
+
+
+def family_b_kernels(name: str, mode: str, decode_only: bool = False):
+    """The kernels a 2-layer family launches in a prefill and its decode
+    steps (``decode_only``: in the decode steps): B1 at decode; B3 for the
+    prefill projections with C/g <= 16 (every OPT and BLOOM linear but fc2)
+    and for a head that B3 takes (BLOOM's 250880 and Phi-2's 51200 rows;
+    OPT's 50272 rows, N % 128 != 0, take dequantize + matmul); the mode's
+    attention kernels, none for BLOOM (ALiBi: the float path)."""
+    b3 = [] if decode_only and name.startswith("opt") else ["B3_w4a8_flat"]
+    attn = [] if name == "bloom_560m" else ATTENTION_OF[mode]
+    return ["B1_w4a8_stacked"] + b3 + attn
+
+
+def check_family_b(name: str, seed: int):
+    """One family at 2 layers of its published widths, W4A8 with an int8
+    cache, in the three decode modes: the kernel path against the plain
+    path (``check_reduced_depth``; BLOOM once, its modes all decode alike),
+    then ``run_slice`` from the same params: the CUDA graph's three calls
+    and the eager loop bitwise equal, the replay launching the mode's
+    kernels; OPT-1.3B also times its head (dequantize + matmul)."""
+    from llm_compressor_tpu_torch.models import transformer as tt
+
+    B, T, steps, max_len = FAMILY_B_SHAPE
+    cfg = arch_cfg(name, 2)
+    model = build_model(2, seed, W4A8, cfg=cfg)
+    out = {"source": ARCH_CONFIGS[name][0], "layers": 2, "shape": list(FAMILY_B_SHAPE)}
+    for mode in ATTENTION_OF:
+        if name != "bloom_560m" or mode == "append":
+            checked, total, max_err, vs_b4 = check_reduced_depth(
+                seed, W4A8, family_b_kernels(name, mode), attention=mode, model=model,
+                shape=FAMILY_B_SHAPE)
+            out[mode] = {"confident_tokens_equal": checked, "tokens": total,
+                         "max_abs_logit_diff": max_err}
+            if vs_b4 is not None:
+                out[mode]["vs_b4"] = vs_b4
+        r = run_slice(model[2], cfg, model[1], W4A8, batch=B, prompt=T, steps=steps,
+                      max_len=max_len, seed=seed, attention=mode)
+        want = {COUNTER_OF[k] for k in family_b_kernels(name, mode, decode_only=True)}
+        got = {k for k, v in r["replay_counts"].items() if v}
+        if got != want:
+            raise AssertionError(f"{name} {mode} decode launched {r['replay_counts']}, "
+                                 f"not {sorted(want)}")
+        out.setdefault(mode, {}).update(
+            graph_decode_tok_s=B * steps / (r["decode_ms"] / 1e3),
+            eager_decode_tok_s=B * steps / (r["loop_ms"] / 1e3),
+            replay_counts=r["replay_counts"])
+    if name == "opt_1_3b":
+        cfg, qcfg, params = model
+        h = torch.randn((BATCH, 1, cfg.hidden_size), device="cuda").to(torch.bfloat16)
+        out["head_dequant_matmul_ms"] = time_ms(lambda: tt.head(params, cfg, h, qcfg))
+        out["head_note"] = (f"final norm + {cfg.vocab_size} x {cfg.hidden_size} int8-g128 head, "
+                            f"M = {BATCH}: dequantize + matmul (N % 128 != 0: neither B3 nor B5)")
+    del model
+    return out
+
+
+def phase_archs_b(seed: int):
+    """Phase 11: the ``phi_2_w4a8`` slice at full width and depth (as
+    ``phase_slice`` serves the flagship), then the four families at 2
+    layers."""
+    cfg = arch_cfg("phi_2", PHI2_LAYERS)
+    t0 = time.perf_counter()
+    model = build_model(PHI2_LAYERS, seed, W4A8, cfg=cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    s = phase_slice(seed, W4A8, B1_B3_B4, model=model, per_step=PHI2_PER_STEP)
+    del s["params"], model
+    s["build_s"] = build_s
+    torch.cuda.empty_cache()
+    out = {"slice": s, "families": {}}
+    for name in FAMILIES_B:
+        out["families"][name] = check_family_b(name, seed)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2857,6 +3001,33 @@ def main() -> int:
             f"loop {c['eager_decode_tok_s']:.1f} tok/s, bitwise equal; replay launches "
             f"{c['replay_counts']}")
 
+    ab = phase_archs_b(args.seed)
+    s = slices["phi_2_w4a8"] = ab["slice"]
+    log(f"slice phi_2_w4a8: Phi-2 ({ARCH_CONFIGS['phi_2'][0]}) W4A8, {PHI2_LAYERS} layers, "
+        f"int8 KV cache, batch {BATCH}, prompt {PROMPT}, max_len {MAX_LEN} (RTN -> pack -> "
+        f"fuse -> stack {s['build_s']:.2f} s): prefill (TTFT) {s['ttft_ms']:.2f} ms, {STEPS} "
+        f"decode steps as one CUDA graph {s['decode_ms']:.2f} ms = {s['decode_tok_s']:.1f} "
+        f"tok/s (first call {s['first_call_s']:.2f} s, capture {s['capture_s']:.2f} s; eager "
+        f"loop {s['loop_decode_tok_s']:.1f} tok/s, tokens and cache bitwise equal), peak memory "
+        f"{s['peak_mem_gib']:.2f} GiB on {smi}; launches {s['counts']}, per decode step "
+        f"{s['per_step']}")
+    log(f"slice phi_2_w4a8 decode profile (one replay of the {STEPS}-step graph, "
+        f"torch.profiler): {json.dumps(s['profile'])}")
+    for fam, c in ab["families"].items():
+        for mode in ATTENTION_OF:
+            m = c[mode]
+            log(f"archs_b family {fam} ({c['source']}), 2 layers, W4A8, shape {c['shape']}, "
+                f"{mode}: " + (f"{m['confident_tokens_equal']}/{m['tokens']} kernel-path tokens "
+                               f"with a plain top-2 gap > 0.1 equal the plain path's; max "
+                               f"|logit diff| {m['max_abs_logit_diff']:.4g}; "
+                               if "tokens" in m else "")
+                + f"graph {m['graph_decode_tok_s']:.1f} tok/s and eager loop "
+                f"{m['eager_decode_tok_s']:.1f} tok/s, bitwise equal; replay launches "
+                f"{m['replay_counts']}")
+        if "head_dequant_matmul_ms" in c:
+            log(f"archs_b family {fam}: {c['head_note']}: {c['head_dequant_matmul_ms']:.4f} ms "
+                f"on {smi}")
+
     metrics = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = lambda c: {k: c[k] for k in EXTRA_METRICS if k in c}
     runs = slices | {"actq_entry": actq}
@@ -2877,7 +3048,8 @@ def main() -> int:
     print(json.dumps({"slices": {k: _slice_numbers(v) for k, v in slices.items()},
                       "serving_engine": served,
                       "formats_checks": {k: v for k, v in fm.items() if k != "slices"},
-                      "archs_checks": {"window": ar["window"], "families": ar["families"]}}),
+                      "archs_checks": {"window": ar["window"], "families": ar["families"]},
+                      "archs_b_checks": {"families": ab["families"]}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": count}}),
           flush=True)

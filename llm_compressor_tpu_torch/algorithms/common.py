@@ -21,7 +21,9 @@ from ..qformats.quantize import Quantizer, quantize_dequant
 
 SLOT_PATH = {
     "q": ("attn", "q"), "k": ("attn", "k"), "v": ("attn", "v"), "o": ("attn", "o"),
+    "qkv": ("attn", "qkv"),
     "gate": ("mlp", "gate"), "up": ("mlp", "up"), "down": ("mlp", "down"),
+    "fc1": ("mlp", "fc1"), "fc2": ("mlp", "fc2"),
 }
 
 
@@ -49,10 +51,14 @@ def set_bias(layer_params, slot: str, value) -> None:
 
 
 def sequential_groups(cfg: ModelConfig) -> List[List[str]]:
-    """The sequential calibration groups of the gated-MLP families (reference
+    """The sequential calibration groups per family (reference
     ``get_sequential('true')``): each group's linears are calibrated on
     inputs that already see the earlier groups quantized."""
-    return [["k", "v", "q"], ["o"], ["up", "gate"], ["down"]]
+    if cfg.fused_qkv:
+        return [["qkv"], ["o"], ["fc1"], ["fc2"]]
+    if cfg.mlp_style == "gated":
+        return [["k", "v", "q"], ["o"], ["up", "gate"], ["down"]]
+    return [["k", "v", "q"], ["o"], ["fc1"], ["fc2"]]
 
 
 def slot_tap(slot: str) -> str:

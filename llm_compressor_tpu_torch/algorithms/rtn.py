@@ -14,7 +14,7 @@ from __future__ import annotations
 from typing import Optional
 
 from ..models.config import ModelConfig
-from ..models.transformer import SLOTS
+from ..models.transformer import arch_slots
 from ..qformats.config import QuantConfig
 from ..qformats.quantize import quantize_dequant_with_params
 from .common import get_weight, quantize_head_weight, set_weight, weight_quantizer_for
@@ -26,7 +26,7 @@ def rtn(params, cfg: ModelConfig, qcfg: QuantConfig, mse: bool = False,
     solved (scales, zeros) under ``(layer, slot)``. ``verbose`` is the JAX
     signature's and logs nothing here."""
     for i, lp in enumerate(params["layers"]):
-        for slot in SLOTS:
+        for slot in arch_slots(cfg):
             q = weight_quantizer_for(cfg, qcfg, i, slot, mse)
             if q.qtype == "dummy":
                 continue

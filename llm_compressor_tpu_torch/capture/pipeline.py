@@ -61,7 +61,8 @@ def capture_layer0(params, cfg: ModelConfig, tokens, chunk: int = 8) -> CalibCon
     tokens = torch.as_tensor(tokens, device=dev)
     N, T = tokens.shape
     positions = torch.arange(T, device=dev)[None, :].expand(N, T)
-    outs = [embed(params, cfg, tokens[s:min(s + chunk, N)]) for s in range(0, N, chunk)]
+    outs = [embed(params, cfg, tokens[s:min(s + chunk, N)], positions[s:min(s + chunk, N)])
+            for s in range(0, N, chunk)]
     return CalibContext(cfg=cfg, hidden=torch.cat(outs, 0), positions=positions, chunk=chunk)
 
 

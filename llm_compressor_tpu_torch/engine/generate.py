@@ -24,7 +24,13 @@ window (Gemma2/3's local layers): in the float attention as its mask, in
 B4, B6 and B7 as the ``window`` argument, a Python int per layer that a
 CUDA graph bakes in as it bakes in the layer loop (the graph's key holds
 the config). Gemma2's attention softcap is applied after the scale and
-before the mask on every path.
+before the mask on every path. Each slot's positions reach ``embed``
+(OPT's learned positions). OPT and BLOOM scale the query before the QK
+matmul: in its dtype on the float path, in float32 before the int8
+attention kernels, which then take the scale 1.0 (OPT; JAX :276-281,
+:511-516, :687-692). BLOOM's ALiBi stays on the float path in every mode
+(its bias over absolute key positions, the slopes made once per device),
+as the JAX package keeps it off its kernels.
 
 ``decode_greedy_steps(..., attention=...)`` also runs the JAX package's
 side-block decode (its "FreshKV" scan path, :469-653, :760-928), which
@@ -64,15 +70,17 @@ from ..kernels.decode_attention import (
     hybrid_decode_attention,
 )
 from ..models.config import ModelConfig
-from ..models.layers import int8_per_token, qlinear, qmatmul_qk, qmatmul_sv, softcap
+from ..models.layers import alibi_bias, int8_per_token, qlinear, qmatmul_qk, qmatmul_sv, softcap
 from ..models.transformer import (
     LayerOps,
     embed,
     head,
+    in_dtype,
     iter_layers,
     layer_masks,
     layer_ops,
     layer_ropes,
+    prescaled,
     project_qkv,
     residual_block,
     scan_segments,
@@ -129,8 +137,16 @@ def _float_attention(cfg: ModelConfig, layer: int, x, q, cache: KVCache,
     # the r query heads of a kv head as (r * T) rows; every quantizer here
     # works per row or per column, so the grouping of rows changes nothing
     q4 = q.reshape(B, T, KV, r, D).permute(0, 2, 3, 1, 4).reshape(B, KV, r * T, D)
+    if prescaled(cfg):   # OPT, BLOOM: the query scaled in its dtype
+        q4 = q4 * in_dtype(cfg.attn_scale, q4.dtype)
     scores = qmatmul_qk(q4, K.transpose(-1, -2), ops.qk if ops is not None else None)
-    scores = softcap(scores.reshape(B, KV, r, T, S) * cfg.attn_scale, cfg.attn_logit_softcapping)
+    scores = scores.reshape(B, KV, r, T, S)
+    if not prescaled(cfg):
+        scores = scores * cfg.attn_scale
+    if cfg.pos_embedding == "alibi":   # head h = kv * r + j
+        scores = scores + alibi_bias(H, torch.arange(S, device=x.device)).reshape(
+            KV, r, 1, S)[None]
+    scores = softcap(scores, cfg.attn_logit_softcapping)
     scores = scores + mask[:, None, None]
     probs = torch.softmax(scores, dim=-1).to(x.dtype).reshape(B, KV, r * T, S)
     out = qmatmul_sv(probs, V, ops.sv if ops is not None else None)
@@ -138,19 +154,30 @@ def _float_attention(cfg: ModelConfig, layer: int, x, q, cache: KVCache,
     return out.to(x.dtype)
 
 
+def _i8_query(cfg: ModelConfig, q):
+    """(the f32 query rows (B, KV, r, D), the scale the int8 attention
+    kernels apply to the scores): OPT's query is scaled here in float32 and
+    the kernel's scale is 1.0 (JAX :276-281, :511-516, :687-692)."""
+    B = q.shape[0]
+    q4 = q.reshape(B, cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.head_dim).float()
+    if cfg.arch == "opt":
+        return q4 * cfg.attn_scale, 1.0
+    return q4, cfg.attn_scale
+
+
 def _i8_decode_attention(cfg: ModelConfig, layer: int, q, k, v, cache: KVCache):
     """int8-codes attention of one new token per slot through kernel B4,
     which also writes the token's codes at each slot's length."""
     B = q.shape[0]
-    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    H, D = cfg.num_heads, cfg.head_dim
     kc, ks = _quant_i8(k)                                  # (B, KV, 1, D), (B, KV, 1)
     vc, vs = _quant_i8(v)
+    q4, scale = _i8_query(cfg, q)
     out = decode_attention_append(
-        q.reshape(B, KV, H // KV, D).float(),
-        kc[:, :, 0].contiguous(), vc[:, :, 0].contiguous(),
+        q4, kc[:, :, 0].contiguous(), vc[:, :, 0].contiguous(),
         ks[:, :, 0].contiguous(), vs[:, :, 0].contiguous(),
         cache.k[layer], cache.v[layer], cache.k_scale[layer], cache.v_scale[layer],
-        cache.lengths, window=cfg.layer_window(layer), scale=cfg.attn_scale,
+        cache.lengths, window=cfg.layer_window(layer), scale=scale,
         softcap=cfg.attn_logit_softcapping)
     return out.reshape(B, 1, H * D)                        # head h = kv * r + j
 
@@ -162,7 +189,8 @@ def _cached_attention(lp, cfg: ModelConfig, layer: int, x, cache: KVCache,
     slot's length). Routed as the module doc says."""
     q, k, v = project_qkv(lp, cfg, x, ops, cos, sin)
     qk, sv = (ops.qk, ops.sv) if ops is not None else (None, None)
-    if start is None and cache.quantized and x.shape[1] == 1 and acts_mode(qk, sv) is True:
+    if (start is None and cache.quantized and x.shape[1] == 1 and acts_mode(qk, sv) is True
+            and cfg.pos_embedding != "alibi"):   # BLOOM's ALiBi: the float path
         out = _i8_decode_attention(cfg, layer, q, k, v, cache).to(x.dtype)
     else:
         if start is None:
@@ -172,7 +200,13 @@ def _cached_attention(lp, cfg: ModelConfig, layer: int, x, cache: KVCache,
         else:
             append_prefill(cache, layer, k, v, start)
         out = _float_attention(cfg, layer, x, q, cache, ops, mask)
-    return qlinear(out, lp["attn"]["o"]["weight"], None, ops.get("o") if ops else None)
+    return _o_proj(lp, out, ops)
+
+
+def _o_proj(lp, out, ops: Optional[LayerOps]):
+    """The attention's output projection, with its bias where it has one."""
+    o = lp["attn"]["o"]
+    return qlinear(out, o["weight"], o.get("bias"), ops.get("o") if ops else None)
 
 
 def _forward_cached(params, cfg: ModelConfig, tokens, cache: KVCache, qcfg,
@@ -187,7 +221,7 @@ def _forward_cached(params, cfg: ModelConfig, tokens, cache: KVCache, qcfg,
     else:
         positions = (start + torch.arange(T, device=dev))[None, :].expand(B, T)
     kv_pos = torch.arange(cache.max_len, device=dev)[None, :].expand(B, -1)
-    h = embed(params, cfg, tokens)
+    h = embed(params, cfg, tokens, positions)
     ropes = layer_ropes(cfg, positions)
     masks = layer_masks(cfg, positions, kv_pos)
     for i, lp in iter_layers(params):
@@ -255,9 +289,11 @@ def decode_step(params, token: torch.Tensor, cache: KVCache, *, cfg: ModelConfig
 def fresh_path_ok(params, cfg: ModelConfig, cache: KVCache,
                   qcfg: Optional[QuantConfig]) -> bool:
     """Whether the side-block decode can run (JAX :907-928): stacked
-    layers, an int8 cache, and int8 per-token acts on both attention
+    layers, an int8 cache, no ALiBi (BLOOM's scores need the bias over
+    absolute positions), and int8 per-token acts on both attention
     matmuls in every run of equal layers (``scan_segments``)."""
-    if params.get("layers_stacked") is None or not cache.quantized:
+    if (params.get("layers_stacked") is None or not cache.quantized
+            or cfg.pos_embedding == "alibi"):
         return False
     return all(ops is not None and acts_mode(ops.qk, ops.sv) is True
                for _, _, ops in scan_segments(cfg, qcfg))
@@ -270,18 +306,19 @@ def _fresh_attention(lp, cfg: ModelConfig, layer: int, x, cache: KVCache, fresh:
     (``"two_part"``) or B6 with the side part in PyTorch (``"hybrid"``)
     attends over the read-only main rows ``< len0`` and lanes ``<= t``."""
     B = x.shape[0]
-    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    H, D = cfg.num_heads, cfg.head_dim
     q, k, v = project_qkv(lp, cfg, x, ops, cos, sin)
     kc, ks = _quant_i8(k)                                  # (B, KV, 1, D), (B, KV, 1)
     vc, vs = _quant_i8(v)
     write_fresh(fresh, layer, t, *(a[:, :, 0].contiguous() for a in (kc, vc, ks, vs)))
     attend = decode_attention if mode == "two_part" else hybrid_decode_attention
-    out = attend(q.reshape(B, KV, H // KV, D).float(), cache.k[layer], cache.v[layer],
+    q4, scale = _i8_query(cfg, q)
+    out = attend(q4, cache.k[layer], cache.v[layer],
                  cache.k_scale[layer], cache.v_scale[layer], len0, len0 + t,
-                 cfg.layer_window(layer), t, fresh.layer(layer), scale=cfg.attn_scale,
+                 cfg.layer_window(layer), t, fresh.layer(layer), scale=scale,
                  softcap=cfg.attn_logit_softcapping)
     out = out.to(x.dtype).reshape(B, 1, H * D)             # head h = kv * r + j
-    return qlinear(out, lp["attn"]["o"]["weight"], None, ops.get("o") if ops else None)
+    return _o_proj(lp, out, ops)
 
 
 def _forward_decode_fresh(params, cfg: ModelConfig, tokens, cache: KVCache, fresh: FreshKV,
@@ -289,7 +326,7 @@ def _forward_decode_fresh(params, cfg: ModelConfig, tokens, cache: KVCache, fres
     """Hidden states (B, 1, E) of step ``t`` at positions ``len0 + t``
     (JAX :760-904, non-append branches)."""
     positions = len0.long()[:, None] + t
-    h = embed(params, cfg, tokens)
+    h = embed(params, cfg, tokens, positions)
     ropes = layer_ropes(cfg, positions)
     for i, lp in iter_layers(params):
         ops = layer_ops(cfg, qcfg, i)
@@ -342,15 +379,19 @@ def decode_greedy_steps(params, token: torch.Tensor, cache: KVCache, *, n: int,
       ``"two_part"``, but B6 takes the main window and PyTorch the side
       part and the assembly.
 
-    The side-block modes raise ``ValueError`` where :func:`fresh_path_ok`
-    is False. On the card the ``n`` steps are one CUDA graph kept on the
-    cache: the first call for these buffers, ``n``, configs and mode runs
+    BLOOM's ALiBi keeps its attention on the float path in every mode, as
+    the JAX package keeps it on the carried cache under either switch: its
+    side-block modes run the ``"append"`` steps. Otherwise the side-block
+    modes raise ``ValueError`` where :func:`fresh_path_ok` is False. On the
+    card the ``n`` steps are one CUDA graph kept on the cache: the first call for these buffers, ``n``, configs and mode runs
     eagerly, the second captures, later calls replay (``graph`` as
     :func:`use_graph` says; ``graph=False`` runs the eager loop, which
     decodes the same tokens and cache bitwise)."""
     if attention not in ATTENTION_MODES:
         raise ValueError(f"attention must be one of {ATTENTION_MODES}, not {attention!r}")
     _check_decode(cache, n)
+    if cfg.pos_embedding == "alibi":
+        attention = "append"
     if attention != "append" and not fresh_path_ok(params, cfg, cache, qcfg):
         raise ValueError(f"attention={attention!r} needs stacked layers, an int8 cache and "
                          "int8 per-token acts on both attention matmuls")

@@ -1,4 +1,4 @@
-"""models — the transformer core of the rope / RMSNorm families (port of
+"""models — the transformer core of the nine architectures (port of
 ``llm_compressor_tpu.models``)."""
 
 from .config import (
@@ -55,8 +55,24 @@ def tiny_config(arch: str = "llama", **overrides) -> ModelConfig:
         cfg = dict(base, arch=arch, **gemma, query_pre_attn_scalar=16.0, qk_norm=True,
                    sliding_window=8, rope_local_theta=10000.0, rope_theta=1000000.0,
                    pre_post_ffw_norm=True, post_attn_residual_norm=True)
-    else:   # llama, qwen2, qwen3; ModelConfig refuses the others
+    elif arch in ("llama", "qwen2", "qwen3"):
         cfg = dict(base, arch=arch, attention_bias=arch == "qwen2", qk_norm=arch == "qwen3")
+    elif arch in ("opt", "bloom", "phi"):
+        biased = dict(norm_type="layernorm", mlp_style="mlp", attention_bias=True,
+                      attention_out_bias=True, mlp_bias=True)
+        if arch == "opt":
+            cfg = dict(base, arch=arch, num_kv_heads=4, hidden_act="relu", **biased,
+                       pos_embedding="learned", learned_pos_offset=2, tie_word_embeddings=True)
+        elif arch == "bloom":
+            cfg = dict(base, arch=arch, num_kv_heads=4, intermediate_size=256,
+                       hidden_act="gelu_tanh", **biased, pos_embedding="alibi",
+                       fused_qkv=True, embedding_layernorm=True, tie_word_embeddings=True)
+        else:
+            cfg = dict(base, arch=arch, num_kv_heads=4, hidden_act="gelu_new", **biased,
+                       partial_rotary_factor=0.5, parallel_residual=True,
+                       tie_word_embeddings=False)
+    else:
+        raise ValueError(arch)
     cfg.update(overrides)
     if arch == "gemma3" and "layer_types" not in cfg:
         # gemma3's alternating local/global pattern, sized to num_layers

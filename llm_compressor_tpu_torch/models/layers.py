@@ -1,9 +1,10 @@
 """Primitive layer ops (port of ``models/layers.py``).
 
-Norms, activations, rotary embeddings with llama3 scaling, and the
-quantization-aware linear / matmul ops. Weights use the (out_features,
-in_features) orientation; they arrive as plain tensors, packed
-:class:`~..qformats.QTensor` or a :class:`LayerSlice` of a stacked one.
+Norms (RMSNorm, LayerNorm), activations, rotary embeddings with llama3
+scaling, BLOOM's ALiBi slopes, and the quantization-aware linear / matmul
+ops. Weights use the (out_features, in_features) orientation; they arrive
+as plain tensors, packed :class:`~..qformats.QTensor` or a
+:class:`LayerSlice` of a stacked one.
 
 :func:`qlinear` keeps the JAX package's routing so that numbers match:
 * a LayerSlice with int8 per-token acts and M <= 256 rows -> the stacked
@@ -20,6 +21,7 @@ later work (ROADMAP.md).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -45,9 +47,24 @@ def rms_norm(x, weight, eps: float, plus_one: bool = False):
     return (x32 * w).to(x.dtype)
 
 
+def layer_norm(x, weight, bias, eps: float):
+    """LayerNorm in float32 (the mean, then the biased variance of the
+    centred values), weight and bias added in float32."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    d = x32 - mu
+    out = d * torch.rsqrt(torch.mean(d * d, dim=-1, keepdim=True) + eps)
+    out = out * weight.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
 def apply_norm(cfg, x, p):
-    """The model's norm given a param dict {'weight': w}."""
-    return rms_norm(x, p["weight"], cfg.rms_norm_eps, cfg.norm_weight_plus_one)
+    """The model's norm given a param dict {'weight': w[, 'bias': b]}."""
+    if cfg.norm_type == "rmsnorm":
+        return rms_norm(x, p["weight"], cfg.rms_norm_eps, cfg.norm_weight_plus_one)
+    return layer_norm(x, p["weight"], p.get("bias"), cfg.rms_norm_eps)
 
 
 def activation(name: str, x):
@@ -103,6 +120,29 @@ def apply_rope(x, cos, sin):
     half = x.shape[-1] // 2
     rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
     return x * c + rotated * s
+
+
+@functools.lru_cache(maxsize=None)
+def alibi_slopes(n_heads: int, device) -> torch.Tensor:
+    """HF BLOOM's slopes, (H,) f32 on ``device``: powers of 2^(-8/n), with
+    the odd-head interleave for a head count that is not a power of two
+    (JAX :134-146, single-device form). Made once per (head count,
+    device): inside a decode they are a tensor already on the card (a copy
+    from the host would refuse a CUDA graph's capture)."""
+    closest = 2 ** math.floor(math.log2(n_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(closest) - 3)))
+    powers = [base ** (i + 1) for i in range(closest)]
+    if closest != n_heads:
+        extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * closest) - 3)))
+        n_rem = min(closest, n_heads - closest)
+        powers += [extra_base ** (2 * i + 1) for i in range(n_rem)]
+    return torch.tensor(powers, dtype=torch.float32, device=device)
+
+
+def alibi_bias(n_heads: int, kv_positions: torch.Tensor) -> torch.Tensor:
+    """(H, 1, S) f32 additive bias: slope_h * kv_position (JAX :149-161)."""
+    slopes = alibi_slopes(n_heads, kv_positions.device)
+    return slopes[:, None, None] * kv_positions[None, None, :].float()
 
 
 def maybe_quant(q: Optional[Quantizer], x):

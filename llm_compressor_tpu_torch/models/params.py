@@ -1,18 +1,21 @@
 """Parameters: random init, HF checkpoints and the compressed checkpoint
-(port of ``models/params.py``: Llama, Qwen2, Qwen3, Gemma, Gemma2, Gemma3).
+(port of ``models/params.py``, all nine architectures).
 
 The params layout matches the JAX package (weights in (out, in)
 orientation):
 
-    params = {"embed": {"weight"},
+    params = {"embed": {"weight"}, ["embed_ln"], ["pos_embed"],
+              ["project_in"], ["project_out"],
               "layers": [{"ln1", ["ln2"] | ["pre_ffw_norm", "post_ffw_norm"],
                           ["post_attn_norm"],
-                          "attn": {"q","k","v","o"} [+ "q_norm", "k_norm"],
-                          "mlp": {"gate","up","down"}}, ...],
-              "final_norm", ["lm_head"]}
+                          "attn": {"q","k","v","o"} | {"qkv","o"}
+                                  [+ "q_norm", "k_norm"],
+                          "mlp": {"gate","up","down"} | {"fc1","fc2"}}, ...],
+              ["final_norm"], ["lm_head"]}
 
-q, k and v carry a ``bias`` where the config has ``attention_bias``
-(Qwen2). A Gemma norm's weight is stored as ``w`` of ``(1 + w)``.
+A linear carries a ``bias`` where the config says (q/k/v: Qwen2, OPT,
+BLOOM, Phi; o and fc1/fc2: OPT, BLOOM, Phi; Phi's untied lm_head), and so
+does a LayerNorm. A Gemma norm's weight is stored as ``w`` of ``(1 + w)``.
 
 A compressed checkpoint is the JAX package's, byte for byte per entry:
 ``model.safetensors`` holds every leaf as float32 under its HF name (packed
@@ -55,7 +58,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, scale: float = 0.02,
                 device=None) -> Params:
     """Normal(0, scale) weights from ``torch.Generator(seed)``, ones for the
     norms (zeros for Gemma's ``(1 + w)`` norms), zeros for the biases, in
-    ``cfg.dtype`` on ``device`` (the card unless told otherwise).
+    ``cfg.dtype`` on ``device`` (the card unless told otherwise); the tree
+    of the JAX ``init_params`` (:45-115) for every architecture.
     The draws do not equal ``jax.random``'s; tests hand the JAX package's
     params over through ``convert.py`` instead."""
     dev = resolve_device(device)
@@ -68,8 +72,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, scale: float = 0.02,
 
     fill = torch.zeros if cfg.norm_weight_plus_one else torch.ones
 
-    def norm(n=cfg.hidden_size):
-        return {"weight": fill((n,), dtype=dt, device=dev)}
+    def norm(n=cfg.hidden_size, bias=cfg.norm_type == "layernorm"):
+        p = {"weight": fill((n,), dtype=dt, device=dev)}
+        if bias:
+            p["bias"] = torch.zeros((n,), dtype=dt, device=dev)
+        return p
 
     def lin(out_d, in_d, bias=False):
         p = {"weight": w(out_d, in_d)}
@@ -77,28 +84,45 @@ def init_params(cfg: ModelConfig, seed: int = 0, scale: float = 0.02,
             p["bias"] = torch.zeros((out_d,), dtype=dt, device=dev)
         return p
 
-    E, I, ab = cfg.hidden_size, cfg.intermediate_size, cfg.attention_bias
-    params: Params = {"embed": {"weight": w(cfg.vocab_size, E)}}
+    E, I, ab, mb = cfg.hidden_size, cfg.intermediate_size, cfg.attention_bias, cfg.mlp_bias
+    V = cfg.project_in_dim or E
+    params: Params = {"embed": {"weight": w(cfg.vocab_size, V)}}
+    if cfg.project_in_dim is not None:
+        params["project_in"] = {"weight": w(E, V)}
+        params["project_out"] = {"weight": w(V, E)}
+    if cfg.pos_embedding == "learned":
+        params["pos_embed"] = {
+            "weight": w(cfg.max_position_embeddings + cfg.learned_pos_offset, E)}
+    if cfg.embedding_layernorm:
+        params["embed_ln"] = norm()
     layers = []
     for _ in range(cfg.num_layers):
-        lp = {"ln1": norm(),
-              "attn": {"q": lin(cfg.q_size, E, ab), "k": lin(cfg.kv_size, E, ab),
-                       "v": lin(cfg.kv_size, E, ab), "o": lin(E, cfg.q_size)},
-              "mlp": {"gate": lin(I, E), "up": lin(I, E), "down": lin(E, I)}}
-        if cfg.qk_norm:
-            lp["attn"]["q_norm"] = norm(cfg.head_dim)
-            lp["attn"]["k_norm"] = norm(cfg.head_dim)
+        if cfg.fused_qkv:
+            attn = {"qkv": lin(3 * cfg.q_size, E, ab)}
+        else:
+            attn = {"q": lin(cfg.q_size, E, ab), "k": lin(cfg.kv_size, E, ab),
+                    "v": lin(cfg.kv_size, E, ab)}
+        attn["o"] = lin(E, cfg.q_size, cfg.attention_out_bias)
+        if cfg.qk_norm or cfg.qk_layernorm:
+            attn["q_norm"] = norm(cfg.head_dim, cfg.qk_layernorm)
+            attn["k_norm"] = norm(cfg.head_dim, cfg.qk_layernorm)
+        if cfg.mlp_style == "gated":
+            mlp = {"gate": lin(I, E, mb), "up": lin(I, E, mb), "down": lin(E, I, mb)}
+        else:
+            mlp = {"fc1": lin(I, E, mb), "fc2": lin(E, I, mb)}
+        lp = {"ln1": norm(), "attn": attn, "mlp": mlp}
         if cfg.pre_post_ffw_norm:
             lp["pre_ffw_norm"], lp["post_ffw_norm"] = norm(), norm()
-        else:
+        elif not cfg.parallel_residual:
             lp["ln2"] = norm()
         if cfg.post_attn_residual_norm:
             lp["post_attn_norm"] = norm()
         layers.append(lp)
     params["layers"] = layers
-    params["final_norm"] = norm()
+    if cfg.final_norm:
+        params["final_norm"] = norm()
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = {"weight": w(cfg.vocab_size, E)}
+        params["lm_head"] = lin(cfg.vocab_size, E, cfg.arch == "phi")
     return params
 
 
@@ -108,10 +132,46 @@ def init_params(cfg: ModelConfig, seed: int = 0, scale: float = 0.02,
 
 
 def _hf_key_map(cfg: ModelConfig, i: int) -> Dict[str, tuple]:
-    """HF module name -> params path for layer ``i`` (JAX :130-153): in
+    """HF module name -> params path for layer ``i`` (JAX :131-201): in
     Gemma2/3 HF's ``post_attention_layernorm`` is the norm on the attention
     output, elsewhere the MLP's input norm."""
+    if cfg.arch == "opt":
+        p = f"model.decoder.layers.{i}"
+        return {
+            f"{p}.self_attn.q_proj": ("attn", "q"),
+            f"{p}.self_attn.k_proj": ("attn", "k"),
+            f"{p}.self_attn.v_proj": ("attn", "v"),
+            f"{p}.self_attn.out_proj": ("attn", "o"),
+            f"{p}.fc1": ("mlp", "fc1"),
+            f"{p}.fc2": ("mlp", "fc2"),
+            f"{p}.self_attn_layer_norm": ("ln1",),
+            f"{p}.final_layer_norm": ("ln2",),
+        }
+    if cfg.arch == "bloom":
+        p = f"transformer.h.{i}"
+        return {
+            f"{p}.self_attention.query_key_value": ("attn", "qkv"),
+            f"{p}.self_attention.dense": ("attn", "o"),
+            f"{p}.mlp.dense_h_to_4h": ("mlp", "fc1"),
+            f"{p}.mlp.dense_4h_to_h": ("mlp", "fc2"),
+            f"{p}.input_layernorm": ("ln1",),
+            f"{p}.post_attention_layernorm": ("ln2",),
+        }
     p = f"model.layers.{i}"
+    if cfg.arch == "phi":
+        m = {
+            f"{p}.self_attn.q_proj": ("attn", "q"),
+            f"{p}.self_attn.k_proj": ("attn", "k"),
+            f"{p}.self_attn.v_proj": ("attn", "v"),
+            f"{p}.self_attn.dense": ("attn", "o"),
+            f"{p}.mlp.fc1": ("mlp", "fc1"),
+            f"{p}.mlp.fc2": ("mlp", "fc2"),
+            f"{p}.input_layernorm": ("ln1",),
+        }
+        if cfg.qk_layernorm:
+            m[f"{p}.self_attn.q_layernorm"] = ("attn", "q_norm")
+            m[f"{p}.self_attn.k_layernorm"] = ("attn", "k_norm")
+        return m
     m = {
         f"{p}.self_attn.q_proj": ("attn", "q"),
         f"{p}.self_attn.k_proj": ("attn", "k"),
@@ -135,7 +195,22 @@ def _hf_key_map(cfg: ModelConfig, i: int) -> Dict[str, tuple]:
 
 
 def _hf_top_map(cfg: ModelConfig) -> Dict[str, tuple]:
-    m = {"model.embed_tokens": ("embed",), "model.norm": ("final_norm",)}
+    """HF module name -> params path outside the layers (JAX :204-221)."""
+    if cfg.arch == "opt":
+        m = {"model.decoder.embed_tokens": ("embed",),
+             "model.decoder.embed_positions": ("pos_embed",),
+             "model.decoder.final_layer_norm": ("final_norm",)}
+        if cfg.project_in_dim is not None:
+            m["model.decoder.project_in"] = ("project_in",)
+            m["model.decoder.project_out"] = ("project_out",)
+    elif cfg.arch == "bloom":
+        m = {"transformer.word_embeddings": ("embed",),
+             "transformer.word_embeddings_layernorm": ("embed_ln",),
+             "transformer.ln_f": ("final_norm",)}
+    elif cfg.arch == "phi":
+        m = {"model.embed_tokens": ("embed",), "model.final_layernorm": ("final_norm",)}
+    else:
+        m = {"model.embed_tokens": ("embed",), "model.norm": ("final_norm",)}
     if not cfg.tie_word_embeddings:
         m["lm_head"] = ("lm_head",)
     return m
@@ -163,6 +238,8 @@ def load_params_from_state_dict(cfg: ModelConfig, sd: Dict[str, Any], device=Non
     consume(_hf_top_map(cfg), params)
     for i in range(cfg.num_layers):
         consume(_hf_key_map(cfg, i), params["layers"][i])
+    # BLOOM's query_key_value is stored (H, 3, D) along N, the layout the
+    # forward reshapes: loaded as stored (JAX :244-248)
     return params
 
 

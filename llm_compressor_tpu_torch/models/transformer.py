@@ -1,24 +1,30 @@
-"""The transformer core of the rope / RMSNorm families: Llama, Qwen2,
-Qwen3, Gemma, Gemma2, Gemma3 (port of ``models/transformer.py``).
+"""The transformer core of the nine architectures: Llama, Qwen2, Qwen3,
+Gemma, Gemma2, Gemma3, OPT, BLOOM and Phi (port of ``models/transformer.py``).
 
 Plain functions over a params dict:
 
-    embed()    tokens -> hidden (Gemma: times the embedding scale)
+    embed()    tokens -> hidden (Gemma's embedding scale, OPT-350m's
+               project_in, OPT's learned positions, BLOOM's LayerNorm)
     attention(), mlp(), decoder_layer()
-    head()     hidden -> logits (final norm + lm_head, Gemma2's softcap)
+    head()     hidden -> logits (final norm, OPT-350m's project_out,
+               lm_head with Phi's bias, Gemma2's softcap)
     forward()  the full model
 
 Each layer has its own rope (:func:`rope_for_layer`: Gemma3's local layers
-take their own theta) and its own mask (:func:`make_causal_mask`: a
-sliding window on the local layers of Gemma2 and Gemma3), computed once per
-variant (:func:`layer_ropes`).
+take their own theta, Phi rotates the first ``rotary_dim`` dims, OPT and
+BLOOM have none) and its own mask (:func:`make_causal_mask`: a sliding
+window on the local layers of Gemma2 and Gemma3), computed once per
+variant (:func:`layer_ropes`). BLOOM adds ALiBi over the absolute key
+positions; OPT and BLOOM scale the query before the QK matmul (in the
+query's dtype), the others the scores after it.
 
 Quantization is threaded through as a :class:`LayerOps`, the per-layer
 resolution of a :class:`~..qformats.QuantConfig`. A ``taps`` dict passed
 to :func:`decoder_layer` collects the inputs of the linears for
 calibration (``attn_in``, ``o_in``, ``mlp_in``, ``down_in``), as the JAX
 package's taps replace torch forward hooks. ``fuse_model``
-concatenates q|k|v and gate|up; ``stack_model`` stacks the layers along a
+concatenates q|k|v and gate|up (BLOOM's q|k|v is fused already; an fc1/fc2
+MLP has no gate|up); ``stack_model`` stacks the layers along a
 leading axis, and :func:`layer_view` gives one layer of the stack (dense
 tensors as views, packed weights as :class:`~.layers.LayerSlice`).
 
@@ -44,9 +50,11 @@ from .config import ModelConfig
 from .layers import (
     LayerSlice,
     activation,
+    alibi_bias,
     apply_norm,
     apply_rope,
     int8_per_token,
+    layer_norm,
     qlinear,
     qmatmul_qk,
     qmatmul_sv,
@@ -59,17 +67,43 @@ from .layers import (
 Params = Dict[str, Any]
 
 NEG_INF = -1e9
-SLOTS = ("q", "k", "v", "o", "gate", "up", "down")
+# linear slots per family, in the reference's module order (JAX :60-71)
+_SLOTS = {
+    "gated": ("q", "k", "v", "o", "gate", "up", "down"),
+    "mlp": ("q", "k", "v", "o", "fc1", "fc2"),
+    "fused": ("qkv", "o", "fc1", "fc2"),
+}
 
 
 def arch_slots(cfg: ModelConfig) -> tuple:
-    """Linear slots of the architecture, in the reference's module order
-    (every ported family has a gated MLP)."""
-    return SLOTS
+    """Linear slots of the architecture, in the reference's module order."""
+    if cfg.fused_qkv:
+        return _SLOTS["fused"]
+    return _SLOTS[cfg.mlp_style]
 
 
 def op_names(cfg: ModelConfig, layer_idx: int) -> Dict[str, str]:
-    p = f"layers.{layer_idx}"
+    """Slot -> op name, the reference's torch module names (MPQ overrides
+    and profiles name ops so)."""
+    i = layer_idx
+    if cfg.arch == "opt":
+        p = f"decoder.layers.{i}"
+        return {"q": f"{p}.self_attn.q_proj", "k": f"{p}.self_attn.k_proj",
+                "v": f"{p}.self_attn.v_proj", "o": f"{p}.self_attn.out_proj",
+                "fc1": f"{p}.fc1", "fc2": f"{p}.fc2",
+                "qk": f"{p}.self_attn.qk_matmul", "sv": f"{p}.self_attn.sv_matmul"}
+    if cfg.arch == "bloom":
+        p = f"transformer.h.{i}"
+        return {"qkv": f"{p}.self_attention.query_key_value",
+                "o": f"{p}.self_attention.dense",
+                "fc1": f"{p}.mlp.dense_h_to_4h", "fc2": f"{p}.mlp.dense_4h_to_h",
+                "qk": f"{p}.self_attention.qk_matmul", "sv": f"{p}.self_attention.sv_matmul"}
+    p = f"layers.{i}"
+    if cfg.arch == "phi":
+        return {"q": f"{p}.self_attn.q_proj", "k": f"{p}.self_attn.k_proj",
+                "v": f"{p}.self_attn.v_proj", "o": f"{p}.self_attn.dense",
+                "fc1": f"{p}.mlp.fc1", "fc2": f"{p}.mlp.fc2",
+                "qk": f"{p}.self_attn.qk_matmul", "sv": f"{p}.self_attn.sv_matmul"}
     return {
         "q": f"{p}.self_attn.q_proj", "k": f"{p}.self_attn.k_proj",
         "v": f"{p}.self_attn.v_proj", "o": f"{p}.self_attn.o_proj",
@@ -100,7 +134,7 @@ def layer_ops(cfg: ModelConfig, qcfg: Optional[QuantConfig], layer_idx: int) -> 
         return None
     names = op_names(cfg, layer_idx)
     return LayerOps(
-        linears=tuple((s, qcfg.for_op(names[s], "linear")) for s in SLOTS),
+        linears=tuple((s, qcfg.for_op(names[s], "linear")) for s in arch_slots(cfg)),
         qk=qcfg.for_op(names["qk"], "matmul"),
         sv=qcfg.for_op(names["sv"], "matmul"),
     )
@@ -115,37 +149,64 @@ def _tap(taps: Optional[dict], key: str, value) -> None:
         taps[key] = value
 
 
-def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Token ids (B, T) -> hidden states (B, T, hidden). Gemma's scale is
-    first rounded to the embedding's dtype, then multiplied (JAX :164-168;
-    HF rounds sqrt(hidden) the same way)."""
+def in_dtype(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype``, as a Python float: a tensor times it
+    equals the JAX product of two values of that dtype (exact in float32,
+    rounded once), and no copy to the card is made (a CUDA graph's capture
+    refuses one)."""
+    return torch.tensor(v, dtype=dtype).item()
+
+
+def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+          positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token ids (B, T) at ``positions`` (B, T) (0..T-1 if None) -> hidden
+    states (B, T, hidden) (JAX :162-178): Gemma's scale, rounded to the
+    embedding's dtype first (HF rounds sqrt(hidden) the same way);
+    OPT-350m's ``project_in``; OPT's learned positions, offset by
+    ``learned_pos_offset``; BLOOM's embedding LayerNorm."""
     h = params["embed"]["weight"][tokens.long()]
     if cfg.embed_scale is not None:
-        # rounded on the host (no copy to the card, which a CUDA graph's
-        # capture refuses); the product of two values of h's dtype is exact
-        # in float32 and rounds once, as the JAX product does
-        h = h * torch.tensor(cfg.embed_scale, dtype=h.dtype).item()
+        h = h * in_dtype(cfg.embed_scale, h.dtype)
+    if cfg.project_in_dim is not None:
+        h = qlinear(h, params["project_in"]["weight"])
+    if cfg.pos_embedding == "learned":
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        table = params["pos_embed"]["weight"]
+        # an index past the table is clamped, as a JAX gather clamps it (an
+        # idle batcher slot at max_len embeds such a position)
+        idx = torch.clamp(positions.long() + cfg.learned_pos_offset, max=table.shape[0] - 1)
+        h = h + table[idx]
+    if cfg.embedding_layernorm:
+        h = apply_norm(cfg, h, params["embed_ln"])
     return h
 
 
 def head(params: Params, cfg: ModelConfig, h: torch.Tensor,
          qcfg: Optional[QuantConfig] = None) -> torch.Tensor:
-    """Final norm + lm_head -> f32 logits (B, T, vocab), softcapped where
-    the config says (Gemma2)."""
-    h = apply_norm(cfg, h, params["final_norm"])
+    """Final norm (where the config has one), OPT-350m's ``project_out``,
+    lm_head with its bias (Phi) -> f32 logits (B, T, vocab), softcapped
+    where the config says (Gemma2) (JAX :181-197)."""
+    if cfg.final_norm and "final_norm" in params:
+        h = apply_norm(cfg, h, params["final_norm"])
+    if cfg.project_in_dim is not None:
+        h = qlinear(h, params["project_out"]["weight"])
     lm = params.get("lm_head")
-    w = params["embed"]["weight"] if lm is None else lm["weight"]
+    w, b = (params["embed"]["weight"], None) if lm is None else (lm["weight"], lm.get("bias"))
     op = qcfg.for_op("lm_head", "head") if qcfg is not None else None
-    return softcap(qlinear(h, w, None, op).float(), cfg.final_logit_softcapping)
+    return softcap(qlinear(h, w, b, op).float(), cfg.final_logit_softcapping)
 
 
 def rope_for_layer(cfg: ModelConfig, layer_idx: int, positions: torch.Tensor):
-    """cos/sin (B, T, D) f32 for one layer: Gemma3's local layers take
-    ``rope_local_theta`` and no scaling (JAX :447-457)."""
+    """cos/sin (B, T, rotary_dim) f32 for one layer, (None, None) without
+    rope (OPT, BLOOM): Gemma3's local layers take ``rope_local_theta`` and
+    no scaling (JAX :444-457)."""
+    if cfg.pos_embedding != "rope":
+        return None, None
     theta, scaling = cfg.rope_theta, cfg.rope_scaling
     if cfg.rope_local_theta is not None and cfg.layer_type(layer_idx) == "sliding_attention":
         theta, scaling = cfg.rope_local_theta, None
-    inv = rope_inv_freq(cfg.head_dim, theta, scaling, device=positions.device)
+    inv = rope_inv_freq(cfg.rotary_dim, theta, scaling, device=positions.device)
     return rope_cos_sin(positions, inv)
 
 
@@ -187,13 +248,27 @@ def layer_masks(cfg: ModelConfig, q_positions, kv_positions) -> list:
     return [masks[cfg.layer_window(i)] for i in range(cfg.num_layers)]
 
 
+def _rope(x, cos, sin, rot: int):
+    """Rope on the first ``rot`` dims of x (Phi's partial rotary), all of
+    them where ``rot`` is the head dim."""
+    if rot < x.shape[-1]:
+        return torch.cat([apply_rope(x[..., :rot], cos, sin), x[..., rot:]], dim=-1)
+    return apply_rope(x, cos, sin)
+
+
 def project_qkv(lp: Params, cfg: ModelConfig, x, ops: Optional[LayerOps], cos, sin):
-    """QKV projection (biases where the layer has them), q/k norms, rope for
-    a (B, T, E) slice -> q (B, T, H, D), k/v (B, T, KV, D)."""
+    """QKV projection (biases where the layer has them; BLOOM's fused
+    projection interleaved (H, 3, D) along N), q/k norms, rope (none where
+    ``cos`` is None) for a (B, T, E) slice -> q (B, T, H, D), k/v
+    (B, T, KV, D) (JAX :242-282)."""
     B, T, _ = x.shape
     ap = lp["attn"]
     H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    if "qkv_cat" in ap:
+    if cfg.fused_qkv:
+        y = qlinear(x, ap["qkv"]["weight"], ap["qkv"].get("bias"),
+                    _slot(ops, "qkv")).reshape(B, T, H, 3, D)
+        q, k, v = y[..., 0, :], y[..., 1, :], y[..., 2, :]
+    elif "qkv_cat" in ap:
         y = qlinear(x, ap["qkv_cat"]["weight"], ap["qkv_cat"].get("bias"), _slot(ops, "q"))
         q = y[..., :H * D].reshape(B, T, H, D)
         k = y[..., H * D:(H + KV) * D].reshape(B, T, KV, D)
@@ -205,12 +280,26 @@ def project_qkv(lp: Params, cfg: ModelConfig, x, ops: Optional[LayerOps], cos, s
     if cfg.qk_norm:   # per-head-dim RMS norm (qwen3 plain, gemma3 plus-one)
         q = rms_norm(q, ap["q_norm"]["weight"], cfg.rms_norm_eps, cfg.norm_weight_plus_one)
         k = rms_norm(k, ap["k_norm"]["weight"], cfg.rms_norm_eps, cfg.norm_weight_plus_one)
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+    elif cfg.qk_layernorm:   # phi option
+        q = layer_norm(q, ap["q_norm"]["weight"], ap["q_norm"].get("bias"), cfg.rms_norm_eps)
+        k = layer_norm(k, ap["k_norm"]["weight"], ap["k_norm"].get("bias"), cfg.rms_norm_eps)
+    if cos is not None:
+        q, k = _rope(q, cos, sin, cfg.rotary_dim), _rope(k, cos, sin, cfg.rotary_dim)
+    return q, k, v
+
+
+def prescaled(cfg: ModelConfig) -> bool:
+    """OPT and BLOOM scale the query before the QK matmul (reference
+    ``opt.py:113``, ``bloom.py:66-108``), the others the scores after it."""
+    return cfg.arch in ("opt", "bloom")
 
 
 def attention(lp: Params, cfg: ModelConfig, x, cos, sin, mask,
               ops: Optional[LayerOps] = None, taps: Optional[dict] = None) -> torch.Tensor:
-    """Multi-head attention with GQA; ``mask`` (B, 1, T, S)."""
+    """Multi-head attention with GQA; ``mask`` (B, 1, T, S) (JAX :224-347):
+    OPT's and BLOOM's query scaled in its dtype before the QK matmul,
+    BLOOM's ALiBi over the absolute key positions, the softcap before the
+    mask, the o projection's bias."""
     B, T, _ = x.shape
     H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     _tap(taps, "attn_in", x)
@@ -218,14 +307,21 @@ def attention(lp: Params, cfg: ModelConfig, x, cos, sin, mask,
     r = H // KV
     k = k[:, :, :, None, :].expand(B, T, KV, r, D).reshape(B, T, H, D)
     v = v[:, :, :, None, :].expand(B, T, KV, r, D).reshape(B, T, H, D)
-    scores = qmatmul_qk(q.transpose(1, 2), k.permute(0, 2, 3, 1),
-                        ops.qk if ops is not None else None) * cfg.attn_scale
+    q4 = q.transpose(1, 2)
+    if prescaled(cfg):
+        q4 = q4 * in_dtype(cfg.attn_scale, q4.dtype)
+    scores = qmatmul_qk(q4, k.permute(0, 2, 3, 1), ops.qk if ops is not None else None)
+    if not prescaled(cfg):
+        scores = scores * cfg.attn_scale
+    if cfg.pos_embedding == "alibi":
+        scores = scores + alibi_bias(H, torch.arange(T, device=x.device))[None]
     scores = softcap(scores, cfg.attn_logit_softcapping)   # before the mask
     probs = torch.softmax(scores + mask, dim=-1).to(x.dtype)
     out = qmatmul_sv(probs, v.transpose(1, 2), ops.sv if ops is not None else None)
     out = out.to(x.dtype).transpose(1, 2).reshape(B, T, H * D)
     _tap(taps, "o_in", out)
-    return qlinear(out, lp["attn"]["o"]["weight"], None, _slot(ops, "o"))
+    o = lp["attn"]["o"]
+    return qlinear(out, o["weight"], o.get("bias"), _slot(ops, "o"))
 
 
 def _try_fused_gateup(cfg: ModelConfig, mp: Params, x, gop: Optional[OpQuantConfig]):
@@ -246,8 +342,15 @@ def _try_fused_gateup(cfg: ModelConfig, mp: Params, x, gop: Optional[OpQuantConf
 
 def mlp(lp: Params, cfg: ModelConfig, x, ops: Optional[LayerOps] = None,
         taps: Optional[dict] = None):
+    """The gated MLP (gate|up fused where ``fuse_model`` fused it), or
+    fc1 -> activation -> fc2 with biases (JAX :365-398)."""
     mp = lp["mlp"]
     _tap(taps, "mlp_in", x)
+    if cfg.mlp_style != "gated":
+        h = activation(cfg.hidden_act, qlinear(x, mp["fc1"]["weight"], mp["fc1"].get("bias"),
+                                               _slot(ops, "fc1")))
+        _tap(taps, "down_in", h)
+        return qlinear(h, mp["fc2"]["weight"], mp["fc2"].get("bias"), _slot(ops, "fc2"))
     if "gateup" in mp:
         gop = _slot(ops, "gate")
         h = None if taps is not None else _try_fused_gateup(cfg, mp, x, gop)
@@ -265,10 +368,19 @@ def mlp(lp: Params, cfg: ModelConfig, x, ops: Optional[LayerOps] = None,
 
 def residual_block(lp: Params, cfg: ModelConfig, x, attend, ops: Optional[LayerOps] = None,
                    taps: Optional[dict] = None) -> torch.Tensor:
-    """The pre-norm residual block around ``attend`` (normed input ->
-    attention output), with Gemma2/3's norm on the attention output and
-    their pre/post feed-forward norms (JAX :405-441); the MLP's ``mlp_in``
-    tap is its normed input."""
+    """The residual block around ``attend`` (its input -> attention output)
+    (JAX :405-441): pre-norm, with Gemma2/3's norm on the attention output
+    and their pre/post feed-forward norms; Phi's parallel residual (one
+    input norm for attention and MLP); OPT-350m's post-norm
+    (``do_layer_norm_before`` False: the norms after each residual add).
+    The MLP's ``mlp_in`` tap is its input."""
+    if cfg.parallel_residual:
+        xn = apply_norm(cfg, x, lp["ln1"])
+        a = attend(xn)
+        return x + a + mlp(lp, cfg, xn, ops, taps)
+    if not cfg.do_layer_norm_before:
+        x = apply_norm(cfg, x + attend(x), lp["ln1"])
+        return apply_norm(cfg, x + mlp(lp, cfg, x, ops, taps), lp["ln2"])
     a = attend(apply_norm(cfg, x, lp["ln1"]))
     if cfg.post_attn_residual_norm:
         a = apply_norm(cfg, a, lp["post_attn_norm"])
@@ -344,14 +456,15 @@ def _fusible(entries, ops: Optional[LayerOps], slots) -> bool:
 def fuse_model(params: Params, cfg: ModelConfig,
                qcfg: Optional[QuantConfig] = None) -> Params:
     """Concatenate q/k/v into ``qkv_cat`` and gate/up into ``gateup`` in
-    every layer (in place), when every layer fuses."""
+    every layer (in place), when every layer fuses; BLOOM's q|k|v is one
+    projection already and an fc1/fc2 MLP has no gate|up (JAX :631-660)."""
     layers = params["layers"]
-    can_qkv = all(_fusible([lp["attn"][s] for s in ("q", "k", "v")],
-                           layer_ops(cfg, qcfg, i), ("q", "k", "v"))
-                  for i, lp in enumerate(layers))
-    can_gu = all(_fusible([lp["mlp"][s] for s in ("gate", "up")],
-                          layer_ops(cfg, qcfg, i), ("gate", "up"))
-                 for i, lp in enumerate(layers))
+    can_qkv = not cfg.fused_qkv and all(
+        _fusible([lp["attn"][s] for s in ("q", "k", "v")], layer_ops(cfg, qcfg, i),
+                 ("q", "k", "v")) for i, lp in enumerate(layers))
+    can_gu = cfg.mlp_style == "gated" and all(
+        _fusible([lp["mlp"][s] for s in ("gate", "up")], layer_ops(cfg, qcfg, i),
+                 ("gate", "up")) for i, lp in enumerate(layers))
     for lp in layers:
         if can_qkv:
             ap = lp["attn"]
@@ -412,7 +525,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """tokens (B, T) -> f32 logits (B, T, vocab)."""
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
-    h = embed(params, cfg, tokens)
+    h = embed(params, cfg, tokens, positions)
     ropes = layer_ropes(cfg, positions)
     masks = layer_masks(cfg, positions, positions)
     for i, lp in iter_layers(params):

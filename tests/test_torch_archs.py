@@ -309,3 +309,105 @@ def test_stacked_sliding_window_decode_matches(arch):
         return torch.stack(out)
 
     assert torch.equal(run(tm.stack_model(params)), run(params))
+
+
+# ---------------------------------------------------------------------------
+# the attention output projection's bias (a Llama with attention_bias=True)
+# ---------------------------------------------------------------------------
+
+BIASED_LLAMA = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
+                    num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                    max_position_embeddings=64, attention_bias=True,
+                    attn_implementation="eager")
+
+
+def _biased_llama(seed=0, **kw):
+    """A ``transformers`` Llama with ``attention_bias=True`` (q, k, v and o
+    biased) in float32, its biases drawn N(0, 0.5) and its norms N(1, 0.1)
+    from ``seed``; (HF model, port cfg, port params, JAX cfg, JAX params)."""
+    hf_cfg = transformers.LlamaConfig(**(BIASED_LLAMA | kw))
+    torch.manual_seed(seed)
+    model = transformers.AutoModelForCausalLM.from_config(hf_cfg).eval().to(torch.float32)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if name.endswith(".bias"):
+                t.copy_(torch.randn(t.shape, generator=gen) * 0.5)
+            elif t.dim() == 1:
+                t.add_(torch.randn(t.shape, generator=gen) * 0.1)
+    sd = {k: v.numpy().copy() for k, v in model.state_dict().items()}
+    assert "model.layers.0.self_attn.o_proj.bias" in sd
+    tcfg = dataclasses.replace(tm.from_hf_config(hf_cfg), dtype="float32")
+    jcfg = dataclasses.replace(jm.from_hf_config(hf_cfg), dtype="float32")
+    return (model, tcfg, tm.load_params_from_state_dict(tcfg, sd, device="cpu"), jcfg,
+            jm.load_params_from_state_dict(jcfg, sd))
+
+
+def test_o_bias_forward_matches_jax_and_transformers():
+    """The o projection's bias is added (it was dropped, off by 0.66 in the
+    logits); ``forward`` within 1e-5 * max|logit| of JAX, within
+    rtol = atol = 2e-3 of ``transformers``; stacked layers bitwise equal to
+    unstacked ones."""
+    model, tcfg, tp, jcfg, jp = _biased_llama()
+    toks = _tokens(tcfg, (2, 16))
+    with torch.no_grad():
+        ref = model(torch.from_numpy(toks).long()).logits.numpy()
+    t = tm.forward(tp, tcfg, torch.from_numpy(toks))
+    j = np.asarray(jm.forward(jp, jcfg, jnp.asarray(toks)))
+    np.testing.assert_allclose(t.numpy(), j, rtol=0, atol=1e-5 * np.abs(j).max())
+    np.testing.assert_allclose(t.numpy(), ref, rtol=2e-3, atol=2e-3)
+    stacked = tm.stack_model(tm.fuse_model(tp, tcfg))
+    assert stacked["layers_stacked"]["attn"]["o"]["bias"].shape == (2, 64)
+    assert torch.equal(tm.forward(stacked, tcfg, torch.from_numpy(toks)), t)
+
+
+def test_o_bias_greedy_decode_matches_jax():
+    """prefill + 8 greedy steps over a bf16 cache, float32 weights: tokens
+    bitwise equal to the JAX engine's (its top-2 gap above 1e-3 at every
+    step)."""
+    from llm_compressor_tpu.engine import decode_greedy_steps as j_greedy
+    from llm_compressor_tpu.engine import init_cache as j_init
+    from llm_compressor_tpu.engine import prefill as j_prefill
+
+    _, tcfg, tp, jcfg, jp = _biased_llama(3)
+    toks = _tokens(tcfg, (2, 8), 3)
+    jl, jc = j_prefill(jp, jnp.asarray(toks), j_init(2, 2, 16, 2, 16), cfg=jcfg)
+    gaps = np.diff(np.sort(np.asarray(jl), -1)[:, -2:], axis=-1)
+    assert gaps.min() > 1e-3
+    jtok = jnp.argmax(jl, -1).astype(jnp.int32)[:, None]
+    jout, _ = j_greedy(jp, jtok, jc, n=8, cfg=jcfg)
+    tl, tc = te.prefill(tp, torch.from_numpy(toks), te.init_cache(2, 2, 16, 2, 16, device="cpu"),
+                        cfg=tcfg)
+    ttok = torch.argmax(tl, -1).to(torch.int32)[:, None]
+    tout, _ = te.decode_greedy_steps(tp, ttok, tc, n=8, cfg=tcfg)
+    np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+    np.testing.assert_array_equal(tout.numpy(), np.asarray(jout))
+
+
+@pytest.mark.parametrize("mode", ["append", "two_part", "hybrid"])
+def test_o_bias_w4a8_decode_matches_jax(mode):
+    """The same Llama at hidden 256, head_dim 64, vocab 512 (weights
+    N(0, 0.1)), RTN W4A8 (int8
+    acts on the attention matmuls too) by the JAX package, fused and
+    stacked: prefill into an int8 cache and 6 greedy steps in each decode
+    mode (B4; B8 + B7; B8 + B6), tokens equal to the JAX engine's (its
+    top-2 gap above 1e-3 at every step). The biases of N(0, 0.5) flip act
+    codes in layer 0 of both slots, so the cache codes, which
+    ``test_torch_archs_engine`` holds up to a slot's first flip, are held
+    by the tokens alone here."""
+    from test_torch_archs_engine import T, _qcfgs, _run_jax, _run_port
+
+    _, tcfg, _, jcfg, jp = _biased_llama(5, hidden_size=256, intermediate_size=512,
+                                         vocab_size=512, initializer_range=0.1)
+    jq, tq = _qcfgs()
+    jalg.rtn(jp, jcfg, jq, verbose=False)
+    jalg.pack_model(jp, jcfg, jq)
+    tp = tm.stack_model(tm.fuse_model(params_from_numpy(jax_to_numpy(jp), "cpu"), tcfg, tq))
+    jp = jm.stack_model(jm.fuse_model(jp, jcfg, jq))
+    toks = np.random.default_rng(3).integers(0, 512, (2, T)).astype(np.int32)
+    j, t = _run_jax(jp, jcfg, jq, toks, mode), _run_port(tp, tcfg, tq, toks, mode)
+    for lg in j["gaps"]:
+        assert np.diff(np.sort(lg, -1)[:, -2:], axis=-1).min() > 1e-3
+    np.testing.assert_array_equal(t["tok0"], j["tok0"])
+    np.testing.assert_array_equal(t["toks"], j["toks"])
+    np.testing.assert_array_equal(t["cache"]["lengths"], j["cache"]["lengths"])

@@ -365,7 +365,7 @@ def test_gptq_chain_matches_jax(arch):
     with recording_gptq_chain() as calls:
         talg.gptq(tp, tcfg, ctx, tq, scale_book=book)
     gptq_w = {(i, s): talg.common.get_weight(tp["layers"][i], s)
-              for i in range(tcfg.num_layers) for s in talg.common.SLOT_PATH}
+              for i in range(tcfg.num_layers) for s in tm.transformer.arch_slots(tcfg)}
     worst = check_gptq_chain(calls, jcfg, jq, gptq_w, book, hidden0)
     assert worst["hidden"] <= 1e-3
 

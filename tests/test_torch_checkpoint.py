@@ -392,18 +392,12 @@ def test_to_hf_config_round_trips():
 
 
 @pytest.mark.parametrize("hf", [
-    transformers.OPTConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
-                           num_attention_heads=4),
-    {"model_type": "bloom", "vocab_size": 256},
-    transformers.PhiConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
-                           num_attention_heads=4),
     transformers.LlamaConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
                              num_attention_heads=4, mlp_bias=True),
-], ids=["opt", "bloom", "phi", "llama_mlp_bias"])
+], ids=["llama_mlp_bias"])
 def test_from_hf_config_refuses(hf):
-    """OPT, BLOOM and Phi are not ported yet; a gated MLP with biases is
-    read by neither package."""
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    """A gated MLP with biases is read by neither package."""
+    with pytest.raises(NotImplementedError, match="mlp_bias"):
         tm.from_hf_config(hf)
 
 
@@ -414,10 +408,19 @@ def test_from_hf_config_refuses(hf):
      "num_hidden_layers": 2, "num_attention_heads": 4},
     transformers.LlamaConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
                              num_attention_heads=4, attention_bias=True),
-], ids=["qwen2", "gemma", "llama_attention_bias"])
+    transformers.OPTConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+                           num_attention_heads=4),
+    transformers.OPTConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+                           num_attention_heads=4, ffn_dim=128, word_embed_proj_dim=32,
+                           do_layer_norm_before=False),
+    transformers.BloomConfig(vocab_size=256, hidden_size=64, n_layer=2, n_head=4),
+    transformers.PhiConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+                           num_attention_heads=4),
+], ids=["qwen2", "gemma", "llama_attention_bias", "opt", "opt350m", "bloom", "phi"])
 def test_from_hf_config_takes_what_jax_takes(hf):
     """Configs the port refused before it ran these architectures: read
-    field for field as the JAX package reads them (a biased Llama too)."""
+    field for field as the JAX package reads them (a biased Llama, OPT,
+    OPT-350m's project_in and post-norm, BLOOM, Phi too)."""
     a, b = jm.from_hf_config(hf), tm.from_hf_config(hf)
     for f in dataclasses.fields(b):
         assert getattr(a, f.name) == getattr(b, f.name), f.name

@@ -319,34 +319,29 @@ def test_stats_attention(cuda, window, softcap, t, monkeypatch):
     torch.testing.assert_close(out, ref, rtol=1e-3, atol=2 * float(fresh[3].max()))
 
 
-@pytest.mark.parametrize("r", [2, 8])
-@pytest.mark.parametrize("kernel", ["append", "two_part", "stats"])
-@pytest.mark.parametrize("window,softcap", [(0, None), (100, 50.0)])
-def test_attention_head_dim_256(cuda, r, kernel, window, softcap):
-    """B4, B7 and B6 at Gemma's head dim 256 against their plain versions:
-    r = 2 (Gemma-2-2B) keeps the window resident, r = 8 (Gemma-2B) has a
-    cap of 128 keys under S = 256, so its windows go through the f32 score
-    scratch. Tolerances as at D = 64."""
-    B, KV, D, S, W, t = 3, 2, 256, 256, 16, 9
-    assert da.plan(r, D, S, W).scratch == (r == 8)
+def _attention_case(cuda, kernel, B, KV, r, D, S, W, t, window, softcap, scale, pos, mlen):
+    """B4 (``kernel`` "append", new token at ``pos``), B7 ("two_part") or B6
+    ("stats") over main rows ``< mlen`` and side lanes ``<= t`` against
+    their plain versions, with the tolerances of ``test_decode_attention``,
+    ``test_two_part_attention`` and ``test_stats_attention``."""
     q, main, fresh = _attention_inputs(cuda, 7, B=B, KV=KV, r=r, D=D, S=S, W=W)
     vmax = max(float(main[3].max()), float(fresh[3].max()))
-    kw = dict(scale=256 ** -0.5, softcap=softcap)
+    kw = dict(scale=scale, softcap=softcap)
     if kernel == "append":
         g = torch.Generator(device="cpu").manual_seed(8)
         new = (torch.randint(-127, 128, (B, KV, D), generator=g, dtype=torch.int8).to(cuda),
                torch.randint(-127, 128, (B, KV, D), generator=g, dtype=torch.int8).to(cuda),
                (torch.rand(B, KV, generator=g) * 0.02 + 1e-3).to(cuda),
                (torch.rand(B, KV, generator=g) * 0.02 + 1e-3).to(cuda))
-        pos = torch.tensor([0, 137, 255], dtype=torch.int32, device=cuda)
         caches = [a.clone() for a in main]
+        before = da.decode_attention_append.launches
         got = da.decode_attention_append(q, *new, *main, pos, window=window, **kw)
+        assert da.decode_attention_append.launches == before + 1
         want = da.decode_attention_append_plain(q, *new, *caches, pos, window=window, **kw)
         for a, b in zip(main, caches):
             assert torch.equal(a, b)
         _assert_attention_close(got, want, max(vmax, float(new[3].max())))
         return
-    mlen = torch.tensor([0, 120, 240], dtype=torch.int32, device=cuda)
     pos = mlen + t
     if kernel == "two_part":
         got = da.decode_attention(q, *main, mlen, pos, window, t, fresh, **kw)
@@ -363,6 +358,38 @@ def test_attention_head_dim_256(cuda, r, kernel, window, softcap):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
     d = (got[0] - want[0]).abs()
     assert float((d > 0).float().mean()) <= 0.01 and float(d.max()) <= 127 * 127
+
+
+@pytest.mark.parametrize("r", [2, 8])
+@pytest.mark.parametrize("kernel", ["append", "two_part", "stats"])
+@pytest.mark.parametrize("window,softcap", [(0, None), (100, 50.0)])
+def test_attention_head_dim_256(cuda, r, kernel, window, softcap):
+    """B4, B7 and B6 at Gemma's head dim 256 against their plain versions:
+    r = 2 (Gemma-2-2B) keeps the window resident, r = 8 (Gemma-2B) has a
+    cap of 128 keys under S = 256, so its windows go through the f32 score
+    scratch. Tolerances as at D = 64."""
+    B, KV, D, S, W, t = 3, 2, 256, 256, 16, 9
+    assert da.plan(r, D, S, W).scratch == (r == 8)
+    _attention_case(cuda, kernel, B, KV, r, D, S, W, t, window, softcap, 256 ** -0.5,
+                    torch.tensor([0, 137, 255], dtype=torch.int32, device=cuda),
+                    torch.tensor([0, 120, 240], dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("D", [80, 64])
+@pytest.mark.parametrize("kernel", ["append", "two_part", "stats"])
+@pytest.mark.parametrize("window,scale", [(0, 80 ** -0.5), (100, 1.0)])
+def test_attention_one_row(cuda, D, kernel, window, scale):
+    """B4, B7 and B6 at r = 1 (multi-head: Phi-2, OPT, one query row per kv
+    head, one live row of each 16-row tensor-core tile) at Phi-2's decode
+    shape, 128 slots x 32 kv heads over 256 rows, D = 80 (the Q.K
+    contraction's last 32-wide step half past D, which the zeroed q codes
+    cancel) and OPT's D = 64; scale 1.0 is OPT's pre-scaled query. Slots'
+    positions spread over the cache, 0 and S - 1 included. Tolerances as
+    at D = 64, r = 4."""
+    B, KV, S, W, t = 128, 32, 256, 16, 9
+    pos = (torch.arange(B, device=cuda) * (S - 1) // (B - 1)).to(torch.int32)
+    mlen = (torch.arange(B, device=cuda) * (S - W) // (B - 1)).to(torch.int32)
+    _attention_case(cuda, kernel, B, KV, 1, D, S, W, t, window, None, scale, pos, mlen)
 
 
 def _long_inputs(cuda, seed, B, KV, r, D, S, W=8):

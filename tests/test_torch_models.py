@@ -17,6 +17,8 @@ Tolerances:
   0.1 % of entries.
 """
 
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -133,10 +135,14 @@ def test_fuse_and_stack_match_jax():
     assert torch.equal(want["ln1"]["weight"], got["ln1"]["weight"])
 
 
-def test_tiny_config_rejects_unported_arch():
-    for arch in ("opt", "bloom", "phi"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tm.tiny_config(arch)
+@pytest.mark.parametrize("arch", ["opt", "bloom", "phi"])
+def test_tiny_config_matches_jax(arch):
+    """The architectures the port once refused: ``tiny_config`` field for
+    field as the JAX package builds it."""
+    j, t = jm.tiny_config(arch), tm.tiny_config(arch)
+    assert {f.name for f in dataclasses.fields(j)} == {f.name for f in dataclasses.fields(t)}
+    for f in dataclasses.fields(t):
+        assert getattr(j, f.name) == getattr(t, f.name), f.name
 
 
 # Weight-only configs: no activation quantizers, so every small-M packed

@@ -144,7 +144,8 @@ def test_scan_segments_match(plan):
     ja, tb = jtr.scan_segments(jcfg, a), tm.scan_segments(tcfg, b)
     assert [(s0, s1) for s0, s1, _ in ja] == [(s0, s1) for s0, s1, _ in tb]
     for (_, _, oa), (_, _, ob) in zip(ja, tb):
-        assert tuple((s, _op(o)) for s, o in oa.linears if s in tm.transformer.SLOTS) == \
+        assert tuple((s, _op(o)) for s, o in oa.linears
+                     if s in tm.transformer.arch_slots(tcfg)) == \
             tuple((s, _op(o)) for s, o in ob.linears)
         assert (_op(oa.qk), _op(oa.sv)) == (_op(ob.qk), _op(ob.sv))
     assert jtr.uniform_layers(jcfg, a) == tm.uniform_layers(tcfg, b)

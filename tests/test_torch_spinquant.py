@@ -29,7 +29,6 @@ Tolerances:
   ``test_torch_gptq.py``), on some seeds and not on others.
 """
 
-import dataclasses
 import importlib
 
 import numpy as np
@@ -261,19 +260,15 @@ def test_e2e_greedy_tokens_match_jax(e2e):
 
 
 def test_non_llama_and_optimize_raise():
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        tm.tiny_config("opt")
     _, tcfg, _, tp = _models()
     toks = synthetic_tokens(2, 8, tcfg.vocab_size)
     qcfg = tbuild(*QARGS)
     with pytest.raises(NotImplementedError, match="queue A item 9"):
         talg.spinquant(tp, tcfg, toks, qcfg, mode="optimize")
-    # a config of another family (the constructor refuses one today; the
-    # algorithm keeps refusing it once more families are ported)
-    other = dataclasses.replace(tcfg)
-    object.__setattr__(other, "arch", "opt")
+    # a model of another family: SpinQuant stays Llama-only, as in JAX
+    other = tm.tiny_config("opt")
     with pytest.raises(NotImplementedError, match="llama family"):
-        talg.spinquant(tp, other, toks, qcfg)
+        talg.spinquant(tm.init_params(other, device="cpu"), other, toks, qcfg)
 
 
 def test_spinquant_mse_matches_jax(tmp_path):

@@ -85,12 +85,12 @@ def codes_of(Q, s, z, g):
     return np.round(Q.reshape(N, C // g, g) / s + z).reshape(N, C)
 
 
-def check_codes(tc, jc, min_equal=0.999):
+def check_codes(tc, jc, min_equal=0.999, max_steps=1):
     """GPTQ's codes on identical W and H: at least ``min_equal`` of them
-    equal, the rest one step apart (the Cholesky factors and the
-    error-feedback products may differ in the last float32 bits)."""
+    equal, the rest at most ``max_steps`` apart (the Cholesky factors and
+    the error-feedback products may differ in the last float32 bits)."""
     diff = np.abs(tc - jc)
-    assert diff.max() <= 1, diff.max()
+    assert diff.max() <= max_steps, diff.max()
     assert (diff == 0).mean() >= min_equal, (diff == 0).mean()
 
 
@@ -127,7 +127,7 @@ def _rel_err(got, want):
 
 
 def check_gptq_chain(calls, jcfg, jqcfg, gptq_w, scale_book, hidden0, hidden_tol=1e-3,
-                     mse=False):
+                     mse=False, code_steps=1):
     """The port's GPTQ chain, teacher-forced, against the JAX package's
     functions. ``calls`` from ``recording_gptq_chain``, ``gptq_w`` the
     port's GPTQ weights by (layer, slot), ``scale_book`` its (scales,
@@ -147,7 +147,8 @@ def check_gptq_chain(calls, jcfg, jqcfg, gptq_w, scale_book, hidden0, hidden_tol
       within 1e-3 (``test_capture_and_hessians_w4a8``'s bounds);
     * each linear against JAX's GPTQ core on the same weight and the
       port's Hessian (with the MSE clip search when ``mse``): scale-book
-      entry bitwise, codes by ``check_codes``.
+      entry bitwise, codes by ``check_codes`` (at most ``code_steps``
+      apart).
 
     Returns the largest relative errors seen, by kind."""
     to_jax = lambda tree: jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()), tree)
@@ -206,6 +207,6 @@ def check_gptq_chain(calls, jcfg, jqcfg, gptq_w, scale_book, hidden0, hidden_tol
                 np.testing.assert_array_equal(tz, np.asarray(jz))
                 g = W.shape[1] // ts.shape[1]
                 check_codes(codes_of(gptq_w[(i, s)].numpy(), ts, tz, g),
-                            codes_of(np.asarray(jQ), ts, tz, g))
+                            codes_of(np.asarray(jQ), ts, tz, g), max_steps=code_steps)
             done += group
     return worst
