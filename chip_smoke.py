@@ -167,12 +167,35 @@ Phases (each prints a line; any failure exits non-zero):
    3 adds the kernels at Phi-2's shapes: B1 qkv 7680 x 2560, o, fc1 10240
    x 2560, fc2 2560 x 10240, B3 head 51200 x 2560, B4 at r = 1, D = 80 and
    D = 64 with scale 1.0, B6 and B7 at r = 1, D = 80.
+12. calibration_b — the calibration and pruning algorithms, after the
+   archs_b phase. ``wanda_awq_w4a8``: Llama-3.2-1B at full width and depth
+   (random weights from ``--seed``) in the CLI's order: ``wanda(0.5)`` on
+   128 x 512 synthetic C4 tokens (seed + 2000), then ``awq`` W4A8 with a
+   scale book on the pile-val stream (seed + 1000), ``pack_model`` with the
+   book, fuse, stack; served as the slices of step 5 (48 B1, 16 B2, 1 B3
+   and 16 B4 a step asserted, equal to the replay's trace). Wanda's and
+   AWQ's seconds (AWQ's by ``PhaseTimer`` phase: taps, scale search, clip
+   search, rtn) and peak memory. It fails unless every linear is at least
+   50 % zeros after Wanda, every packed code at a position Wanda zeroed is
+   the zero code, packing is lossless against AWQ's RTN output on every
+   linear, every scale search's best loss is at most its loss at ratio 0
+   (s = 1, plain RTN) and every clip group's chosen error at most its
+   unclipped error, and the calibration launched no kernel. Then at 2
+   layers, full width, 128 x 512 tokens of each algorithm's corpus, each
+   with its seconds and peak memory, packed losslessly with its scale book
+   and served W4A8, kernel path against plain path (tokens as in step 4,
+   ``check_reduced_depth(build=...)``): ``smoothquant`` (alpha 0.8) on
+   Llama and on BLOOM-560m (B1, B3: ALiBi keeps its attention off the
+   kernels), ``awq_plus``, ``gptaq`` (layer 0's ||(W - Q)X||_F over RTN's,
+   beside GPTQ's on the same weights: reported), and ``sparsegpt``, ``ria``
+   and ``magnitude`` at 0.5 sparsity (checked), each followed by RTN.
 The ``kernels`` JSON object, nvidia-smi's name and power limit and the
 slices' and serving engine's numbers (TTFT, decode tok/s over the graph,
 first-call and capture seconds, the eager loop's tok/s, peak memory; calibration seconds
 for ``spinquant_gptq``, RTN seconds for the formats slices; the formats phase's 2-layer
-checks; the archs and archs_b phases' checks) come on the three lines
-before the last; the last is ``{"ok": true, "device": {...}}``.
+checks; the archs, archs_b and calibration_b phases' checks; Wanda's and
+AWQ's seconds for ``wanda_awq_w4a8``) come on the three lines before the
+last; the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1686,6 +1709,12 @@ def _slice_numbers(s):
                    head_max_abs_diff=s["head_max_abs_diff"], launches_per_step=s["per_step"])
     if "mse_vs_rtn_layer0" in s:
         out["mse_vs_rtn_layer0"] = s["mse_vs_rtn_layer0"]
+    if "awq_s" in s:
+        out.update({k: s[k] for k in (
+            "wanda_s", "wanda_peak_gib", "sparsity", "awq_s", "awq_s_by_phase", "awq_peak_gib",
+            "awq_pairs", "awq_best_over_rtn_max", "awq_best_over_rtn_median",
+            "awq_chosen_ratio_mean", "clip_groups", "clip_groups_clipped")},
+                   launches_per_step=s["per_step"])
     return out
 
 
@@ -2758,6 +2787,311 @@ def phase_archs_b(seed: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the calibration and pruning algorithms
+# ---------------------------------------------------------------------------
+
+# the CLI's per-method corpora as offline streams (cli/main.py:47,65): seed +
+# 0 wikitext-2 (GPTQ, GPTAQ, AWQ+'s GPTQ stage), + 1000 pile-val (AWQ, AWQ+,
+# SmoothQuant), + 2000 C4 (Wanda, RIA, SparseGPT)
+CORPUS_OFFSET = {"wikitext2": 0, "pileval": 1000, "c4": 2000}
+SPARSITY = 0.5            # BASELINE.json's "AWQ INT4 + Wanda 50%"
+SMOOTH_ALPHA = 0.8        # the CLI's default (cli/args.py:41)
+BLOOM_KERNELS = ["B1_w4a8_stacked", "B3_w4a8_flat"]   # ALiBi: the float attention path
+
+
+def calib_ctx(params, cfg, seed: int, corpus: str):
+    """The layer-0 inputs of CALIB_SAMPLES x CALIB_LEN synthetic tokens of
+    one corpus stream, in chunks of 8 as the CLI captures them."""
+    from llm_compressor_tpu_torch.capture import capture_layer0
+    from llm_compressor_tpu_torch.utils import synthetic_tokens
+
+    toks = synthetic_tokens(CALIB_SAMPLES, CALIB_LEN, cfg.vocab_size,
+                            seed + CORPUS_OFFSET[corpus])
+    return capture_layer0(params, cfg, toks, chunk=8)
+
+
+def _measured(fn):
+    """fn() -> (its result, host seconds ended by synchronize, peak GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+@contextlib.contextmanager
+def awq_search_checks(rec):
+    """Inside the block every AWQ scale search must find a loss at most its
+    loss at ratio 0 (s = 1: plain RTN), and every clip group an error at
+    most its unclipped one (both grid points are searched, so a miss is a
+    port fault). ``rec`` counts pairs, the best loss over RTN's, groups
+    and clipped groups."""
+    import importlib
+
+    awq_mod = importlib.import_module("llm_compressor_tpu_torch.algorithms.awq")
+    real_grid, real_clip = awq_mod._scale_grid, awq_mod._clip_errors
+    rec.update(pairs=0, best_over_rtn=[], chosen_ratio=[], clip_groups=0, clipped=0)
+
+    def grid(*a, **kw):
+        g = real_grid(*a, **kw)
+        losses = [loss for loss, _ in g]
+        best = min(losses)
+        if not best <= losses[0]:
+            raise AssertionError(f"AWQ scale search: best loss {best} above RTN's {losses[0]}")
+        rec["pairs"] += 1
+        rec["best_over_rtn"].append(best / losses[0] if losses[0] else 1.0)
+        rec["chosen_ratio"].append(losses.index(best) / len(losses))
+        return g
+
+    def clip(*a, **kw):
+        best, err, err0 = real_clip(*a, **kw)
+        if not bool((err <= err0).all()):
+            raise AssertionError("AWQ clip search: a chosen error above the unclipped one")
+        rec["clip_groups"] += err.numel()
+        rec["clipped"] += int((err < err0).sum())
+        return best, err, err0
+
+    awq_mod._scale_grid, awq_mod._clip_errors = grid, clip
+    try:
+        yield rec
+    finally:
+        awq_mod._scale_grid, awq_mod._clip_errors = real_grid, real_clip
+
+
+def _linears(params, cfg):
+    from llm_compressor_tpu_torch.algorithms.common import get_weight
+    from llm_compressor_tpu_torch.models.transformer import arch_slots
+
+    return {(i, s): get_weight(lp, s) for i, lp in enumerate(params["layers"])
+            for s in arch_slots(cfg)}
+
+
+def check_sparse(params, cfg, label: str, ratio: float = SPARSITY) -> float:
+    """Every linear's share of zeros must be at least ``ratio``; returns
+    the model's (``check_sparsity``)."""
+    from llm_compressor_tpu_torch.evalx import check_sparsity
+
+    for (i, s), w in _linears(params, cfg).items():
+        share = float((w == 0).float().mean())
+        if share < ratio:
+            raise AssertionError(f"{label}: layer {i} {s} sparsity {share} < {ratio}")
+    return check_sparsity(params, cfg, verbose=False)
+
+
+def pack_lossless(params, cfg, qcfg, book, label: str, zeros=None):
+    """``pack_model`` with the scale book; ``dequantize`` of every packed
+    linear must equal the calibrated weight bitwise, and, given ``zeros``
+    ((layer, slot) -> host bool mask of a pruning's zeros), every packed
+    code there must be the zero code."""
+    from llm_compressor_tpu_torch.algorithms import pack_model
+    from llm_compressor_tpu_torch.algorithms.common import get_weight
+    from llm_compressor_tpu_torch.qformats import dequantize
+    from llm_compressor_tpu_torch.qformats.qtensor import unpack_int_codes
+
+    calibrated = _linears(params, cfg)
+    pack_model(params, cfg, qcfg, scale_book=book)
+    for (i, s), w in calibrated.items():
+        qt = get_weight(params["layers"][i], s)
+        if not torch.equal(dequantize(qt), w):
+            raise AssertionError(f"{label}: packing layer {i} {s} is not lossless")
+        if zeros is not None:
+            codes = unpack_int_codes(qt).reshape(w.shape)
+            if bool((codes[zeros[(i, s)].to(codes.device)] != 0).any()):
+                raise AssertionError(f"{label}: layer {i} {s} has a nonzero code where "
+                                     "pruning zeroed the weight")
+
+
+def wanda_awq(layers: int, seed: int):
+    """Llama-3.2-1B at ``layers`` layers, random weights from ``seed``, in
+    the CLI's order: ``wanda(0.5)`` on the C4 stream, ``awq`` with a scale
+    book on the pile-val stream (W4A8), ``pack_model`` with the book, fuse,
+    stack. Checks: every linear at least 50 % zeros after Wanda; AWQ's
+    searches (``awq_search_checks``); packing lossless; every code at a
+    position Wanda zeroed the zero code; no kernel launched. Returns (cfg,
+    qcfg, params, info)."""
+    from llm_compressor_tpu_torch import kernels
+    from llm_compressor_tpu_torch.algorithms import PhaseTimer, awq, wanda
+    from llm_compressor_tpu_torch.models import fuse_model, init_params, stack_model
+    from llm_compressor_tpu_torch.qformats import build_quant_config
+
+    qargs, head_act, _ = W4A8
+    cfg = flagship_cfg(layers)
+    qcfg = build_quant_config(*qargs, head_act=head_act)
+    params = init_params(cfg, seed=seed)
+    kernels.reset_counts()
+    _, wanda_s, wanda_peak = _measured(
+        lambda: wanda(params, cfg, calib_ctx(params, cfg, seed, "c4"), SPARSITY, qcfg))
+    sparsity = check_sparse(params, cfg, "wanda")
+    zeros = {k: (w == 0).cpu() for k, w in _linears(params, cfg).items()}
+    book, timer, rec = {}, PhaseTimer(), {}
+    with awq_search_checks(rec):
+        _, awq_s, awq_peak = _measured(lambda: awq(
+            params, cfg, calib_ctx(params, cfg, seed, "pileval"), qcfg, scale_book=book,
+            timings=timer))
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    if launched:
+        raise AssertionError(f"calibration launched kernels: {launched}")
+    pack_lossless(params, cfg, qcfg, book, "wanda + awq", zeros)
+    del zeros
+    info = {"wanda_s": wanda_s, "wanda_peak_gib": wanda_peak, "sparsity": sparsity,
+            "awq_s": awq_s, "awq_s_by_phase": timer.seconds, "awq_peak_gib": awq_peak,
+            "awq_pairs": rec["pairs"], "awq_best_over_rtn_max": max(rec["best_over_rtn"]),
+            "awq_best_over_rtn_median": sorted(rec["best_over_rtn"])[rec["pairs"] // 2],
+            "awq_chosen_ratio_mean": sum(rec["chosen_ratio"]) / len(rec["chosen_ratio"]),
+            "clip_groups": rec["clip_groups"], "clip_groups_clipped": rec["clipped"]}
+    return cfg, qcfg, stack_model(fuse_model(params, cfg, qcfg)), info
+
+
+def _layer0_error_ratios(cfg, qcfg, lp0, ctx0, calibrated):
+    """||(W - Q)X||_F / ||(W - Q_rtn)X||_F for every linear of layer 0: W
+    its original weight, X its inputs through the original layer 0 (float
+    stream), Q_rtn RTN with the same quantizer, through
+    H = 2/n X X^T: ||dW X||_F^2 = n/2 tr(dW H dW^T)."""
+    from llm_compressor_tpu_torch.algorithms.common import (get_weight, slot_tap,
+                                                            weight_quantizer_for)
+    from llm_compressor_tpu_torch.capture import TAP_KEYS, accumulate_hessian
+    from llm_compressor_tpu_torch.device import full_f32_matmul
+    from llm_compressor_tpu_torch.models import layer_ops
+    from llm_compressor_tpu_torch.models.transformer import arch_slots
+    from llm_compressor_tpu_torch.qformats import quantize_dequant
+
+    H = accumulate_hessian(ctx0, lp0, 0, TAP_KEYS, layer_ops(cfg, qcfg, 0))
+    n, out = ctx0.hidden.shape[0], {}
+    with full_f32_matmul():
+        for s in arch_slots(cfg):
+            W = get_weight(lp0, s)
+            rtn_w = quantize_dequant(weight_quantizer_for(cfg, qcfg, 0, s), W) * (W != 0)
+
+            def err(Q):
+                d = W.float() - Q.float()
+                return math.sqrt(n / 2 * float(((d @ H[slot_tap(s)]) * d).sum()))
+
+            out[s] = {name: err(q[s]) / err(rtn_w) for name, q in calibrated.items()}
+    return out
+
+
+def calib_b_model_fn(name: str, seed: int, info: dict):
+    """``build(layers)`` for ``check_reduced_depth``: one algorithm of the
+    2-layer checks on random full-width weights from ``seed`` (Llama-3.2-1B,
+    or BLOOM-560m from its published config), its corpus as the CLI takes
+    it, packed losslessly with its scale book, fused, stacked. Each build
+    records its seconds and peak memory in ``info``; the pruning ones
+    check 50 % sparsity; GPTAQ's first build also records layer 0's output
+    error against RTN's, beside a GPTQ run's on the same weights."""
+    from llm_compressor_tpu_torch import algorithms as alg
+    from llm_compressor_tpu_torch.capture import CalibContext
+    from llm_compressor_tpu_torch.models import fuse_model, init_params, stack_model
+    from llm_compressor_tpu_torch.qformats import build_quant_config
+
+    def build(layers):
+        qargs, head_act, _ = W4A8
+        bloom = name == "smoothquant_bloom"
+        cfg = arch_cfg("bloom_560m", layers) if bloom else flagship_cfg(layers)
+        qcfg = build_quant_config(*qargs, head_act=head_act)
+        params = init_params(cfg, seed=seed)
+        book: dict = {}
+        ctx = lambda corpus: calib_ctx(params, cfg, seed, corpus)
+        keep = name == "gptaq" and "layer0_error_over_rtn" not in info
+        if keep:
+            c0 = ctx("wikitext2")
+            lp0 = _clone_tree(params["layers"][0])
+            ctx0 = CalibContext(cfg=cfg, hidden=c0.hidden.clone(), positions=c0.positions,
+                                chunk=c0.chunk)
+            twin = _clone_tree(params)
+
+        def run():
+            if name.startswith("smoothquant"):
+                alg.smoothquant(params, cfg, ctx("pileval"), qcfg, alpha=SMOOTH_ALPHA,
+                                scale_book=book)
+            elif name == "awq_plus":
+                alg.awq_plus(params, cfg, ctx("pileval"), ctx("wikitext2"), qcfg,
+                             scale_book=book)
+            elif name == "gptaq":
+                alg.gptaq(params, cfg, c0 if keep else ctx("wikitext2"), qcfg, scale_book=book)
+            else:
+                if name == "sparsegpt":
+                    alg.sparsegpt(params, cfg, ctx("c4"), SPARSITY, qcfg)
+                elif name == "ria":
+                    alg.ria(params, cfg, ctx("c4"), SPARSITY, 0.5, qcfg)
+                else:
+                    alg.magnitude(params, cfg, SPARSITY)
+                info["sparsity"] = check_sparse(params, cfg, name)
+                alg.rtn(params, cfg, qcfg, scale_book=book)
+
+        _, info["calib_s"], info["calib_peak_gib"] = _measured(run)
+        if keep:
+            alg.gptq(twin, cfg, CalibContext(cfg=cfg, hidden=ctx0.hidden.clone(),
+                                              positions=ctx0.positions, chunk=ctx0.chunk), qcfg)
+            layer0 = lambda p: {s: w for (i, s), w in _linears(p, cfg).items() if i == 0}
+            info["layer0_error_over_rtn"] = _layer0_error_ratios(
+                cfg, qcfg, lp0, ctx0, {"gptaq": layer0(params), "gptq": layer0(twin)})
+            del twin, lp0, ctx0
+        pack_lossless(params, cfg, qcfg, book, name)
+        return cfg, qcfg, stack_model(fuse_model(params, cfg, qcfg))
+
+    return build
+
+
+CALIB_B_CHECKS = ("smoothquant_llama", "smoothquant_bloom", "awq_plus", "gptaq", "sparsegpt",
+                  "ria", "magnitude")
+
+
+def phase_calibration_b(seed: int):
+    """Phase 12: the ``wanda_awq_w4a8`` slice (``wanda_awq`` at full width
+    and depth, served as ``phase_slice`` serves the flagship), then each
+    algorithm of ``CALIB_B_CHECKS`` at 2 layers, kernel path against plain
+    path (``check_reduced_depth(build=...)``)."""
+    cfg, qcfg, params, info = wanda_awq(LAYERS, seed)
+    torch.cuda.empty_cache()
+    s = phase_slice(seed, W4A8, W4A8_KERNELS, model=(cfg, qcfg, params),
+                    per_step=W4A8_APPEND_PER_STEP)
+    del s["params"], params
+    torch.cuda.empty_cache()
+    out = {"slice": s | info, "checks": {}}
+    for name in CALIB_B_CHECKS:
+        rec: dict = {}
+        names = BLOOM_KERNELS if name == "smoothquant_bloom" else W4A8_KERNELS
+        checked, total, max_err, _ = check_reduced_depth(seed, W4A8, names,
+                                                         build=calib_b_model_fn(name, seed, rec))
+        out["checks"][name] = rec | {"confident_tokens_equal": checked, "tokens": total,
+                                     "max_abs_logit_diff": max_err}
+        torch.cuda.empty_cache()
+    return out
+
+
+def report_calibration_b(cb, smi: str) -> None:
+    """Log phase 12's slice and 2-layer checks."""
+    s = cb["slice"]
+    log(f"slice wanda_awq_w4a8: Llama-3.2-1B, {LAYERS} layers, wanda({SPARSITY}) on {CALIB_SAMPLES} "
+        f"x {CALIB_LEN} synthetic C4 tokens in {s['wanda_s']:.2f} s (peak {s['wanda_peak_gib']:.2f} "
+        f"GiB; sparsity {s['sparsity']:.4f}, every linear >= {SPARSITY}), then awq W4A8 on the "
+        f"pile-val stream in {s['awq_s']:.2f} s ({json.dumps(s['awq_s_by_phase'])}; peak "
+        f"{s['awq_peak_gib']:.2f} GiB; {s['awq_pairs']} scale pairs, best loss / RTN's loss max "
+        f"{s['awq_best_over_rtn_max']:.4f} median {s['awq_best_over_rtn_median']:.4f}, mean chosen "
+        f"ratio {s['awq_chosen_ratio_mean']:.3f}; {s['clip_groups_clipped']}/{s['clip_groups']} "
+        f"clip groups clipped, none above its unclipped error); packed losslessly, every code at a "
+        f"Wanda zero the zero code; batch {BATCH}, prompt {PROMPT}: prefill (TTFT) "
+        f"{s['ttft_ms']:.2f} ms, {STEPS} decode steps as one CUDA graph {s['decode_ms']:.2f} ms = "
+        f"{s['decode_tok_s']:.1f} tok/s (first call {s['first_call_s']:.2f} s, capture "
+        f"{s['capture_s']:.2f} s; eager loop {s['loop_decode_tok_s']:.1f} tok/s, tokens and cache "
+        f"bitwise equal), peak memory {s['peak_mem_gib']:.2f} GiB on {smi}; launches "
+        f"{s['counts']}, per decode step {s['per_step']}")
+    log(f"slice wanda_awq_w4a8 decode profile (one replay of the {STEPS}-step graph, "
+        f"torch.profiler): {json.dumps(s['profile'])}")
+    for name, c in cb["checks"].items():
+        log(f"calibration_b {name} at 2 layers (full width, {CALIB_SAMPLES} x {CALIB_LEN} "
+            f"tokens): {c['calib_s']:.2f} s, peak {c['calib_peak_gib']:.2f} GiB"
+            + (f", sparsity {c['sparsity']:.4f}" if "sparsity" in c else "")
+            + "; packed losslessly; served W4A8: "
+            f"{c['confident_tokens_equal']}/{c['tokens']} kernel-path tokens with a plain top-2 "
+            f"gap > 0.1 equal the plain path's; max |logit diff| {c['max_abs_logit_diff']:.4g}"
+            + ("" if "layer0_error_over_rtn" not in c else
+               f"; layer 0 ||(W-Q)X|| / RTN's (reported): "
+               f"{json.dumps(c['layer0_error_over_rtn'])}"))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3028,6 +3362,10 @@ def main() -> int:
             log(f"archs_b family {fam}: {c['head_note']}: {c['head_dequant_matmul_ms']:.4f} ms "
                 f"on {smi}")
 
+    cb = phase_calibration_b(args.seed)
+    slices["wanda_awq_w4a8"] = cb["slice"]
+    report_calibration_b(cb, smi)
+
     metrics = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = lambda c: {k: c[k] for k in EXTRA_METRICS if k in c}
     runs = slices | {"actq_entry": actq}
@@ -3049,7 +3387,8 @@ def main() -> int:
                       "serving_engine": served,
                       "formats_checks": {k: v for k, v in fm.items() if k != "slices"},
                       "archs_checks": {"window": ar["window"], "families": ar["families"]},
-                      "archs_b_checks": {"families": ab["families"]}}),
+                      "archs_b_checks": {"families": ab["families"]},
+                      "calibration_b_checks": cb["checks"]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": count}}),
           flush=True)

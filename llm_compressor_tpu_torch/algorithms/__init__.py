@@ -1,15 +1,31 @@
-"""algorithms — RTN, GPTQ, SpinQuant (Hadamard mode) and packing (port of
-part of ``llm_compressor_tpu.algorithms``; GPTAQ, SparseGPT, AWQ,
-SmoothQuant, SpinQuant's optimize mode and the pruning algorithms are
-queued in ROADMAP.md, queue A item 9)."""
+"""algorithms — calibration (RTN, SmoothQuant, GPTQ, AWQ, AWQ+, GPTAQ,
+SpinQuant) and pruning (magnitude, Wanda, SparseGPT, RIA) as functions
+over params, and packing (port of ``llm_compressor_tpu.algorithms``;
+``spinquant`` runs the Hadamard mode and raises for the optimize mode)."""
 
+from .awq import awq, awq_plus
 from .common import PhaseTimer
+from .gptaq import gptaq
 from .gptq import gptq
-from .obs import gptq_update, gptq_update_with_params, hessian_inverse_factor
+from .magnitude import magnitude
+from .obs import (
+    gptaq_update,
+    gptaq_update_with_params,
+    gptq_update,
+    gptq_update_with_params,
+    hessian_inverse_factor,
+    sparsegpt_update,
+)
 from .pack import pack_model
+from .ria import ria
 from .rtn import rtn
+from .smoothquant import smoothquant
+from .sparsegpt import sparsegpt
 from .spinquant import load_rotations, save_rotations, spinquant
+from .wanda import wanda
 
-__all__ = ["rtn", "gptq", "gptq_update", "gptq_update_with_params",
-           "hessian_inverse_factor", "spinquant", "load_rotations", "save_rotations",
-           "pack_model", "PhaseTimer"]
+__all__ = ["rtn", "smoothquant", "gptq", "awq", "awq_plus", "gptaq", "spinquant",
+           "magnitude", "wanda", "sparsegpt", "ria",
+           "gptq_update", "gptq_update_with_params", "gptaq_update",
+           "gptaq_update_with_params", "sparsegpt_update", "hessian_inverse_factor",
+           "load_rotations", "save_rotations", "pack_model", "PhaseTimer"]

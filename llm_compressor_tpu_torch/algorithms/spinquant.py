@@ -133,7 +133,7 @@ def spinquant(params, cfg: ModelConfig, calib_tokens, qcfg: QuantConfig,
     if mode == "optimize":
         raise NotImplementedError(
             "SpinQuant mode='optimize' (Cayley SGD through the straight-through quantized "
-            "forward) is not ported yet: ROADMAP.md queue A item 9")
+            "forward) is not ported yet: ROADMAP.md queue A item 9c")
     if mode != "hadamard":
         raise ValueError(f"unknown SpinQuant mode {mode!r}")
     dev = params["embed"]["weight"].device

@@ -7,8 +7,15 @@ H = (2 / n_samples) * sum over tokens of x x^T, with n_samples counting
 sequences, not tokens, summed in full float32 (TF32 off: see
 :func:`~..device.full_f32_matmul`). Chunks hold ``chunk`` samples (8, as
 in the JAX package), which bounds the attention's (chunk, heads, T, T)
-float32 scores. ``layer_taps`` and ``accumulate_scaler_rows`` (AWQ,
-SmoothQuant, Wanda, RIA) are queued in ROADMAP.md (queue A item 9).
+float32 scores. ``layer_taps`` materialises a layer's tap activations
+(AWQ); ``accumulate_scaler_rows`` sums their squares per channel (Wanda,
+RIA).
+
+``advance`` writes the next layer's inputs over ``ctx.hidden`` in place,
+where the JAX version rebinds an immutable array. A tap is a view of the
+chunk it was taken from (OPT-350m's post-norm taps ``attn_in`` on the layer
+input itself), so whatever holds a tap across an ``advance`` owns a copy:
+``layer_taps`` concatenates, which copies.
 """
 
 from __future__ import annotations
@@ -110,3 +117,37 @@ def accumulate_hessian(ctx: CalibContext, layer_params, layer_idx: int,
                 h = _hessian_chunk(x)
                 H[k] = h if k not in H else H[k] + h
     return {k: 2.0 * v / n_samples for k, v in H.items()}
+
+
+def layer_taps(ctx: CalibContext, layer_params, layer_idx: int,
+               ops: Optional[LayerOps] = None,
+               tap_keys: Tuple[str, ...] = TAP_KEYS) -> Dict[str, torch.Tensor]:
+    """Every tap activation of one layer, concatenated over the samples
+    (AWQ and SmoothQuant read the whole input feature). The result owns its
+    storage: it outlives an ``advance`` of ``ctx``."""
+    acc: Dict[str, list] = {k: [] for k in tap_keys}
+    for _, _, _, taps in run_layer(ctx, layer_params, layer_idx, ops, tap_keys):
+        for k, v in taps.items():
+            acc[k].append(v)
+    return {k: torch.cat(v, 0) for k, v in acc.items() if v}
+
+
+def _sqnorm_chunk(x: torch.Tensor) -> torch.Tensor:
+    """Sum over tokens of x_c^2 per channel for a (B, T, C) chunk, in float32."""
+    x2 = x.reshape(-1, x.shape[-1]).float()
+    return torch.sum(x2 * x2, dim=0)
+
+
+def accumulate_scaler_rows(ctx: CalibContext, layer_params, layer_idx: int,
+                           tap_keys: Tuple[str, ...],
+                           ops: Optional[LayerOps] = None) -> Dict[str, torch.Tensor]:
+    """The Wanda / RIA channel statistic per tap key: sum over tokens of
+    x_c^2 / n_samples (reference wanda/core.py:92-113: the running mean over
+    one sample per hook call), float32."""
+    n_samples = ctx.hidden.shape[0]
+    acc: Dict[str, torch.Tensor] = {}
+    for _, _, _, taps in run_layer(ctx, layer_params, layer_idx, ops, tap_keys):
+        for k, x in taps.items():
+            v = _sqnorm_chunk(x)
+            acc[k] = v if k not in acc else acc[k] + v
+    return {k: v / n_samples for k, v in acc.items()}

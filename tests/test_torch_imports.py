@@ -25,6 +25,11 @@ MODULES = [
     "llm_compressor_tpu_torch.algorithms.spinquant",
     "llm_compressor_tpu_torch.utils.safetensors_io", "llm_compressor_tpu_torch.models.params",
     "llm_compressor_tpu_torch.models.config", "llm_compressor_tpu_torch.engine.generate",
+    "llm_compressor_tpu_torch.algorithms.awq", "llm_compressor_tpu_torch.algorithms.smoothquant",
+    "llm_compressor_tpu_torch.algorithms.gptaq", "llm_compressor_tpu_torch.algorithms.sparsegpt",
+    "llm_compressor_tpu_torch.algorithms.wanda", "llm_compressor_tpu_torch.algorithms.ria",
+    "llm_compressor_tpu_torch.algorithms.magnitude", "llm_compressor_tpu_torch.evalx",
+    "llm_compressor_tpu_torch.evalx.sparsity",
 ]
 FORBIDDEN = ("jax", "llm_compressor_tpu", "safetensors", "ml_dtypes", "transformers")
 _CHECK = ("bad = [m for m in sys.modules if m.split('.')[0] in {forbidden}]; "

@@ -94,10 +94,30 @@ def check_codes(tc, jc, min_equal=0.999, max_steps=1):
     assert (diff == 0).mean() >= min_equal, (diff == 0).mean()
 
 
-def _clone(tree):
+def clone_tree(tree):
+    """A copy of a port params tree (dicts, lists) with every tensor cloned."""
     if isinstance(tree, dict):
-        return {k: _clone(v) for k, v in tree.items()}
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [clone_tree(v) for v in tree]
     return tree.clone()
+
+
+def to_jax(tree):
+    """A port params tree of float tensors as the JAX package's (jnp arrays)."""
+    if isinstance(tree, dict):
+        return {k: to_jax(v) for k, v in tree.items()}
+    return jnp.asarray(tree.numpy())
+
+
+def assert_same_tree(tl, jl):
+    """Every tensor of a port tree equal to a JAX (or port) tree's, bitwise."""
+    if isinstance(jl, (dict, list)):
+        assert len(tl) == len(jl)
+        for k in (jl if isinstance(jl, dict) else range(len(jl))):
+            assert_same_tree(tl[k], jl[k])
+    else:
+        np.testing.assert_array_equal(np.asarray(tl), np.asarray(jl))
 
 
 @contextlib.contextmanager
@@ -112,7 +132,7 @@ def recording_gptq_chain():
     def recording(ctx, lp, i, taps, ops=None):
         H = tpipe.accumulate_hessian(ctx, lp, i, taps, ops)
         calls.append(dict(layer=i, taps=tuple(taps), hidden=ctx.hidden.clone(),
-                          positions=ctx.positions.clone(), chunk=ctx.chunk, params=_clone(lp),
+                          positions=ctx.positions.clone(), chunk=ctx.chunk, params=clone_tree(lp),
                           H={k: v.clone() for k, v in H.items()}))
         return H
 
@@ -121,7 +141,7 @@ def recording_gptq_chain():
         yield calls
 
 
-def _rel_err(got, want):
+def rel_err(got, want):
     want = np.asarray(want)
     return float(np.abs(np.asarray(got) - want).max() / np.abs(want).max())
 
@@ -172,7 +192,7 @@ def check_gptq_chain(calls, jcfg, jqcfg, gptq_w, scale_book, hidden0, hidden_tol
     for i in range(jcfg.num_layers):
         c0 = first[i]
         if i == 0:
-            err = _rel_err(c0["hidden"].numpy(), hidden0)
+            err = rel_err(c0["hidden"].numpy(), hidden0)
             assert err <= 1e-5, err
             worst["hidden"] = err
         else:
@@ -181,7 +201,7 @@ def check_gptq_chain(calls, jcfg, jqcfg, gptq_w, scale_book, hidden0, hidden_tol
             jpipe.advance(ctx, with_gptq(to_jax(prev["params"]), i - 1,
                                          [s for g in groups for s in g]),
                           i - 1, j_layer_ops(jcfg, jqcfg, i - 1))
-            err = _rel_err(c0["hidden"].numpy(), ctx.hidden)
+            err = rel_err(c0["hidden"].numpy(), ctx.hidden)
             assert err <= hidden_tol, (i, err)
             worst["hidden"] = max(worst["hidden"], err)
         mine = [c for c in calls if c["layer"] == i]
@@ -193,7 +213,7 @@ def check_gptq_chain(calls, jcfg, jqcfg, gptq_w, scale_book, hidden0, hidden_tol
             lp = with_gptq(to_jax(c0["params"]), i, done)
             jH, _ = jpipe.accumulate_hessian(ctx_of(c0, c0["hidden"]), lp, i, (tap,),
                                              j_layer_ops(jcfg, jqcfg, i))
-            err = _rel_err(c["H"][tap].numpy(), jH[tap])
+            err = rel_err(c["H"][tap].numpy(), jH[tap])
             kind = "attn_in" if tap == "attn_in" else "other taps"
             assert err <= (1e-5 if tap == "attn_in" else 1e-3), (i, tap, err)
             worst[kind] = max(worst[kind], err)
@@ -210,3 +230,26 @@ def check_gptq_chain(calls, jcfg, jqcfg, gptq_w, scale_book, hidden0, hidden_tol
                             codes_of(np.asarray(jQ), ts, tz, g), max_steps=code_steps)
             done += group
     return worst
+
+
+# every architecture's tiny_config, and OPT-350m's variant (project_in,
+# post-norm) as tests/test_hf_parity.py builds it: name -> (arch, overrides)
+ALL_VARIANTS = {"llama": ("llama", {}), "qwen2": ("qwen2", {}), "qwen3": ("qwen3", {}),
+                "gemma": ("gemma", {}), "gemma2": ("gemma2", {}), "gemma3": ("gemma3", {}),
+                "opt": ("opt", {}),
+                "opt350m": ("opt", dict(project_in_dim=32, do_layer_norm_before=False)),
+                "bloom": ("bloom", {}), "phi": ("phi", {})}
+
+
+def variant_pair(name, seed=0, **kw):
+    """(jcfg, tcfg, JAX params, port params) of an ``ALL_VARIANTS`` entry:
+    the same float32 weights, norms and biases drawn from ``seed``."""
+    from llm_compressor_tpu import models as jm
+    from llm_compressor_tpu_torch import models as tm
+    from llm_compressor_tpu_torch.convert import params_from_numpy
+
+    arch, over = ALL_VARIANTS[name]
+    over = over | kw
+    jcfg, tcfg = jm.tiny_config(arch, **over), tm.tiny_config(arch, **over)
+    tree = randomize(jax_to_numpy(jm.init_params(jcfg, jax.random.PRNGKey(seed))), seed + 1)
+    return jcfg, tcfg, jax.tree_util.tree_map(jnp.asarray, tree), params_from_numpy(tree, "cpu")
