@@ -189,13 +189,41 @@ Phases (each prints a line; any failure exits non-zero):
    kernels), ``awq_plus``, ``gptaq`` (layer 0's ||(W - Q)X||_F over RTN's,
    beside GPTQ's on the same weights: reported), and ``sparsegpt``, ``ria``
    and ``magnitude`` at 0.5 sparsity (checked), each followed by RTN.
+13. spinquant_optimize — ``spinquant(mode="optimize", n_steps=16)`` + GPTQ
+   (the JAX defaults otherwise: batch 1, lr 1.5, momentum 0, no QR in 16
+   steps) on the flagship's 128 x 512 synthetic tokens, W4A8: at 2 layers
+   (layer 0 must beat RTN, ratio at most 0.9, as in step 4), then at full
+   depth, the slice ``spinquant_opt_gptq``. Each calibration must launch
+   1 + layers B10 (the starting rotations) and no other kernel, give a
+   finite loss at every step, and rotations (read back from the ``R.npz``
+   it saves) with |R R^T - I| at most 2e-3; its seconds by phase (draw,
+   optimize, rotation, Hessians, updates), seconds a step, the step
+   losses, the loss at the learned rotations on the first batch against
+   the starting one's (reported), peak memory. Packed losslessly and
+   served as the slices of step 5 (48 B1, 16 B2, 1 B3, 16 B4 a step).
+14. evalx — ``compute_ppl`` over 8 windows of 2048 synthetic tokens at
+   batch 1 on the float bf16 flagship (no kernel) and on
+   ``spinquant_opt_gptq`` as served (B2 and B3 must launch: the prefill
+   routes of ``qlinear`` at M = 2048), seconds a window and peak memory,
+   finite; the 2-layer model of step 13 through the kernels and under
+   ``plain_kernels`` (relative difference at most 1e-3, reported with
+   whether it is bitwise); ``profile_model`` of the float flagship with
+   the W4A8 config on 1 x 256 tokens (433 rows, seconds), and at 2 layers
+   in float32 on the card against the CPU (same rows, values within the
+   bounds of ``tests/test_torch_profiler.py``); ``sqnr_driven_mpq`` at a
+   weight SQNR floor of 20 dB on the full-width CSV, its config RTN'd at 2
+   layers and served kernel path against plain path (tokens as in step
+   4); the CLIP (ViT-B/32 widths) and ImageReward (``BlipConfig()``)
+   towers from random weights, 4 inputs, the card's embeddings, 100 cos,
+   CLIPScores and rewards within 1e-4 of the largest CPU value.
 The ``kernels`` JSON object, nvidia-smi's name and power limit and the
 slices' and serving engine's numbers (TTFT, decode tok/s over the graph,
 first-call and capture seconds, the eager loop's tok/s, peak memory; calibration seconds
 for ``spinquant_gptq``, RTN seconds for the formats slices; the formats phase's 2-layer
 checks; the archs, archs_b and calibration_b phases' checks; Wanda's and
-AWQ's seconds for ``wanda_awq_w4a8``) come on the three lines before the
-last; the last is ``{"ok": true, "device": {...}}``.
+AWQ's seconds for ``wanda_awq_w4a8``; the optimize mode's losses, seconds a
+step and orthogonality for ``spinquant_opt_gptq``; the evalx phase's
+numbers) come on the three lines before the last; the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -276,6 +304,11 @@ LONG_S = 32768
 CALIB_SAMPLES, CALIB_LEN = 128, 512
 # B10 launches while calibrating: R1, then one R2 per layer
 B10_PER_CALIBRATION = 1 + LAYERS
+# SpinQuant's optimize mode: its steps here (the JAX defaults otherwise:
+# batch 1, lr 1.5, momentum 0, a QR every 50 steps, so none), and the JAX
+# package's bound on |R R^T - I| after chained steps (tests/test_spinquant.py:143)
+OPT_STEPS = 16
+ORTHO_MAX = 2e-3
 # per-case fields beyond the contract's: B9's B3 time and its act quantizer's
 # share, the launched grid of B1, B2, B3, B5 and B9 and their reduce kernel's
 # share; then the earlier design's time, a constant, on the log line only
@@ -1296,18 +1329,27 @@ def _clone_tree(node):
     return node.clone()
 
 
-def calibrate_and_pack(layers: int, seed: int, keep_layer0: bool = False):
+def calibrate_and_pack(layers: int, seed: int, keep_layer0: bool = False,
+                       mode: str = "hadamard"):
     """Llama-3.2-1B at ``layers`` layers, random weights from ``seed``:
-    ``spinquant(mode="hadamard")`` (R1 / R2 draws through B10, then GPTQ)
-    on CALIB_SAMPLES x CALIB_LEN synthetic tokens with the W4A8 config ->
-    ``pack_model`` with GPTQ's scale book -> fuse -> stack. Checks that
-    packing is lossless: ``dequantize`` of every packed weight equals the
-    GPTQ'd bf16 weight bitwise. Returns (cfg, qcfg, params, info): info
-    holds the calibration's seconds (total and by phase), peak memory and
-    launch counts (set to 0 just before it), and layer 0's GPTQ'd weights;
-    with ``keep_layer0`` also the rotated layer 0 and its calibration
-    inputs, as GPTQ received them."""
+    ``spinquant(mode=mode)`` (R1 / R2 draws through B10; in optimize mode
+    OPT_STEPS Cayley steps from them; then GPTQ) on CALIB_SAMPLES x
+    CALIB_LEN synthetic tokens with the W4A8 config -> ``pack_model`` with
+    GPTQ's scale book -> fuse -> stack. Checks that packing is lossless:
+    ``dequantize`` of every packed weight equals the GPTQ'd bf16 weight
+    bitwise. Returns (cfg, qcfg, params, info): info holds the
+    calibration's seconds (total and by phase), peak memory and launch
+    counts (set to 0 just before it), and layer 0's GPTQ'd weights; with
+    ``keep_layer0`` also the rotated layer 0 and its calibration inputs, as
+    GPTQ received them. In optimize mode also each step's loss, the loss
+    at the learned rotations on the first batch (the first step's loss is
+    the starting rotations' on it) and the largest |R R^T - I| of R1 and
+    of the R2s, read back from the ``R.npz`` that ``spinquant`` saved."""
     import importlib
+    import shutil
+    import tempfile
+
+    import numpy as np
 
     from llm_compressor_tpu_torch import kernels
     from llm_compressor_tpu_torch.algorithms import PhaseTimer, pack_model, spinquant
@@ -1333,21 +1375,43 @@ def calibrate_and_pack(layers: int, seed: int, keep_layer0: bool = False):
                                    positions=ctx.positions, chunk=ctx.chunk)
         return real_gptq(params, cfg, ctx, qcfg, **kw)
 
-    book, timer = {}, PhaseTimer()
+    real_optimize = sq_mod.optimize_rotations
+
+    def optimize_and_score(params, cfg, calib_tokens, qcfg, **kw):
+        R1, R2s = real_optimize(params, cfg, calib_tokens, qcfg, **kw)
+        loss_fn = sq_mod.make_rotated_ste_loss(params, cfg, qcfg)
+        with torch.no_grad():
+            first = torch.as_tensor(calib_tokens[:1], device=R1.device)
+            info["learned_loss_first_batch"] = float(
+                loss_fn(R1.float(), torch.stack(R2s).float(), first))
+        return R1, R2s
+
+    book, timer, losses = {}, PhaseTimer(), []
+    rot_dir = tempfile.mkdtemp() if mode == "optimize" else None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
     t0 = time.perf_counter()
     if keep_layer0:
         sq_mod.gptq = gptq_keeping_layer0
+    sq_mod.optimize_rotations = optimize_and_score
     try:
-        cfg = spinquant(params, cfg, calib, qcfg, seed=seed, scale_book=book, timings=timer)
+        cfg = spinquant(params, cfg, calib, qcfg, mode=mode, n_steps=OPT_STEPS, seed=seed,
+                        rotation_path=rot_dir, scale_book=book, timings=timer, losses=losses)
     finally:
         sq_mod.gptq = real_gptq
+        sq_mod.optimize_rotations = real_optimize
     torch.cuda.synchronize()
     info.update(calib_s=time.perf_counter() - t0, phases=timer.seconds,
                 calib_counts=kernels.launch_counts(),
                 calib_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if mode == "optimize":
+        rots = np.load(os.path.join(rot_dir, "R.npz"))
+        ortho = {k: float(np.abs(r @ r.T - np.eye(r.shape[0])).max()) for k, r in rots.items()}
+        shutil.rmtree(rot_dir)
+        info.update(losses=losses, init_loss_first_batch=losses[0],
+                    s_per_step=timer.seconds["optimize"] / OPT_STEPS,
+                    ortho_R1=ortho.pop("R1"), ortho_R2_max=max(ortho.values()))
     gptq_w = {(i, s): get_weight(lp, s) for i, lp in enumerate(params["layers"])
               for s in arch_slots(cfg)}
     info["gptq_layer0"] = {s: w for (i, s), w in gptq_w.items() if i == 0}
@@ -1704,6 +1768,9 @@ def _slice_numbers(s):
     if "calib_s" in s:
         out.update(calib_s=s["calib_s"], calib_s_by_phase=s["phases"],
                    calib_peak_mem_gib=s["calib_peak_gib"])
+    if "losses" in s:
+        out.update({k: s[k] for k in ("losses", "s_per_step", "init_loss_first_batch",
+                                      "learned_loss_first_batch", "ortho_R1", "ortho_R2_max")})
     if "rtn_s" in s:
         out.update(rtn_s=s["rtn_s"], rtn_peak_mem_gib=s["rtn_peak_gib"],
                    head_max_abs_diff=s["head_max_abs_diff"], launches_per_step=s["per_step"])
@@ -3092,6 +3159,460 @@ def report_calibration_b(cb, smi: str) -> None:
                f"{json.dumps(c['layer0_error_over_rtn'])}"))
 
 
+# ---------------------------------------------------------------------------
+# phase 13: SpinQuant's optimize mode; phase 14: the evaluation stack
+# ---------------------------------------------------------------------------
+
+
+def _check_optimize(info, layers: int, label: str) -> None:
+    """Gates of an optimize-mode calibration: 1 + layers B10 launches and no
+    other kernel, every step's loss finite, R1 and every R2 orthonormal
+    within ORTHO_MAX."""
+    counts = info["calib_counts"]
+    if counts["hadamard"] != 1 + layers or any(v for k, v in counts.items() if k != "hadamard"):
+        raise AssertionError(f"{label}: calibration launched {counts}, not {1 + layers} x B10 "
+                             "and nothing else")
+    if not all(math.isfinite(x) for x in info["losses"]) or len(info["losses"]) != OPT_STEPS:
+        raise AssertionError(f"{label}: the step losses {info['losses']} are not all finite")
+    if max(info["ortho_R1"], info["ortho_R2_max"]) > ORTHO_MAX:
+        raise AssertionError(f"{label}: |R R^T - I| of R1 {info['ortho_R1']}, of the R2s "
+                             f"{info['ortho_R2_max']}, above {ORTHO_MAX}")
+
+
+def phase_spinquant_optimize(seed: int):
+    """Phase 13, the ``spinquant_opt_gptq`` slice: ``spinquant(mode=
+    "optimize")`` + GPTQ at 2 layers (layer 0 against RTN, the quality
+    proxy), then at full depth, served as ``phase_slice`` serves the
+    flagship. Returns the slice, the 2-layer numbers, and the 2-layer
+    model (for phase 14)."""
+    cfg, qcfg, params, info = calibrate_and_pack(2, seed, keep_layer0=True, mode="optimize")
+    _check_optimize(info, 2, "2 layers")
+    ratios = check_gptq_beats_rtn(info, cfg, qcfg)
+    two = {k: info[k] for k in ("calib_s", "phases", "calib_peak_gib", "calib_counts", "losses",
+                                "learned_loss_first_batch", "ortho_R1", "ortho_R2_max")}
+    two["gptq_over_rtn_layer0"] = ratios
+    small = (cfg, qcfg, params)
+    del info
+    torch.cuda.empty_cache()
+    cfg, qcfg, params, info = calibrate_and_pack(LAYERS, seed, mode="optimize")
+    _check_optimize(info, LAYERS, f"{LAYERS} layers")
+    del info["gptq_layer0"]
+    torch.cuda.empty_cache()
+    s = phase_slice(seed, W4A8, W4A8_KERNELS, model=(cfg, qcfg, params),
+                    per_step=W4A8_APPEND_PER_STEP)
+    return {"slice": s | info, "two_layers": two, "small_model": small}
+
+
+# perplexity windows (the reference's seq_len) and the profile's tokens (one
+# 256-token sample, reference models/base.py:95-102)
+PPL_WINDOWS, PPL_SEQ, PROFILE_TOKENS = 8, 2048, 256
+MPQ_WEIGHT_FLOOR = 20.0
+PROFILE_ROWS = 7 * LAYERS + 1 + 20 * LAYERS   # weights, head, activations
+# CLIP at ViT-B/32 widths: (hidden, intermediate, layers, heads) of each tower
+CLIP_B32 = {"vision": (768, 3072, 12, 12), "text": (512, 2048, 12, 8)}
+TOWER_BATCH, TOWER_TOL = 4, 1e-4
+
+
+def timed_ppl(params, cfg, qcfg, stream):
+    """``compute_ppl`` over the stream's windows, one a batch: the ppl, the
+    seconds per window, the peak memory and the launches (counts set to 0
+    just before)."""
+    from llm_compressor_tpu_torch import kernels
+    from llm_compressor_tpu_torch.evalx import compute_ppl
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    ppl = compute_ppl(params, cfg, stream, seq_len=PPL_SEQ, qcfg=qcfg, batch_size=1)
+    torch.cuda.synchronize()
+    n = stream.size // PPL_SEQ
+    return {"ppl": ppl, "windows": n, "s_per_window": (time.perf_counter() - t0) / n,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "counts": kernels.launch_counts()}
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def _csv_rows(path):
+    lines = open(path).read().splitlines()
+    return lines[0], [[c.strip() for c in ln.split(",")] for ln in lines[1:]]
+
+
+def compare_profiles(got_path, want_path):
+    """Card CSV against CPU CSV: the same header, op names and row order;
+    Elem and BPV equal; ClipError within 1e-5 of the row's |Max|; every
+    other value within 1e-4 relative on weight rows and 1e-2 on activation
+    rows (``tests/test_torch_profiler.py``'s bounds against JAX: an ulp of
+    difference in a linear's input flips an int8 activation code, which
+    moves the layer's later taps by about one code step, 1/127 of a
+    token's absmax). Returns the largest differences, and how many
+    activation values lie more than 1e-4 apart."""
+    (gh, got), (wh, want) = _csv_rows(got_path), _csv_rows(want_path)
+    if gh != wh or [r[0] for r in got] != [r[0] for r in want]:
+        raise AssertionError("profile: the card's rows are not the CPU's")
+    keys = [k.strip() for k in wh.split(",")]
+    worst = {"weight_rows": 0.0, "activation_rows": 0.0, "clip_error": 0.0,
+             "activation_values_over_1e-4": 0, "activation_values": 0}
+    for g, w in zip(got, want):
+        vals = {k: (float(a), float(b)) for k, a, b in zip(keys[1:], g[1:], w[1:])}
+        kind = "weight_rows" if g[0].endswith(".weight") else "activation_rows"
+        for k, (a, b) in vals.items():
+            if k in ("Elem", "BPV"):
+                d, tol = float(a != b), 0.0
+            elif k == "ClipError":
+                kind_k, d, tol = "clip_error", abs(a - b) / abs(vals["Max"][1]), 1e-5
+                worst[kind_k] = max(worst[kind_k], d)
+            else:
+                d = abs(a - b) / max(abs(a), abs(b), 1e-30)
+                tol = 1e-4 if kind == "weight_rows" else 1e-2
+                worst[kind] = max(worst[kind], d)
+                if kind == "activation_rows":
+                    worst["activation_values"] += 1
+                    worst["activation_values_over_1e-4"] += d > 1e-4
+            if d > tol:
+                raise AssertionError(f"profile row {g[0]} {k}: card {a}, CPU {b}")
+    return worst
+
+
+def mpq_model(qcfg, layers: int, seed: int):
+    """RTN under an MPQ config -> pack -> fuse -> stack (unstacked when the
+    layers' packed formats differ, as ``stack_model`` then refuses), and
+    the kernels its decode launches: B1 / B2 on stacked layers (B2 where
+    gate|up fused), B3 on unstacked ones and the head, B4."""
+    from llm_compressor_tpu_torch.algorithms import pack_model, rtn
+    from llm_compressor_tpu_torch.models import fuse_model, init_params, stack_model
+
+    cfg = flagship_cfg(layers)
+    params = init_params(cfg, seed=seed)
+    rtn(params, cfg, qcfg)
+    pack_model(params, cfg, qcfg)
+    params = fuse_model(params, cfg, qcfg)
+    try:
+        params = stack_model(params)
+    except ValueError:
+        return (cfg, qcfg, params), ["B3_w4a8_flat", "B4_decode_attention_append"], False
+    names = ["B1_w4a8_stacked", "B3_w4a8_flat", "B4_decode_attention_append"]
+    if "gateup" in params["layers_stacked"]["mlp"]:
+        names.append("B2_w4a8_gateup_silu")
+    return (cfg, qcfg, params), names, True
+
+
+def tower_weights(gen, kind: str) -> dict:
+    """Random float32 state dicts under the checkpoints' key names: ``clip``
+    (HF ``CLIPModel``, ViT-B/32 widths) or ``blip`` (ImageReward-v1.0,
+    ``BlipConfig()``'s widths): normal(0, 0.02) matrices and biases, norms
+    1 + normal(0, 0.02)."""
+    sd = {}
+
+    def w(key, *shape, std=0.02):
+        sd[key] = torch.randn(shape, generator=gen) * std
+
+    def lin(prefix, n_out, n_in, bias=True):
+        w(prefix + ".weight", n_out, n_in)
+        if bias:
+            w(prefix + ".bias", n_out)
+
+    def norm(prefix, n):
+        sd[prefix + ".weight"] = 1.0 + torch.randn(n, generator=gen) * 0.02
+        w(prefix + ".bias", n)
+
+    if kind == "clip":
+        for tower, (E, inter, layers, _) in CLIP_B32.items():
+            p = f"{tower}_model"
+            for i in range(layers):
+                q = f"{p}.encoder.layers.{i}"
+                norm(q + ".layer_norm1", E)
+                norm(q + ".layer_norm2", E)
+                for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                    lin(f"{q}.self_attn.{proj}", E, E)
+                lin(q + ".mlp.fc1", inter, E)
+                lin(q + ".mlp.fc2", E, inter)
+        w("vision_model.embeddings.class_embedding", 768)
+        w("vision_model.embeddings.patch_embedding.weight", 768, 3, 32, 32)
+        w("vision_model.embeddings.position_embedding.weight", 50, 768)
+        norm("vision_model.pre_layrnorm", 768)
+        norm("vision_model.post_layernorm", 768)
+        lin("visual_projection", 512, 768, bias=False)
+        w("text_model.embeddings.token_embedding.weight", 49408, 512)
+        w("text_model.embeddings.position_embedding.weight", 77, 512)
+        norm("text_model.final_layer_norm", 512)
+        lin("text_projection", 512, 512, bias=False)
+        return sd
+    v = "blip.visual_encoder"
+    w(v + ".cls_token", 1, 1, 1024)
+    w(v + ".pos_embed", 1, 197, 1024)
+    lin(v + ".patch_embed.proj", 1024, 3 * 16 * 16)
+    sd[v + ".patch_embed.proj.weight"] = sd[v + ".patch_embed.proj.weight"].reshape(
+        1024, 3, 16, 16)
+    for i in range(24):
+        q = f"{v}.blocks.{i}"
+        norm(q + ".norm1", 1024)
+        norm(q + ".norm2", 1024)
+        lin(q + ".attn.qkv", 3 * 1024, 1024)
+        lin(q + ".attn.proj", 1024, 1024)
+        lin(q + ".mlp.fc1", 4096, 1024)
+        lin(q + ".mlp.fc2", 1024, 4096)
+    norm(v + ".norm", 1024)
+    t = "blip.text_encoder"
+    w(t + ".embeddings.word_embeddings.weight", 30524, 768)
+    w(t + ".embeddings.position_embeddings.weight", 512, 768)
+    norm(t + ".embeddings.LayerNorm", 768)
+    for i in range(12):
+        q = f"{t}.encoder.layer.{i}"
+        for part, kv_in in (("attention", 768), ("crossattention", 1024)):
+            lin(f"{q}.{part}.self.query", 768, 768)
+            lin(f"{q}.{part}.self.key", 768, kv_in)
+            lin(f"{q}.{part}.self.value", 768, kv_in)
+            lin(f"{q}.{part}.output.dense", 768, 768)
+            norm(f"{q}.{part}.output.LayerNorm", 768)
+        lin(q + ".intermediate.dense", 3072, 768)
+        lin(q + ".output.dense", 768, 3072)
+        norm(q + ".output.LayerNorm", 768)
+    for idx, (n_in, n_out) in zip((0, 2, 4, 6, 7),
+                                  ((768, 1024), (1024, 128), (128, 64), (64, 16), (16, 1))):
+        lin(f"mlp.layers.{idx}", n_out, n_in)
+    return sd
+
+
+def check_towers(seed: int):
+    """CLIP (ViT-B/32 widths) and BLIP + the reward head (``BlipConfig()``)
+    from random weights: 4 normalized 224 x 224 inputs and 4 token rows
+    (the card's machine has no PIL, ``transformers`` or tokenizer), scored
+    on the card and on the CPU. The card's image and text embeddings must
+    lie within TOWER_TOL of the largest CPU entry, its 100 cos and
+    CLIPScores and its rewards within TOWER_TOL of the largest CPU value."""
+    from llm_compressor_tpu_torch.evalx import clip, image_reward
+
+    gen = torch.Generator().manual_seed(seed + 11)
+    ccfg = clip.ClipConfig(
+        vision=clip.ClipTowerConfig(*CLIP_B32["vision"]), text=clip.ClipTowerConfig(
+            *CLIP_B32["text"]), image_size=224, patch_size=32)
+    px = torch.randn(TOWER_BATCH, 3, 224, 224, generator=gen)
+    ids = torch.randint(0, 49406, (TOWER_BATCH, 77), generator=gen)
+    eot = torch.tensor([5, 20, 40, 76])
+    ids[torch.arange(TOWER_BATCH), eot] = 49407
+    bcfg = image_reward.BlipConfig()
+    bids = torch.randint(0, 30524, (TOWER_BATCH, 35), generator=gen)
+    mask = (torch.arange(35)[None] < torch.tensor([35, 20, 9, 30])[:, None]).long()
+    out = {}
+
+    def run(dev):
+        sd = tower_weights(torch.Generator().manual_seed(seed + 12), "clip")
+        p = clip.load_clip_params(sd, ccfg, device=dev)
+        sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+        t0 = time.perf_counter()
+        ie, te = clip.encode_image(p, px, ccfg), clip.encode_text(p, ids, eot, ccfg)
+        scores = clip.clip_scores(p, ccfg, px, ids, eot)
+        sync()
+        t_clip = time.perf_counter() - t0
+        del p, sd
+        sd = tower_weights(torch.Generator().manual_seed(seed + 13), "blip")
+        p = image_reward.load_image_reward_params(sd, bcfg, device=dev)
+        del sd
+        t0 = time.perf_counter()
+        rewards = image_reward.reward_scores(p, px, bids, mask, bcfg)
+        sync()
+        t_blip = time.perf_counter() - t0
+        del p
+        return {"ie": ie.cpu(), "te": te.cpu(), "scores": scores, "rewards": rewards,
+                "clip_s": t_clip, "blip_s": t_blip}
+
+    cpu, card = run("cpu"), run("cuda")
+    torch.cuda.empty_cache()
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    cos_cpu, cos_card = 100 * (cpu["ie"] * cpu["te"]).sum(-1), 100 * (card["ie"] * card["te"]).sum(-1)
+    out = {"image_embed_rel": rel(card["ie"], cpu["ie"]), "text_embed_rel": rel(card["te"], cpu["te"]),
+           "cos100_rel": rel(cos_card, cos_cpu),
+           "clipscore_rel": float(abs(card["scores"] - cpu["scores"]).max()
+                                  / float(cos_cpu.abs().max())),
+           "reward_rel": float(abs(card["rewards"] - cpu["rewards"]).max()
+                               / abs(cpu["rewards"]).max()),
+           "clipscores": card["scores"].tolist(), "rewards": card["rewards"].tolist(),
+           "clip_s_card": card["clip_s"], "clip_s_cpu": cpu["clip_s"],
+           "reward_s_card": card["blip_s"], "reward_s_cpu": cpu["blip_s"]}
+    bad = {k: v for k, v in out.items() if k.endswith("_rel") and not v <= TOWER_TOL}
+    if bad or not all(math.isfinite(x) for x in out["clipscores"] + out["rewards"]):
+        raise AssertionError(f"towers: the card's scores are not the CPU's: {bad}")
+    return out
+
+
+def phase_evalx(seed: int, served, small):
+    """Phase 14: ``compute_ppl`` at full width over PPL_WINDOWS windows of
+    PPL_SEQ synthetic tokens on the float bf16 flagship and on the
+    ``spinquant_opt_gptq`` model as served (``served``: packed, fused,
+    stacked; B2 and B3 must launch), and on the 2-layer ``small`` model
+    through the kernels and under ``plain_kernels``; ``profile_model`` of
+    the float flagship (W4A8 config, 1 x PROFILE_TOKENS tokens; PROFILE_ROWS
+    rows), and at 2 layers in float32 on the card against the CPU;
+    ``sqnr_driven_mpq`` on the full-width CSV, its config RTN'd at 2 layers
+    and served kernel path against plain path; the towers."""
+    import shutil
+    import tempfile
+    from dataclasses import replace
+
+    from llm_compressor_tpu_torch import kernels
+    from llm_compressor_tpu_torch.evalx import (
+        compute_ppl, profile_model, read_stats, select_ops, sqnr_driven_mpq)
+    from llm_compressor_tpu_torch.models import init_params
+    from llm_compressor_tpu_torch.qformats import build_quant_config
+    from llm_compressor_tpu_torch.utils import synthetic_tokens
+
+    out = {}
+    cfg = flagship_cfg(LAYERS)
+    stream = synthetic_tokens(1, 1, cfg.vocab_size, seed + 3, eval_len=PPL_WINDOWS * PPL_SEQ)
+    float_model = init_params(cfg, seed=seed)
+    out["ppl_float"] = timed_ppl(float_model, cfg, None, stream)
+    out["ppl_served"] = timed_ppl(served[2], served[0], served[1], stream)
+    c = out["ppl_served"]["counts"]
+    c_float = out["ppl_float"]["counts"]
+    if any(c_float.values()):
+        raise AssertionError(f"the float perplexity launched kernels: {c_float}")
+    if not (c["w4a8_gateup"] and c["w4a8_flat"]):
+        raise AssertionError(f"the served perplexity did not launch B2 and B3: {c}")
+    out["ppl_served"]["per_window"] = {k: v / PPL_WINDOWS for k, v in c.items() if v}
+    for k in ("ppl_float", "ppl_served"):
+        if not math.isfinite(out[k]["ppl"]):
+            raise AssertionError(f"{k}: perplexity {out[k]['ppl']} is not finite")
+    del served
+    torch.cuda.empty_cache()
+    kernels.reset_counts()
+    with plain_kernels():
+        plain = compute_ppl(small[2], small[0], stream, seq_len=PPL_SEQ, qcfg=small[1])
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"the plain perplexity launched kernels: {kernels.launch_counts()}")
+    fast = timed_ppl(small[2], small[0], small[1], stream)
+    out["ppl_2_layers"] = {"kernels": fast["ppl"], "plain": plain, "bitwise": fast["ppl"] == plain,
+                           "rel_diff": abs(fast["ppl"] - plain) / plain,
+                           "counts": fast["counts"]}
+    if not out["ppl_2_layers"]["rel_diff"] <= 1e-3:
+        raise AssertionError(f"2-layer perplexity through the kernels {fast['ppl']} is not the "
+                             f"plain path's {plain}")
+    del small
+    torch.cuda.empty_cache()
+
+    qargs, head_act, _ = W4A8
+    qcfg = build_quant_config(*qargs, head_act=head_act)
+    toks = synthetic_tokens(1, PROFILE_TOKENS, cfg.vocab_size, seed + 4)
+    work = tempfile.mkdtemp()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    full_csv = profile_model(float_model, cfg, qcfg, toks, save_path=work)
+    torch.cuda.synchronize()
+    rows = read_stats(full_csv)
+    out["profile"] = {"s": time.perf_counter() - t0, "rows": len(rows),
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if len(rows) != PROFILE_ROWS:
+        raise AssertionError(f"profile: {len(rows)} rows, not {PROFILE_ROWS}")
+    del float_model
+    torch.cuda.empty_cache()
+
+    cfg2 = replace(flagship_cfg(2), dtype="float32")
+    p_cpu = init_params(cfg2, seed=seed, device="cpu")
+    os.makedirs(os.path.join(work, "cpu"))
+    os.makedirs(os.path.join(work, "card"))
+    t0 = time.perf_counter()
+    want = profile_model(p_cpu, cfg2, qcfg, toks, save_path=os.path.join(work, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    p_card = _to_device(p_cpu, "cuda")
+    t0 = time.perf_counter()
+    got = profile_model(p_card, cfg2, qcfg, toks, save_path=os.path.join(work, "card"))
+    torch.cuda.synchronize()
+    out["profile_2_layers"] = {"card_s": time.perf_counter() - t0, "cpu_s": cpu_s,
+                               "max_diff": compare_profiles(got, want)}
+    del p_cpu, p_card
+
+    promoted = select_ops(rows, ".weight", sqnr_below=MPQ_WEIGHT_FLOOR)
+    mpq = sqnr_driven_mpq(qcfg, full_csv, weight_sqnr_floor=MPQ_WEIGHT_FLOOR)
+    model, names, stacked = mpq_model(mpq, 2, seed)
+    checked, total, max_err, _ = check_reduced_depth(seed, W4A8, names, model=model)
+    out["mpq"] = {"weights": sum(r["Op Name"].endswith(".weight") for r in rows),
+                  "promoted": len(promoted),
+                  "promoted_in_2_layers": sum(n.startswith(("layers.0.", "layers.1."))
+                                              for n in promoted),
+                  "weight_sqnr_min": min(r["SQNR"] for r in rows if r["Op Name"].endswith(".weight")),
+                  "weight_sqnr_max": max(r["SQNR"] for r in rows if r["Op Name"].endswith(".weight")),
+                  "stacked": stacked, "kernels": names, "confident_tokens_equal": checked,
+                  "tokens": total, "max_abs_logit_diff": max_err}
+    del model
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+    out["towers"] = check_towers(seed)
+    return out
+
+
+def report_spinquant_optimize(so, smi: str) -> None:
+    """Log phase 13's slice and its 2-layer run."""
+    s, two = so["slice"], so["two_layers"]
+    log(f"spinquant_optimize at 2 layers (full width, {CALIB_SAMPLES} x {CALIB_LEN} tokens, "
+        f"{OPT_STEPS} steps): {two['calib_s']:.2f} s ({json.dumps(two['phases'])}), peak "
+        f"{two['calib_peak_gib']:.2f} GiB, launches {two['calib_counts']}; losses "
+        f"{[round(x, 5) for x in two['losses']]}, at the learned rotations on the first batch "
+        f"{two['learned_loss_first_batch']:.5f}; |R R^T - I| R1 {two['ortho_R1']:.3g}, R2s "
+        f"{two['ortho_R2_max']:.3g}; layer 0 ||(W-Q_gptq)X|| / ||(W-Q_rtn)X|| = "
+        f"{json.dumps(two['gptq_over_rtn_layer0'])} (at most {GPTQ_OVER_RTN_MAX})")
+    log(f"slice spinquant_opt_gptq: Llama-3.2-1B, {LAYERS} layers, spinquant(mode='optimize', "
+        f"n_steps={OPT_STEPS}) + GPTQ on {CALIB_SAMPLES} x {CALIB_LEN} synthetic tokens in "
+        f"{s['calib_s']:.2f} s ({json.dumps(s['phases'])}; {s['s_per_step']:.3f} s a step), peak "
+        f"memory {s['calib_peak_gib']:.2f} GiB, launches {s['calib_counts']}; step losses "
+        f"{[round(x, 5) for x in s['losses']]}; the loss on the first batch at the starting "
+        f"rotations {s['init_loss_first_batch']:.5f}, at the learned ones "
+        f"{s['learned_loss_first_batch']:.5f} (reported); |R R^T - I| R1 {s['ortho_R1']:.3g}, R2s "
+        f"{s['ortho_R2_max']:.3g} (at most {ORTHO_MAX}); packed losslessly; served W4A8, batch "
+        f"{BATCH}, prompt {PROMPT}: prefill (TTFT) {s['ttft_ms']:.2f} ms, {STEPS} decode steps as "
+        f"one CUDA graph {s['decode_ms']:.2f} ms = {s['decode_tok_s']:.1f} tok/s (first call "
+        f"{s['first_call_s']:.2f} s, capture {s['capture_s']:.2f} s; eager loop "
+        f"{s['loop_decode_tok_s']:.1f} tok/s, tokens and cache bitwise equal), peak memory "
+        f"{s['peak_mem_gib']:.2f} GiB on {smi}; launches {s['counts']}, per decode step "
+        f"{s['per_step']}")
+    log(f"slice spinquant_opt_gptq decode profile (one replay of the {STEPS}-step graph, "
+        f"torch.profiler): {json.dumps(s['profile'])}")
+
+
+def report_evalx(ev, smi: str) -> None:
+    """Log phase 14."""
+    for key, label in (("ppl_float", "the float bf16 flagship"),
+                       ("ppl_served", "spinquant_opt_gptq as served (packed, fused, stacked)")):
+        r = ev[key]
+        log(f"evalx compute_ppl, {label}, {LAYERS} layers, {r['windows']} windows of {PPL_SEQ} "
+            f"synthetic tokens, batch 1: ppl {r['ppl']:.6g}, {r['s_per_window']:.4f} s a window, "
+            f"peak {r['peak_mem_gib']:.2f} GiB on {smi}"
+            + (f"; launches per window {r['per_window']}" if "per_window" in r else ""))
+    r = ev["ppl_2_layers"]
+    log(f"evalx compute_ppl, the 2-layer spinquant_opt_gptq model: through the kernels "
+        f"{r['kernels']!r}, under plain_kernels {r['plain']!r} (bitwise {r['bitwise']}, relative "
+        f"difference {r['rel_diff']:.3g}); launches {r['counts']}")
+    r = ev["profile"]
+    log(f"evalx profile_model, the float flagship, W4A8 config, 1 x {PROFILE_TOKENS} tokens: "
+        f"{r['rows']} rows in {r['s']:.2f} s, peak {r['peak_mem_gib']:.2f} GiB on {smi}")
+    r = ev["profile_2_layers"]
+    log(f"evalx profile_model at 2 layers, float32: card {r['card_s']:.2f} s, CPU {r['cpu_s']:.2f} "
+        f"s; same rows; largest differences {json.dumps(r['max_diff'])}")
+    r = ev["mpq"]
+    log(f"evalx sqnr_driven_mpq(weight_sqnr_floor={MPQ_WEIGHT_FLOOR}) on the full-width CSV: "
+        f"{r['promoted']} of {r['weights']} weights promoted to int8 (weight SQNR "
+        f"{r['weight_sqnr_min']:.2f}-{r['weight_sqnr_max']:.2f} dB; {r['promoted_in_2_layers']} "
+        f"in layers 0-1); at 2 layers RTN, packed, {'stacked' if r['stacked'] else 'unstacked'}, "
+        f"kernels {r['kernels']}: {r['confident_tokens_equal']}/{r['tokens']} kernel-path tokens "
+        f"with a plain top-2 gap > 0.1 equal the plain path's; max |logit diff| "
+        f"{r['max_abs_logit_diff']:.4g}")
+    r = ev["towers"]
+    log(f"evalx towers from random weights, {TOWER_BATCH} inputs of 224 x 224: CLIP ViT-B/32 "
+        f"card {r['clip_s_card']:.3f} s (CPU {r['clip_s_cpu']:.3f}), scores {r['clipscores']}; "
+        f"ImageReward (BLIP ViT-L/16 + BERT) card {r['reward_s_card']:.3f} s (CPU "
+        f"{r['reward_s_cpu']:.3f}), rewards {r['rewards']}; card against CPU, relative to the "
+        f"largest CPU value: image embeds {r['image_embed_rel']:.3g}, text embeds "
+        f"{r['text_embed_rel']:.3g}, 100 cos {r['cos100_rel']:.3g}, CLIPScores "
+        f"{r['clipscore_rel']:.3g}, rewards {r['reward_rel']:.3g} (at most {TOWER_TOL}) on {smi}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3366,6 +3887,14 @@ def main() -> int:
     slices["wanda_awq_w4a8"] = cb["slice"]
     report_calibration_b(cb, smi)
 
+    so = phase_spinquant_optimize(args.seed)
+    s = slices["spinquant_opt_gptq"] = so["slice"]
+    report_spinquant_optimize(so, smi)
+    ev = phase_evalx(args.seed, (s.pop("cfg"), s.pop("qcfg"), s.pop("params")),
+                     so.pop("small_model"))
+    torch.cuda.empty_cache()
+    report_evalx(ev, smi)
+
     metrics = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = lambda c: {k: c[k] for k in EXTRA_METRICS if k in c}
     runs = slices | {"actq_entry": actq}
@@ -3388,7 +3917,8 @@ def main() -> int:
                       "formats_checks": {k: v for k, v in fm.items() if k != "slices"},
                       "archs_checks": {"window": ar["window"], "families": ar["families"]},
                       "archs_b_checks": {"families": ab["families"]},
-                      "calibration_b_checks": cb["checks"]}),
+                      "calibration_b_checks": cb["checks"],
+                      "spinquant_optimize_2_layers": so["two_layers"], "evalx_checks": ev}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": count}}),
           flush=True)

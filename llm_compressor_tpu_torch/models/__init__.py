@@ -19,6 +19,7 @@ from .transformer import (
     LayerOps,
     embed,
     forward,
+    forward_hidden,
     fuse_model,
     head,
     layer_ops,
@@ -85,7 +86,7 @@ def tiny_config(arch: str = "llama", **overrides) -> ModelConfig:
 __all__ = [
     "ModelConfig", "RopeScaling", "SUPPORTED_ARCHS", "from_hf_config", "to_hf_config",
     "init_params", "load_params_from_state_dict", "save_compressed", "load_compressed",
-    "load_hf_checkpoint", "forward", "embed", "head", "tiny_config", "LayerOps",
+    "load_hf_checkpoint", "forward", "forward_hidden", "embed", "head", "tiny_config", "LayerOps",
     "layer_ops", "fuse_model", "stack_model", "scan_segments", "uniform_layers",
     "quant_uniform",
 ]

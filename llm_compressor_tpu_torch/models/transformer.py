@@ -8,6 +8,7 @@ Plain functions over a params dict:
     attention(), mlp(), decoder_layer()
     head()     hidden -> logits (final norm, OPT-350m's project_out,
                lm_head with Phi's bias, Gemma2's softcap)
+    forward_hidden()  the decoder stack, at given positions
     forward()  the full model
 
 Each layer has its own rope (:func:`rope_for_layer`: Gemma3's local layers
@@ -21,7 +22,9 @@ query's dtype), the others the scores after it.
 Quantization is threaded through as a :class:`LayerOps`, the per-layer
 resolution of a :class:`~..qformats.QuantConfig`. A ``taps`` dict passed
 to :func:`decoder_layer` collects the inputs of the linears for
-calibration (``attn_in``, ``o_in``, ``mlp_in``, ``down_in``), as the JAX
+calibration (``attn_in``, ``o_in``, ``mlp_in``, ``down_in``) and the
+attention matmuls' operands and outputs for the profiler (``qk_in1``,
+``qk_in2``, ``qk_out``, ``sv_in1``, ``sv_in2``, ``sv_out``), as the JAX
 package's taps replace torch forward hooks. ``fuse_model``
 concatenates q|k|v and gate|up (BLOOM's q|k|v is fused already; an fc1/fc2
 MLP has no gate|up); ``stack_model`` stacks the layers along a
@@ -307,18 +310,24 @@ def attention(lp: Params, cfg: ModelConfig, x, cos, sin, mask,
     r = H // KV
     k = k[:, :, :, None, :].expand(B, T, KV, r, D).reshape(B, T, H, D)
     v = v[:, :, :, None, :].expand(B, T, KV, r, D).reshape(B, T, H, D)
-    q4 = q.transpose(1, 2)
+    q4, k4t, v4 = q.transpose(1, 2), k.permute(0, 2, 3, 1), v.transpose(1, 2)
     if prescaled(cfg):
         q4 = q4 * in_dtype(cfg.attn_scale, q4.dtype)
-    scores = qmatmul_qk(q4, k.permute(0, 2, 3, 1), ops.qk if ops is not None else None)
+    _tap(taps, "qk_in1", q4)
+    _tap(taps, "qk_in2", k4t)
+    scores = qmatmul_qk(q4, k4t, ops.qk if ops is not None else None)
     if not prescaled(cfg):
         scores = scores * cfg.attn_scale
     if cfg.pos_embedding == "alibi":
         scores = scores + alibi_bias(H, torch.arange(T, device=x.device))[None]
-    scores = softcap(scores, cfg.attn_logit_softcapping)   # before the mask
-    probs = torch.softmax(scores + mask, dim=-1).to(x.dtype)
-    out = qmatmul_sv(probs, v.transpose(1, 2), ops.sv if ops is not None else None)
-    out = out.to(x.dtype).transpose(1, 2).reshape(B, T, H * D)
+    scores = softcap(scores, cfg.attn_logit_softcapping) + mask   # the softcap before the mask
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    _tap(taps, "qk_out", scores)
+    _tap(taps, "sv_in1", probs)
+    _tap(taps, "sv_in2", v4)
+    out = qmatmul_sv(probs, v4, ops.sv if ops is not None else None).to(x.dtype)
+    _tap(taps, "sv_out", out)
+    out = out.transpose(1, 2).reshape(B, T, H * D)
     _tap(taps, "o_in", out)
     o = lp["attn"]["o"]
     return qlinear(out, o["weight"], o.get("bias"), _slot(ops, "o"))
@@ -520,17 +529,30 @@ def iter_layers(params: Params):
     return enumerate(params["layers"])
 
 
-def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            qcfg: Optional[QuantConfig] = None) -> torch.Tensor:
-    """tokens (B, T) -> f32 logits (B, T, vocab)."""
+def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                   qcfg: Optional[QuantConfig] = None,
+                   positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens (B, T) at ``positions`` (B, T) (0..T-1 if None) -> the last
+    hidden states (B, T, hidden), before the final norm (JAX :730-777).
+    The positions reach the embedding (OPT's learned positions), the ropes
+    and the masks. Stacked or per-layer params."""
     B, T = tokens.shape
-    positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
+    if positions is None:
+        positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
     h = embed(params, cfg, tokens, positions)
     ropes = layer_ropes(cfg, positions)
     masks = layer_masks(cfg, positions, positions)
     for i, lp in iter_layers(params):
         h = decoder_layer(lp, cfg, h, *ropes[i], masks[i][:, None], layer_ops(cfg, qcfg, i))
-    return head(params, cfg, h, qcfg)
+    return h
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            qcfg: Optional[QuantConfig] = None,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens (B, T) -> f32 logits (B, T, vocab): :func:`forward_hidden`,
+    then :func:`head`."""
+    return head(params, cfg, forward_hidden(params, cfg, tokens, qcfg, positions), qcfg)
 
 
 # ---------------------------------------------------------------------------

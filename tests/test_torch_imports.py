@@ -1,6 +1,7 @@
 """The port stands alone: importing it loads neither JAX nor the JAX
-package (nor ``safetensors``, ``ml_dtypes`` or ``transformers``, which the
-card's machine lacks, also while it writes and reads checkpoints), its
+package (nor ``safetensors``, ``ml_dtypes``, ``transformers``, ``lm_eval``,
+``triton`` or PIL, which the card's machine lacks or which load only
+where used, also while it writes and reads checkpoints or evaluates), its
 entry points default to the card and raise without one, and a kernel
 build without nvcc raises instead of falling back."""
 
@@ -29,9 +30,13 @@ MODULES = [
     "llm_compressor_tpu_torch.algorithms.gptaq", "llm_compressor_tpu_torch.algorithms.sparsegpt",
     "llm_compressor_tpu_torch.algorithms.wanda", "llm_compressor_tpu_torch.algorithms.ria",
     "llm_compressor_tpu_torch.algorithms.magnitude", "llm_compressor_tpu_torch.evalx",
-    "llm_compressor_tpu_torch.evalx.sparsity",
+    "llm_compressor_tpu_torch.evalx.sparsity", "llm_compressor_tpu_torch.evalx.ppl",
+    "llm_compressor_tpu_torch.evalx.profiler", "llm_compressor_tpu_torch.evalx.mpq",
+    "llm_compressor_tpu_torch.evalx.lm_eval_bridge", "llm_compressor_tpu_torch.evalx.clip",
+    "llm_compressor_tpu_torch.evalx.image_reward", "llm_compressor_tpu_torch.evalx.t2i_eval",
 ]
-FORBIDDEN = ("jax", "llm_compressor_tpu", "safetensors", "ml_dtypes", "transformers")
+FORBIDDEN = ("jax", "llm_compressor_tpu", "safetensors", "ml_dtypes", "transformers",
+             "lm_eval", "triton", "PIL")
 _CHECK = ("bad = [m for m in sys.modules if m.split('.')[0] in {forbidden}]; "
           "print(bad); sys.exit(1 if bad else 0)").format(forbidden=set(FORBIDDEN))
 
@@ -88,6 +93,7 @@ def test_checkpoint_run_leaves_other_packages_out():
 
 def test_entry_points_default_to_card(monkeypatch):
     from llm_compressor_tpu_torch import engine, models
+    from llm_compressor_tpu_torch.evalx import clip, image_reward
     from llm_compressor_tpu_torch.kernels import hadamard
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -105,6 +111,10 @@ def test_entry_points_default_to_card(monkeypatch):
         models.load_compressed("missing", models.tiny_config())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         models.load_hf_checkpoint("missing")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        clip.load_clip_params({}, None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        image_reward.load_image_reward_params({}, image_reward.BlipConfig())
     assert tdevice.resolve_device("cpu").type == "cpu"
 
 

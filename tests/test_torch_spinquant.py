@@ -260,15 +260,18 @@ def test_e2e_greedy_tokens_match_jax(e2e):
 
 
 def test_non_llama_and_optimize_raise():
+    """An unknown mode raises; a model of another family raises in both
+    modes: SpinQuant stays Llama-only, as in JAX (``mode="optimize"`` runs
+    since its port; ``tests/test_torch_spinquant_opt.py``)."""
     _, tcfg, _, tp = _models()
     toks = synthetic_tokens(2, 8, tcfg.vocab_size)
     qcfg = tbuild(*QARGS)
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        talg.spinquant(tp, tcfg, toks, qcfg, mode="optimize")
-    # a model of another family: SpinQuant stays Llama-only, as in JAX
+    with pytest.raises(ValueError, match="unknown SpinQuant mode"):
+        talg.spinquant(tp, tcfg, toks, qcfg, mode="learned")
     other = tm.tiny_config("opt")
-    with pytest.raises(NotImplementedError, match="llama family"):
-        talg.spinquant(tm.init_params(other, device="cpu"), other, toks, qcfg)
+    for mode in ("hadamard", "optimize"):
+        with pytest.raises(NotImplementedError, match="llama family"):
+            talg.spinquant(tm.init_params(other, device="cpu"), other, toks, qcfg, mode=mode)
 
 
 def test_spinquant_mse_matches_jax(tmp_path):
