@@ -216,14 +216,32 @@ Phases (each prints a line; any failure exits non-zero):
    4); the CLIP (ViT-B/32 widths) and ImageReward (``BlipConfig()``)
    towers from random weights, 4 inputs, the card's embeddings, 100 cos,
    CLIPScores and rewards within 1e-4 of the largest CPU value.
+15. tensor_parallel — W4A8 Llama-3.2-1B served by n_model ranks, one
+   process each (``parallel/launch.py``), last: over NCCL with a card a
+   rank where ``torch.cuda.device_count() >= n_model``, else every rank on
+   card 0 over gloo (the backend and placement are printed). At 2 layers,
+   full width, n_model = 2 and 4: the RTN'd params fused with
+   ``fuse_model(shards=n)``, each rank's shard through ``tp_serve_fns``,
+   prefill of 32 x 32 tokens and 4 decode steps fed the tokens of the
+   single-device plain path; each rank's tokens equal that path's and its
+   own TP plain path's wherever the reference's top-2 gap exceeds 0.1, and
+   each decode step launches 6 B1, 2 B2, 1 B3 (0 at n = 4, whose 32064-row
+   head block B3 refuses: the dense route) and 2 B4 on each rank. At full
+   depth, n_model = 2: batch 32, prompt 64, 16 eager decode steps (48 B1,
+   16 B2, 1 B3, 16 B4 a step and rank), TTFT, tok/s and peak memory per
+   rank, beside the unsharded model's eager steps on one process and the
+   host time of each kind of collective. The TP continuous batcher at 2
+   layers (W4A8 in float32): ids bitwise equal to the single-device eager
+   batcher's. Every rank's tokens, logits and ids must equal rank 0's.
+   Step 3 adds B1, B2, B3 and B4 at the ranks' local shapes (n = 2, 4).
 The ``kernels`` JSON object, nvidia-smi's name and power limit and the
 slices' and serving engine's numbers (TTFT, decode tok/s over the graph,
 first-call and capture seconds, the eager loop's tok/s, peak memory; calibration seconds
 for ``spinquant_gptq``, RTN seconds for the formats slices; the formats phase's 2-layer
 checks; the archs, archs_b and calibration_b phases' checks; Wanda's and
 AWQ's seconds for ``wanda_awq_w4a8``; the optimize mode's losses, seconds a
-step and orthogonality for ``spinquant_opt_gptq``; the evalx phase's
-numbers) come on the three lines before the last; the last is ``{"ok": true, "device": {...}}``.
+step and orthogonality for ``spinquant_opt_gptq``; the evalx and
+tensor_parallel phases' numbers) come on the three lines before the last; the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -870,18 +888,27 @@ def kernel_cases(gen):
             check_w4a8(gen, "phi-2 decode qkv", "stacked", 128, 3 * pE, pE, 1),
             check_w4a8(gen, "phi-2 decode o", "stacked", 128, pE, pE, 1),
             check_w4a8(gen, "phi-2 decode fc1", "stacked", 128, pI, pE, 1),
-            check_w4a8(gen, "phi-2 decode fc2", "stacked", 128, pE, pI, 1)],
+            check_w4a8(gen, "phi-2 decode fc2", "stacked", 128, pE, pI, 1),
+            *[c for n in (2, 4) for c in (
+                check_w4a8(gen, f"tp n={n} decode qkv (column)", "stacked", 128, 3072 // n, E, 1),
+                check_w4a8(gen, f"tp n={n} decode o (row, {E // n // 128} groups)", "stacked", 128,
+                           E, E // n, 1),
+                check_w4a8(gen, f"tp n={n} decode down (row, {I // n // 128} groups)", "stacked",
+                           128, E, I // n, 1))]],
         "B2_w4a8_gateup_silu": lambda: [
             check_w4a8(gen, "decode gate|up", "gateup", 128, 2 * I, E, 1),
             check_w4a8(gen, "prefill gate|up 128x128 rows", "gateup", 128 * 128, 2 * I, E, 1),
             check_w4a8(gen, "gemma-2-2b decode gate|up gelu_tanh", "gateup", 128, 2 * gI, gE,
-                       1, act="gelu_tanh")],
+                       1, act="gelu_tanh"),
+            *[check_w4a8(gen, f"tp n={n} decode gate|up", "gateup", 128, 2 * I // n, E, 1)
+              for n in (2, 4)]],
         "B3_w4a8_flat": lambda: [
             check_w4a8(gen, "decode int8 head", "flat", 128, V, E, 0),
             check_w4a8(gen, "prefill qkv 128x128 rows", "flat", 128 * 128, 3072, E, 1),
             check_w4a8(gen, "prefill o 128x128 rows", "flat", 128 * 128, E, E, 1),
             check_w4a8(gen, "gemma-2-2b decode int8 head", "flat", 128, gV, gE, 0),
-            check_w4a8(gen, "phi-2 decode int8 head", "flat", 128, pV, pE, 0)],
+            check_w4a8(gen, "phi-2 decode int8 head", "flat", 128, pV, pE, 0),
+            check_w4a8(gen, "tp n=2 decode int8 head (vocab block)", "flat", 128, V // 2, E, 0)],
         "B4_decode_attention_append": lambda: [
             check_decode_attention(gen),
             check_decode_attention(gen, B=4, S=LONG_S, pos=LONG_S - 1),
@@ -889,7 +916,8 @@ def kernel_cases(gen):
             check_decode_attention(gen, KV=4, r=2, D=256, window=4096, softcap=50.0),
             check_decode_attention(gen, KV=1, r=8, D=256),
             check_decode_attention(gen, KV=32, r=1, D=80),
-            check_decode_attention(gen, KV=32, r=1, D=64, scale=1.0)],
+            check_decode_attention(gen, KV=32, r=1, D=64, scale=1.0),
+            *[check_decode_attention(gen, KV=8 // n) for n in (2, 4)]],
         "B5_dequant_matmul": lambda: [
             check_dequant_matmul(gen, "decode qkv int4-g128 zp", 128, 3072, E, dm.F_INT4_PAIRS, True),
             check_dequant_matmul(gen, "decode o int4-g128 zp", 128, E, E, dm.F_INT4_PAIRS, True),
@@ -1202,6 +1230,21 @@ def teacher_forced(model, serving, toks, steps: int, max_len: int, mode="append"
     return all_logits, cache
 
 
+def confident_agreement(ref, got, gap_tol: float):
+    """(tokens whose ``ref`` top-2 gap exceeds ``gap_tol``, how many of them
+    ``got`` gives the same argmax, max |logit diff|) over lists of (B, V)
+    logits; non-finite ``got`` logits fail."""
+    checked = agree = 0
+    for a, b in zip(ref, got):
+        if not bool(torch.isfinite(b).all()):
+            raise AssertionError("non-finite logits on the kernel path")
+        top2 = torch.topk(a, 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > gap_tol
+        checked += int(sure.sum())
+        agree += int((sure & (torch.argmax(a, -1) == torch.argmax(b, -1))).sum())
+    return checked, agree, max(float((a - b).abs().max()) for a, b in zip(ref, got))
+
+
 def check_reduced_depth(seed: int, serving, kernel_names, gap_tol: float = 0.1, build=None,
                         attention="append", model=None, shape=(16, 32, 8, 64)):
     """2 layers, full width: teacher-force the plain path's greedy tokens
@@ -1247,16 +1290,7 @@ def check_reduced_depth(seed: int, serving, kernel_names, gap_tol: float = 0.1, 
     used = {COUNTER_OF[k] for k in kernel_names}
     if any((v > 0) != (k in used) for k, v in counts.items()):
         raise AssertionError(f"the kernel run's launches {counts} are not those of {kernel_names}")
-    checked = agree = 0
-    for a, b in zip(ref, got):
-        if not bool(torch.isfinite(b).all()):
-            raise AssertionError("non-finite logits on the kernel path")
-        top2 = torch.topk(a, 2, dim=-1).values
-        sure = (top2[:, 0] - top2[:, 1]) > gap_tol
-        same = torch.argmax(a, -1) == torch.argmax(b, -1)
-        checked += int(sure.sum())
-        agree += int((same & sure).sum())
-    max_err = max(float((a - b).abs().max()) for a, b in zip(ref, got))
+    checked, agree, max_err = confident_agreement(ref, got, gap_tol)
     if agree != checked or checked == 0:
         raise AssertionError(f"reduced-depth check: {agree}/{checked} confident tokens agree")
     vs_b4 = None
@@ -2540,20 +2574,12 @@ def check_nvfp4_packed_vs_fake(seed: int):
     if counts["dequant_matmul"] != 1 + steps or sum(counts.values()) != 1 + steps:
         raise AssertionError(f"the packed model launched {counts}, not one B5 per head")
     rel = [float(torch.linalg.norm(a - b) / torch.linalg.norm(a)) for a, b in zip(ref, got)]
-    checked = agree = 0
-    for a, b in zip(ref, got):
-        if not bool(torch.isfinite(b).all()):
-            raise AssertionError("non-finite logits in the packed nvfp4 model")
-        top2 = torch.topk(a, 2, dim=-1).values
-        sure = (top2[:, 0] - top2[:, 1]) > NVFP4_GAP
-        checked += int(sure.sum())
-        agree += int((sure & (torch.argmax(a, -1) == torch.argmax(b, -1))).sum())
+    checked, agree, max_err = confident_agreement(ref, got, NVFP4_GAP)
     if agree != checked or checked == 0 or max(rel) > NVFP4_REL_L2:
         raise AssertionError(f"nvfp4 packed vs fake: {agree}/{checked} confident tokens agree, "
                              f"relative L2 by step {rel}")
     return {"confident_tokens_equal": agree, "tokens": (steps + 1) * B,
-            "rel_l2_by_step": rel,
-            "max_abs_diff": max(float((a - b).abs().max()) for a, b in zip(ref, got))}
+            "rel_l2_by_step": rel, "max_abs_diff": max_err}
 
 
 def phase_formats(seed: int):
@@ -3613,6 +3639,354 @@ def report_evalx(ev, smi: str) -> None:
         f"{r['clipscore_rel']:.3g}, rewards {r['reward_rel']:.3g} (at most {TOWER_TOL}) on {smi}")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+# part 1 (2 layers, full width, W4A8): slots, prompt, teacher-forced decode
+# steps, cache rows; part 2 (full depth, n_model = 2): the same, eager decode
+TP_SHAPE = (32, 32, 4, 64)
+TP_FULL_SHAPE = (32, 64, 16, 96)
+# part 3 (2 layers, W4A8 in float32): slots, max_len, chunk, requests, prompt
+# tokens (low, high), new tokens each
+TP_BATCHER = (4, 128, 32, 8, (8, 80), 8)
+
+
+def tp_per_step(n: int, layers: int, vocab: int) -> dict:
+    """Launches of one TP decode step on each rank: qkv, o and down through
+    B1, gate|up through B2 and B4 in every layer; the vocab-sharded int8 head
+    through B3 where its block of V / n rows is a multiple of 128 (B3's
+    predicate, as JAX :701-702), else the dense route."""
+    head = int((vocab // n) % 128 == 0)
+    return {"w4a8_stacked": 3 * layers, "w4a8_gateup": layers, "w4a8_flat": head,
+            "decode_attention_append": layers}
+
+
+def _tree_copy(node):
+    """New dicts and lists over the same tensors (``fuse_model`` edits its
+    dicts in place)."""
+    if isinstance(node, dict):
+        return {k: _tree_copy(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_tree_copy(v) for v in node]
+    return node
+
+
+def tp_models(layers: int, seed: int, n: int, dtype: str = "bfloat16", single: bool = True):
+    """The flagship at ``layers`` layers, RTN'd W4A8 from ``seed`` on this
+    rank's card: (cfg, qcfg, single-device serving params or None, the
+    params fused with ``shards=n`` and stacked, unsharded)."""
+    from dataclasses import replace
+
+    from llm_compressor_tpu_torch.algorithms import pack_model, rtn
+    from llm_compressor_tpu_torch.models import fuse_model, init_params, stack_model
+    from llm_compressor_tpu_torch.qformats import build_quant_config
+
+    cfg = replace(flagship_cfg(layers), dtype=dtype)
+    qcfg = build_quant_config(*W4A8[0], head_act=W4A8[1])
+    params = init_params(cfg, seed=seed)
+    rtn(params, cfg, qcfg)
+    pack_model(params, cfg, qcfg)
+    one = stack_model(fuse_model(_tree_copy(params), cfg, qcfg)) if single else None
+    return cfg, qcfg, one, stack_model(fuse_model(params, cfg, qcfg, shards=n))
+
+
+def _tp_run(fns, params, cache, toks, feed):
+    """Prefill ``toks``, then a decode step on each token of ``feed``
+    through (prefill_fn, decode_fn) -> (the logits of each call, the
+    launches of each decode step)."""
+    from llm_compressor_tpu_torch import kernels
+
+    prefill_fn, decode_fn = fns
+    logits, cache = prefill_fn(params, toks, cache)
+    out, per_step = [logits], []
+    for tok in feed:
+        kernels.reset_counts()
+        logits, cache = decode_fn(params, tok, cache)
+        torch.cuda.synchronize()
+        per_step.append(kernels.launch_counts())
+        out.append(logits)
+    return out, per_step
+
+
+def _tp_checks(rank: int, n: int, seed: int, mesh) -> dict:
+    """Part 1: 2 layers, full width, W4A8 over ``mesh``: the single-device
+    plain path (the reference, teacher-forcing its greedy tokens), then the
+    TP kernel path and the TP plain path on the same tokens."""
+    from llm_compressor_tpu_torch import kernels, parallel
+    from llm_compressor_tpu_torch.engine import decode_step, init_cache, prefill
+
+    B, T, steps, max_len = TP_SHAPE
+    cfg, qcfg, one, fused = tp_models(2, seed, n)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 18)
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    with plain_kernels():
+        cache = init_cache(cfg.num_layers, B, max_len, cfg.num_kv_heads, cfg.head_dim,
+                           quantized=True)
+        ref = [prefill(one, toks, cache, cfg=cfg, qcfg=qcfg)[0]]
+        feed = []
+        for _ in range(steps):
+            feed.append(torch.argmax(ref[-1], -1).to(torch.int32)[:, None])
+            ref.append(decode_step(one, feed[-1], cache, cfg=cfg, qcfg=qcfg, graph=False)[0])
+    del one, cache
+    sp = parallel.tp_shard_params(fused, cfg, mesh, fused=True)
+    del fused
+    fns = parallel.tp_serve_fns(sp, cfg, mesh, qcfg=qcfg, fused=True)
+    new_cache = lambda: parallel.tp_init_cache(cfg, mesh, B, max_len, quantized=True)
+    kernels.reset_counts()
+    with plain_kernels():
+        plain, _ = _tp_run(fns, sp, new_cache(), toks, feed)
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"rank {rank}: the TP plain run launched {kernels.launch_counts()}")
+    got, per_step = _tp_run(fns, sp, new_cache(), toks, feed)
+    want = {k: v for k, v in tp_per_step(n, 2, cfg.vocab_size).items() if v}
+    for counts in per_step:
+        if {k: v for k, v in counts.items() if v} != want:
+            raise AssertionError(f"rank {rank}: a TP decode step launched {counts}, not {want}")
+    vs_single = confident_agreement(ref, got, 0.1)
+    vs_plain = confident_agreement(plain, got, 0.1)
+    for name, (checked, agree, _) in (("single-device", vs_single), ("TP plain", vs_plain)):
+        if agree != checked or checked == 0:
+            raise AssertionError(f"rank {rank}, n_model {n}: {agree}/{checked} confident tokens "
+                                 f"agree with the {name} path")
+    return {"vs_single": vs_single, "vs_plain": vs_plain, "tokens": (steps + 1) * B,
+            "per_step": {k: v for k, v in per_step[0].items() if v},
+            "argmax": [torch.argmax(g, -1).cpu().numpy() for g in got],
+            "checksum": float(sum(g.double().abs().sum() for g in got))}
+
+
+def _timed_decode_loop(prefill_fn, decode_fn, params, cache, toks, steps: int):
+    """Prefill, then ``steps`` greedy decode steps, both ranks started
+    together -> (prefill s, decode s, the last logits); the launch counts
+    are set to 0 after the prefill."""
+    import torch.distributed as dist
+
+    from llm_compressor_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    logits, cache = prefill_fn(params, toks, cache)
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    kernels.reset_counts()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = decode_fn(params, tok, cache)
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    return ttft, time.perf_counter() - t0, logits
+
+
+def _collective_ms(mesh, B: int, E: int, V: int) -> dict:
+    """Host ms of one of each collective a TP decode step runs on this
+    model group (median of 20, each ended by ``synchronize``): the sum of
+    a (B, E) bf16 partial, the max of a (B, 1) f32 absmax, the gather of
+    (B, V / n) f32 logits."""
+    import torch.distributed as dist
+
+    from llm_compressor_tpu_torch import parallel
+
+    group, n = mesh.get_group("model"), parallel.mesh.axis_size(mesh, "model")
+    part = torch.ones((B, E), dtype=torch.bfloat16, device="cuda")
+    amax = torch.ones((B, 1), device="cuda")
+    block = torch.ones((B, V // n), device="cuda")
+    parts = [torch.empty_like(block) for _ in range(n)]
+    ops = {"all_reduce_sum_bf16": lambda: dist.all_reduce(part, group=group),
+           "all_reduce_max_f32": lambda: dist.all_reduce(amax, op=dist.ReduceOp.MAX,
+                                                         group=group),
+           "all_gather_logits_f32": lambda: dist.all_gather(parts, block, group=group)}
+    out = {}
+    for name, op in ops.items():
+        times = []
+        for _ in range(22):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            op()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = sorted(times[2:])[10]
+    return out
+
+
+def _tp_full_depth(rank: int, seed: int, mesh) -> dict:
+    """Part 2: full depth, n_model = 2: prefill, then eager decode steps;
+    TTFT, tok/s and peak memory on this rank. Then the same steps of the
+    unsharded model on one process, each rank at once on the same card (the
+    eager single-device step under the same sharing), and the host time of
+    each kind of collective a step runs."""
+    from llm_compressor_tpu_torch import kernels, parallel
+    from llm_compressor_tpu_torch.engine import decode_step, init_cache, prefill
+
+    B, T, steps, max_len = TP_FULL_SHAPE
+    n = parallel.mesh.axis_size(mesh, "model")
+    cfg, qcfg, one, fused = tp_models(LAYERS, seed, n)
+    sp = parallel.tp_shard_params(fused, cfg, mesh, fused=True)
+    del fused
+    torch.cuda.empty_cache()
+    prefill_fn, decode_fn = parallel.tp_serve_fns(sp, cfg, mesh, qcfg=qcfg, fused=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    single = _timed_decode_loop(
+        lambda p, t, c: prefill(p, t, c, cfg=cfg, qcfg=qcfg),
+        lambda p, t, c: decode_step(p, t, c, cfg=cfg, qcfg=qcfg, graph=False), one,
+        init_cache(cfg.num_layers, B, max_len, cfg.num_kv_heads, cfg.head_dim, quantized=True),
+        toks, steps)
+    del one
+    torch.cuda.empty_cache()
+    cache = parallel.tp_init_cache(cfg, mesh, B, max_len, quantized=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ttft, dec, logits = _timed_decode_loop(prefill_fn, decode_fn, sp, cache, toks, steps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = kernels.launch_counts()
+    per_step = {k: v / steps for k, v in counts.items() if v}
+    want = {k: v for k, v in tp_per_step(n, LAYERS, cfg.vocab_size).items() if v}
+    if per_step != want:
+        raise AssertionError(f"rank {rank}: TP decode launched {per_step} a step, not {want}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite logits at full depth")
+    return {"ttft_ms": ttft * 1e3, "decode_ms_per_step": dec / steps * 1e3,
+            "decode_tok_s": B * steps / dec, "peak_gib": peak, "per_step": per_step,
+            "single_ttft_ms": single[0] * 1e3, "single_decode_ms_per_step": single[1] / steps * 1e3,
+            "collective_ms": _collective_ms(mesh, B, cfg.hidden_size, cfg.vocab_size)}
+
+
+def _tp_batcher(rank: int, seed: int, mesh) -> dict:
+    """Part 3: the TP continuous batcher against the single-device eager
+    batcher on the same requests, 2 layers of W4A8 in float32 (TP sums its
+    partials in another order, so a greedy tie under bf16 roundings could
+    break otherwise: float32 keeps that far below every top-2 gap)."""
+    import numpy as np
+
+    from llm_compressor_tpu_torch import kernels, parallel
+    from llm_compressor_tpu_torch.engine import ContinuousBatcher
+
+    slots, max_len, chunk, n_req, (lo, hi), new = TP_BATCHER
+    n = parallel.mesh.axis_size(mesh, "model")
+    cfg, qcfg, one, fused = tp_models(2, seed, n, dtype="float32")
+    rng = np.random.default_rng(seed + 20)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(t),)).astype(np.int32)
+               for t in rng.integers(lo, hi, n_req)]
+
+    def run(params, **kw):
+        eng = ContinuousBatcher(params, cfg, batch_slots=slots, max_len=max_len, qcfg=qcfg,
+                                quantized_kv=True, prefill_chunk=chunk, **kw)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=new)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, eng.decode_steps
+
+    single, single_s, _ = run(one, graph=False)
+    del one
+    sp = parallel.tp_shard_params(fused, cfg, mesh, fused=True)
+    kernels.reset_counts()
+    tp, tp_s, tp_steps = run(sp, tp_mesh=mesh, tp_fused=True)
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    same = set(tp) == set(single) and all(np.array_equal(tp[u], single[u]) for u in single)
+    if not same:
+        raise AssertionError(f"rank {rank}: the TP batcher's ids differ from the single-device "
+                             f"eager batcher's")
+    return {"ids": {int(u): v.tolist() for u, v in tp.items()}, "requests": n_req,
+            "tokens": int(sum(len(v) for v in tp.values())), "tp_s": tp_s,
+            "single_s": single_s, "decode_steps": tp_steps, "counts": counts}
+
+
+def tp_rank(rank: int, world: int, seed: int, full: bool) -> dict:
+    """One rank of the tensor_parallel phase: part 1 at n_model = world;
+    with ``full`` parts 2 and 3 as well."""
+    import torch.distributed as dist
+
+    from llm_compressor_tpu_torch import parallel
+
+    mesh = parallel.make_mesh(n_data=1)
+    out = {"backend": dist.get_backend(), "device": str(torch.cuda.current_device()),
+           "checks": _tp_checks(rank, world, seed, mesh)}
+    torch.cuda.empty_cache()
+    if full:
+        out["full_depth"] = _tp_full_depth(rank, seed, mesh)
+        torch.cuda.empty_cache()
+        out["batcher"] = _tp_batcher(rank, seed, mesh)
+    return out
+
+
+def phase_tensor_parallel(seed: int) -> dict:
+    """Phase 15: W4A8 Llama-3.2-1B served by n_model ranks, one process
+    each (``parallel/launch.py``): over NCCL with a card a rank where the
+    machine has enough cards, else every rank on card 0 over gloo."""
+    import tempfile
+
+    import numpy as np
+
+    from llm_compressor_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    out = {}
+    for n in (2, 4):
+        backend = launch.pick_backend(n)
+        devices = [f"cuda:{r}" for r in range(n)] if backend == "nccl" else ["cuda:0"] * n
+        with tempfile.TemporaryDirectory() as store:
+            res = launch.run(tp_rank, n, store, (seed, n == 2), backend=backend,
+                             devices=devices, timeout=900)
+        for r in res[1:]:   # every rank gathers the same logits and ids
+            same = (all(np.array_equal(a, b) for a, b in zip(r["checks"]["argmax"],
+                                                              res[0]["checks"]["argmax"]))
+                    and r["checks"]["checksum"] == res[0]["checks"]["checksum"]
+                    and r.get("batcher", {}).get("ids") == res[0].get("batcher", {}).get("ids"))
+            if not same:
+                raise AssertionError(f"n_model {n}: the ranks' results differ")
+        for r in res:
+            del r["checks"]["argmax"]
+            r.get("batcher", {}).pop("ids", None)
+        out[f"n{n}"] = {"backend": backend, "placement": devices, "ranks": res}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def report_tensor_parallel(tp: dict, smi: str) -> None:
+    """Log phase 15."""
+    B, T, steps, _ = TP_SHAPE
+    for key, r in tp.items():
+        if key == "seconds":
+            continue
+        shared = len(set(r["placement"])) < len(r["placement"])
+        for rank, rr in enumerate(r["ranks"]):
+            c = rr["checks"]
+            log(f"tensor_parallel n_model {key[1:]}, {r['backend']}, rank {rank} on "
+                f"{r['placement'][rank]}: 2 layers, full width, W4A8, {B} x {T} prompts + "
+                f"{steps} teacher-forced steps: vs the single-device plain path "
+                f"{c['vs_single'][1]}/{c['vs_single'][0]} confident tokens equal (top-2 gap > "
+                f"0.1, max |logit diff| {c['vs_single'][2]:.4g}); vs its own TP plain path "
+                f"{c['vs_plain'][1]}/{c['vs_plain'][0]} (max {c['vs_plain'][2]:.4g}); launches a "
+                f"decode step {c['per_step']}")
+            if "full_depth" in rr:
+                f = rr["full_depth"]
+                Bf, Tf, sf, _ = TP_FULL_SHAPE
+                log(f"tensor_parallel full depth, rank {rank}: {LAYERS} layers, batch {Bf}, "
+                    f"prompt {Tf}, {sf} eager decode steps: TTFT {f['ttft_ms']:.2f} ms, decode "
+                    f"{f['decode_ms_per_step']:.2f} ms a step = {f['decode_tok_s']:.1f} tok/s, "
+                    f"peak {f['peak_gib']:.2f} GiB on {smi}; launches a step {f['per_step']}"
+                    + ("; the ranks share one card, so these numbers measure the collectives' "
+                       "cost, not a TP speed-up" if shared else "")
+                    + f"; the unsharded model's eager step on one process, each rank at once: "
+                    f"TTFT {f['single_ttft_ms']:.2f} ms, {f['single_decode_ms_per_step']:.2f} ms "
+                    f"a step; host ms of one collective {json.dumps(f['collective_ms'])}")
+                b = rr["batcher"]
+                log(f"tensor_parallel batcher, rank {rank}: 2 layers, W4A8 in float32, "
+                    f"{b['requests']} requests, {b['tokens']} greedy tokens: ids bitwise equal "
+                    f"to the single-device eager batcher's; {b['tp_s']:.2f} s TP against "
+                    f"{b['single_s']:.2f} s single-device; {b['decode_steps']} decode steps; "
+                    f"launches {b['counts']}")
+    log(f"tensor_parallel: {tp['seconds']:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3895,6 +4269,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     report_evalx(ev, smi)
 
+    tp = phase_tensor_parallel(args.seed)
+    report_tensor_parallel(tp, smi)
+
     metrics = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = lambda c: {k: c[k] for k in EXTRA_METRICS if k in c}
     runs = slices | {"actq_entry": actq}
@@ -3918,7 +4295,8 @@ def main() -> int:
                       "archs_checks": {"window": ar["window"], "families": ar["families"]},
                       "archs_b_checks": {"families": ab["families"]},
                       "calibration_b_checks": cb["checks"],
-                      "spinquant_optimize_2_layers": so["two_layers"], "evalx_checks": ev}),
+                      "spinquant_optimize_2_layers": so["two_layers"], "evalx_checks": ev,
+                      "tensor_parallel": tp}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": count}}),
           flush=True)

@@ -17,10 +17,19 @@ shared cache (``engine/graph.py``) with the tokens and the active mask as
 its static inputs. Sampling runs on the host from a ``torch.Generator``
 seeded from ``seed``, outside the graph, as the JAX batcher samples on the
 host.
+
+With ``tp_mesh`` the two programs run tensor-parallel over the mesh's
+model group (``parallel.tp.tp_batch_fns``; JAX :95-140): each rank of the
+group runs a batcher over its shard of the params, its caches hold its KV
+heads, the slots are replicated, and every rank samples the same token
+from the gathered logits with the same seeded generator. Its decode runs
+eagerly: a CUDA graph's capture cannot hold a gloo collective (ROADMAP.md
+queue A item 11b).
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -96,15 +105,35 @@ class ContinuousBatcher:
         results = eng.run()          # {uid: np.ndarray of generated ids}
 
     ``graph`` as ``generate.use_graph`` says: by default the decode step
-    is one CUDA graph on the card, and eager on the CPU."""
+    is one CUDA graph on the card, and eager on the CPU.
+
+    ``tp_mesh``: run both programs tensor-parallel over the mesh's model
+    group; ``params`` is then this rank's shard (``parallel.tp_shard_params``,
+    with ``tp_fused`` for ``fuse_model(shards=n)`` params), and every rank
+    of the group runs the same batcher on the same requests. A CUDA graph
+    is refused there (``graph=True`` raises ``NotImplementedError``)."""
 
     def __init__(self, params, cfg: ModelConfig, batch_slots: int = 8,
                  max_len: int = 1024, qcfg: Optional[QuantConfig] = None,
                  quantized_kv: bool = False, seed: int = 0,
-                 prefill_chunk: int = 128, tp_mesh=None, graph: Optional[bool] = None):
-        if tp_mesh is not None:
-            raise NotImplementedError("tensor-parallel serving is not ported yet: ROADMAP.md "
-                                      "queue A item 11 (parallel/)")
+                 prefill_chunk: int = 128, tp_mesh=None, tp_fused: bool = False,
+                 graph: Optional[bool] = None):
+        self._kv_heads = cfg.num_kv_heads
+        if tp_mesh is None:
+            self._chunk_fn = functools.partial(_prefill_chunk, cfg=cfg, qcfg=qcfg)
+            self._decode_fn = functools.partial(_decode_all, cfg=cfg, qcfg=qcfg)
+        else:
+            if graph:
+                raise NotImplementedError(
+                    "tensor-parallel decode runs eagerly: its CUDA graph over NCCL is "
+                    "ROADMAP.md queue A item 11b")
+            from ..parallel.mesh import axis_size
+            from ..parallel.tp import tp_batch_fns
+
+            graph = False
+            self._kv_heads //= axis_size(tp_mesh, "model")
+            self._chunk_fn, self._decode_fn = tp_batch_fns(params, cfg, tp_mesh, qcfg=qcfg,
+                                                           fused=tp_fused)
         self.params = params
         self.cfg = cfg
         self.qcfg = qcfg
@@ -125,19 +154,18 @@ class ContinuousBatcher:
         self._uid = 0
 
     def _new_cache(self, batch: int, max_len: int) -> KVCache:
-        return init_cache(self.cfg.num_layers, batch, max_len, self.cfg.num_kv_heads,
+        return init_cache(self.cfg.num_layers, batch, max_len, self._kv_heads,
                           self.cfg.head_dim, quantized=self.quantized_kv, device=self.device)
 
     def _chunk(self, tokens: np.ndarray, mini: KVCache, start: int, last_idx: int):
-        return _prefill_chunk(self.params, torch.from_numpy(tokens).to(self.device), mini,
-                              start, last_idx, cfg=self.cfg, qcfg=self.qcfg)
+        return self._chunk_fn(self.params, torch.from_numpy(tokens).to(self.device), mini,
+                              start, last_idx)
 
     def _decode(self, active: List[bool]) -> torch.Tensor:
         """One decode step over the shared cache -> logits (B, V)."""
         tokens = torch.from_numpy(self.next_token).to(self.device)
         act = torch.tensor(active, dtype=torch.bool).to(self.device)
-        step = lambda tok, a: _decode_all(self.params, tok, self.cache, a, cfg=self.cfg,
-                                          qcfg=self.qcfg)
+        step = lambda tok, a: self._decode_fn(self.params, tok, self.cache, a)
         if not self.graph:
             with torch.inference_mode():
                 return step(tokens, act)

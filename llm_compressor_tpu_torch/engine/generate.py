@@ -206,7 +206,7 @@ def _cached_attention(lp, cfg: ModelConfig, layer: int, x, cache: KVCache,
 def _o_proj(lp, out, ops: Optional[LayerOps]):
     """The attention's output projection, with its bias where it has one."""
     o = lp["attn"]["o"]
-    return qlinear(out, o["weight"], o.get("bias"), ops.get("o") if ops else None)
+    return qlinear(out, o["weight"], o.get("bias"), ops.get("o") if ops else None, slot="o")
 
 
 def _forward_cached(params, cfg: ModelConfig, tokens, cache: KVCache, qcfg,

@@ -2,8 +2,10 @@
 ``engine/kvcache.py``).
 
 Layout: (L, B, KV, S, D), one key row D contiguous values. The int8 cache
-keeps codes plus one f32 scale per (token, head), (L, B, KV, S); the bf16
-cache keeps the values and no scales. The JAX package
+keeps codes plus one f32 scale per (token, head), (L, B, KV, S); the float
+cache (bf16 unless asked otherwise) keeps the values and no scales. Under
+tensor parallelism each rank's cache holds its own ``num_kv_heads /
+n_model`` heads along axis 2 (``parallel/tp.py``). The JAX package
 keeps the sequence on the TPU's lane axis, (L, B, KV, D, S) with
 (L, B, KV, 1, S) scales; :func:`to_jax_layout` / :func:`from_jax_layout`
 convert for the tests. Decode writes new tokens in place at each slot's
@@ -62,7 +64,11 @@ class KVCache:
 
 
 def init_cache(n_layers: int, batch: int, max_len: int, n_kv: int, head_dim: int,
-               quantized: bool = False, device=None) -> KVCache:
+               quantized: bool = False, device=None, dtype=torch.bfloat16) -> KVCache:
+    """A zeroed cache on ``device``: int8 codes and f32 scales with
+    ``quantized``, else values in ``dtype`` (bf16, the JAX package's
+    default; the tensor-parallel tests hold float32 configs with float32
+    caches, as JAX's do)."""
     dev = resolve_device(device)
     shape = (n_layers, batch, n_kv, max_len, head_dim)
     lengths = torch.zeros((batch,), dtype=torch.int32, device=dev)
@@ -74,8 +80,8 @@ def init_cache(n_layers: int, batch: int, max_len: int, n_kv: int, head_dim: int
             v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
             lengths=lengths,
         )
-    return KVCache(k=torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-                   v=torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                   v=torch.zeros(shape, dtype=dtype, device=dev),
                    k_scale=None, v_scale=None, lengths=lengths)
 
 

@@ -40,6 +40,7 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..qformats.formats import ElemFormat
@@ -52,11 +53,16 @@ _ACTS = {"silu": 1, "swish": 1, "gelu": 2, "gelu_python": 2,
          "gelu_new": 3, "gelu_pytorch_tanh": 3, "gelu_tanh": 3}
 
 
-def quantize_acts_per_token(x: torch.Tensor):
+def quantize_acts_per_token(x: torch.Tensor, absmax_group=None):
     """Per-token symmetric int8 (int8-g[-1]-rw): codes (M, C) int8 and the
-    (M, 1) f32 scale."""
+    (M, 1) f32 scale. ``absmax_group``: the tensor-parallel model group
+    whose ranks hold the row's shards; the absmax is then the row's whole,
+    an ``all_reduce(MAX)`` over it (JAX :663-672, its ``pmax``), so that
+    the scale is the one of a single device."""
     x32 = x.float()
     absmax = torch.amax(torch.abs(x32), dim=-1, keepdim=True)
+    if absmax_group is not None:
+        dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=absmax_group)
     # The JAX package runs this under ``jit``, where XLA turns the division
     # by 127 into a multiplication by its f32 reciprocal (PyTorch does the
     # same on CUDA, but divides on the CPU); the port writes the
@@ -395,20 +401,23 @@ matmul_actq.last_grid = None
 
 
 def w4a8_matmul(x: torch.Tensor, qt: QTensor, bias=None,
-                layer: Optional[int] = None, act_inside: bool = False) -> torch.Tensor:
+                layer: Optional[int] = None, act_inside: bool = False,
+                absmax_group=None) -> torch.Tensor:
     """y = act_q(x) @ W^T with per-token int8 acts. ``layer`` selects one
     layer of a stacked QTensor (B1); without it the weights are flat (B3),
     or, with ``act_inside``, the act quantizer runs inside the kernel (B9,
-    flat weights only)."""
+    flat weights only). ``absmax_group`` (a row-parallel shard of the
+    contraction dim) takes the act scale over the group's whole row, on the
+    host side of the kernel: B9 is never taken then (JAX :757)."""
     N, C, g = weight_dims(qt)
     lead = x.shape[:-1]
-    if act_inside:
+    if act_inside and absmax_group is None:
         if layer is not None:
             raise ValueError("act_inside applies to flat weights, not to a stacked layer")
         out = matmul_actq(x.reshape(-1, C).contiguous(), qt.codes, qt.scales, _wfmt(qt),
                           x.dtype)
     else:
-        x_i8, sx = quantize_acts_per_token(x.reshape(-1, C))
+        x_i8, sx = quantize_acts_per_token(x.reshape(-1, C), absmax_group)
         if layer is not None:
             out = matmul_stacked(x_i8, qt.codes, qt.scales, sx, layer, _wfmt(qt), x.dtype)
         else:

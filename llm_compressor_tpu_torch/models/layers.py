@@ -17,15 +17,26 @@ as plain tensors, packed :class:`~..qformats.QTensor` or a
   dequantize-in-kernel matmul (B5; weight-only serving).
 The thresholds were measured on a TPU; re-tuning them for the H100 is
 later work (ROADMAP.md).
+
+Tensor parallelism (``parallel/tp.py``): inside :func:`tp_trace` a
+row-parallel slot (``o``, ``down``, ``fc2``: its contraction dim sharded
+over the model group) takes a per-token act scale from the absmax over the
+whole row (an ``all_reduce(MAX)``), multiplies without its bias, rounds
+its partial to the input's dtype, sums the partials with one
+``all_reduce(SUM)`` in that dtype and adds the bias after, as the JAX
+package's ``psum`` does; :func:`alibi_bias` takes the slopes of the global
+heads.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..kernels import dequant_matmul as dm
@@ -140,15 +151,67 @@ def alibi_slopes(n_heads: int, device) -> torch.Tensor:
 
 
 def alibi_bias(n_heads: int, kv_positions: torch.Tensor) -> torch.Tensor:
-    """(H, 1, S) f32 additive bias: slope_h * kv_position (JAX :149-161)."""
-    slopes = alibi_slopes(n_heads, kv_positions.device)
+    """(H, 1, S) f32 additive bias: slope_h * kv_position (JAX :149-161).
+    Inside :func:`tp_trace` ``n_heads`` is the local head count and the
+    slopes are those of the global heads: the table of ``n_heads * size``
+    heads, sliced at ``rank * n_heads``."""
+    if _TP["group"] is not None and _TP["size"] > 1:
+        slopes = alibi_slopes(n_heads * _TP["size"], kv_positions.device)
+        slopes = slopes[_TP["rank"] * n_heads:(_TP["rank"] + 1) * n_heads]
+    else:
+        slopes = alibi_slopes(n_heads, kv_positions.device)
     return slopes[:, None, None] * kv_positions[None, None, :].float()
+
+
+# The tensor-parallel context (JAX :174-190): the model group while
+# ``parallel/tp.py`` runs a rank's shard, its size and this rank's index in
+# it. Row-parallel slots have their contraction dim sharded.
+_TP = {"group": None, "size": 1, "rank": 0}
+_TP_ROW_SLOTS = frozenset(("o", "down", "fc2"))
+
+
+@contextlib.contextmanager
+def tp_trace(group, size: int = 1):
+    """Run the model code inside as one rank of a tensor-parallel model
+    group of ``size`` ranks: row-parallel :func:`qlinear` slots reduce over
+    ``group``, ALiBi takes the global heads' slopes."""
+    prev = dict(_TP)
+    _TP.update(group=group, size=size, rank=dist.get_rank(group) if group is not None else 0)
+    try:
+        yield
+    finally:
+        _TP.update(prev)
 
 
 def maybe_quant(q: Optional[Quantizer], x):
     if q is None or q.qtype == "dummy":
         return x
     return quantize_dequant(q, x)
+
+
+def _quant_global_per_token(q: Quantizer, x, group):
+    """Per-token fake quantization with the absmax of the whole (sharded)
+    row, an ``all_reduce(MAX)`` over ``group`` (JAX :312-325, its ``pmax``).
+    Only symmetric int per-token quantizers (the serving act config) take
+    the global absmax; others quantize their local row. The division by
+    ``qmax`` is the product with its reciprocal, as XLA rounds it under
+    ``jit``."""
+    if not (q.qtype == "int" and q.group_size == -1 and not q.zero_point):
+        return quantize_dequant(q, x)
+    qmax = float(q.params.int_max)
+    x32 = x.float()
+    absmax = torch.amax(torch.abs(x32), dim=-1, keepdim=True)
+    dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.clamp_min(absmax * (1.0 / qmax), 1e-9)
+    return (torch.clamp(torch.round(x32 / scale), -qmax, qmax) * scale).to(x.dtype)
+
+
+def _quant_in(ai: Optional[Quantizer], x, group):
+    """The act quantizer of a linear's input: global per-token under
+    tensor parallelism (``group`` set), else as configured."""
+    if group is not None and ai is not None and ai.qtype != "dummy":
+        return _quant_global_per_token(ai, x, group)
+    return maybe_quant(ai, x)
 
 
 class LayerSlice:
@@ -178,10 +241,15 @@ def _groups(qt: QTensor) -> int:
     return C // g
 
 
-def qlinear(x, weight, bias=None, op: Optional[OpQuantConfig] = None):
-    """y = act_out_q( act_in_q(x) @ W^T + b ), routed as the module doc says."""
+def qlinear(x, weight, bias=None, op: Optional[OpQuantConfig] = None,
+            slot: Optional[str] = None):
+    """y = act_out_q( act_in_q(x) @ W^T + b ), routed as the module doc says.
+    ``slot`` names the projection; inside :func:`tp_trace` a row-parallel
+    slot sums its partial products over the model group (JAX :244-345)."""
     ai = op.act_in if op is not None else None
     m_rows = math.prod(x.shape[:-1])
+    group = _TP["group"] if slot in _TP_ROW_SLOTS else None
+    mm_bias = None if group is not None else bias
     layer = None
     if isinstance(weight, LayerSlice):
         if int8_per_token(ai) and m_rows <= 256 and wm.supported(weight.qt):
@@ -191,25 +259,31 @@ def qlinear(x, weight, bias=None, op: Optional[OpQuantConfig] = None):
 
     if isinstance(weight, QTensor):
         if layer is not None:
-            y = wm.w4a8_matmul(x, weight, bias, layer=layer)
+            y = wm.w4a8_matmul(x, weight, mm_bias, layer=layer, absmax_group=group)
         elif int8_per_token(ai) and wm.supported(weight) and (
                 m_rows <= 256 or _groups(weight) <= 16):
-            y = wm.w4a8_matmul(x, weight, bias)
+            y = wm.w4a8_matmul(x, weight, mm_bias, absmax_group=group)
         else:
-            x = maybe_quant(ai, x)
+            x = _quant_in(ai, x, group)
             if m_rows > 256:
                 # prefill: one dequantization feeds a plain matmul (float32
                 # accumulation in both backends), as the JAX package leaves
                 # it to XLA
                 w = dequantize(weight).to(x.dtype)
                 y = torch.matmul(x, w.t())
-                if bias is not None:
-                    y = y + bias.to(y.dtype)
+                if mm_bias is not None:
+                    y = y + mm_bias.to(y.dtype)
             else:
-                y = dm.dequant_matmul(x, weight, bias)
+                y = dm.dequant_matmul(x, weight, mm_bias)
     else:
-        x = maybe_quant(ai, x)
+        x = _quant_in(ai, x, group)
         y = torch.matmul(x, weight.t())
+        if mm_bias is not None:
+            y = y + mm_bias.to(y.dtype)
+    if group is not None:
+        # each partial in the input's dtype, summed in it, then the bias
+        y = y.to(x.dtype).contiguous()
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
         if bias is not None:
             y = y + bias.to(y.dtype)
     if op is not None:

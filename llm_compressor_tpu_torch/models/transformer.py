@@ -330,7 +330,7 @@ def attention(lp: Params, cfg: ModelConfig, x, cos, sin, mask,
     out = out.transpose(1, 2).reshape(B, T, H * D)
     _tap(taps, "o_in", out)
     o = lp["attn"]["o"]
-    return qlinear(out, o["weight"], o.get("bias"), _slot(ops, "o"))
+    return qlinear(out, o["weight"], o.get("bias"), _slot(ops, "o"), slot="o")
 
 
 def _try_fused_gateup(cfg: ModelConfig, mp: Params, x, gop: Optional[OpQuantConfig]):
@@ -359,7 +359,8 @@ def mlp(lp: Params, cfg: ModelConfig, x, ops: Optional[LayerOps] = None,
         h = activation(cfg.hidden_act, qlinear(x, mp["fc1"]["weight"], mp["fc1"].get("bias"),
                                                _slot(ops, "fc1")))
         _tap(taps, "down_in", h)
-        return qlinear(h, mp["fc2"]["weight"], mp["fc2"].get("bias"), _slot(ops, "fc2"))
+        return qlinear(h, mp["fc2"]["weight"], mp["fc2"].get("bias"), _slot(ops, "fc2"),
+                       slot="fc2")
     if "gateup" in mp:
         gop = _slot(ops, "gate")
         h = None if taps is not None else _try_fused_gateup(cfg, mp, x, gop)
@@ -372,7 +373,7 @@ def mlp(lp: Params, cfg: ModelConfig, x, ops: Optional[LayerOps] = None,
         u = qlinear(x, mp["up"]["weight"], None, _slot(ops, "up"))
         h = activation(cfg.hidden_act, gt) * u
     _tap(taps, "down_in", h)
-    return qlinear(h, mp["down"]["weight"], None, _slot(ops, "down"))
+    return qlinear(h, mp["down"]["weight"], None, _slot(ops, "down"), slot="down")
 
 
 def residual_block(lp: Params, cfg: ModelConfig, x, attend, ops: Optional[LayerOps] = None,
@@ -412,29 +413,41 @@ def decoder_layer(lp: Params, cfg: ModelConfig, x, cos, sin, mask,
 # ---------------------------------------------------------------------------
 
 
-def _concat_linear(entries) -> Params:
+def _shard_interleave(arrs, shards: int):
+    """[a0_s | a1_s | ...] for each shard s in turn, along dim 0: shard s
+    of the result (split in ``shards`` equal rows) is the concatenation of
+    every input's shard s, the tensor-parallel fused layout (JAX :537-550)."""
+    if shards == 1:
+        return torch.cat(arrs)
+    return torch.cat([a[s * (a.shape[0] // shards):(s + 1) * (a.shape[0] // shards)]
+                      for s in range(shards) for a in arrs])
+
+
+def _concat_linear(entries, shards: int = 1) -> Params:
     """Linear entries concatenated along N; biases too (zeros for an entry
-    without one), as JAX :586-592 does."""
+    without one), as JAX :553-592 does. ``shards`` > 1 interleaves them per
+    tensor-parallel shard (:func:`_shard_interleave`): such params run only
+    on a model group of that size."""
     ws = [e["weight"] for e in entries]
     if isinstance(ws[0], QTensor):
         q0 = ws[0]
         N = sum(w.shape[0] for w in ws)
         weight = replace(
             q0,
-            codes=torch.cat([w.codes for w in ws]),
-            scales=torch.cat([w.scales for w in ws]),
-            zeros=None if q0.zeros is None else torch.cat([w.zeros for w in ws]),
+            codes=_shard_interleave([w.codes for w in ws], shards),
+            scales=_shard_interleave([w.scales for w in ws], shards),
+            zeros=None if q0.zeros is None else _shard_interleave([w.zeros for w in ws], shards),
             shape=(N,) + tuple(q0.shape[1:]),
             blocked_shape=(N,) + tuple(q0.blocked_shape[1:]),
         )
     else:
-        weight = torch.cat(ws)
+        weight = _shard_interleave(ws, shards)
     out = {"weight": weight}
     biases = [e.get("bias") for e in entries]
     b0 = next((b for b in biases if b is not None), None)
     if b0 is not None:
-        out["bias"] = torch.cat([b0.new_zeros(w.shape[0]) if b is None else b
-                                 for b, w in zip(biases, ws)])
+        out["bias"] = _shard_interleave([b0.new_zeros(w.shape[0]) if b is None else b
+                                         for b, w in zip(biases, ws)], shards)
     return out
 
 
@@ -463,11 +476,18 @@ def _fusible(entries, ops: Optional[LayerOps], slots) -> bool:
 
 
 def fuse_model(params: Params, cfg: ModelConfig,
-               qcfg: Optional[QuantConfig] = None) -> Params:
+               qcfg: Optional[QuantConfig] = None, shards: int = 1) -> Params:
     """Concatenate q/k/v into ``qkv_cat`` and gate/up into ``gateup`` in
     every layer (in place), when every layer fuses; BLOOM's q|k|v is one
-    projection already and an fc1/fc2 MLP has no gate|up (JAX :631-660)."""
+    projection already and an fc1/fc2 MLP has no gate|up (JAX :626-668).
+    ``shards`` > 1 interleaves each concatenation per tensor-parallel shard,
+    so that each rank's row block of the fused weight is its own
+    [q_s | k_s | v_s] (``parallel/tp.py``, ``fused=True``); heads and the
+    FFN width must divide by it."""
     layers = params["layers"]
+    if shards > 1 and (cfg.num_heads % shards or cfg.num_kv_heads % shards
+                       or cfg.intermediate_size % shards):
+        raise ValueError(f"heads/ffn not divisible by shards={shards}")
     can_qkv = not cfg.fused_qkv and all(
         _fusible([lp["attn"][s] for s in ("q", "k", "v")], layer_ops(cfg, qcfg, i),
                  ("q", "k", "v")) for i, lp in enumerate(layers))
@@ -477,10 +497,10 @@ def fuse_model(params: Params, cfg: ModelConfig,
     for lp in layers:
         if can_qkv:
             ap = lp["attn"]
-            ap["qkv_cat"] = _concat_linear([ap.pop("q"), ap.pop("k"), ap.pop("v")])
+            ap["qkv_cat"] = _concat_linear([ap.pop("q"), ap.pop("k"), ap.pop("v")], shards)
         if can_gu:
             mp = lp["mlp"]
-            mp["gateup"] = _concat_linear([mp.pop("gate"), mp.pop("up")])
+            mp["gateup"] = _concat_linear([mp.pop("gate"), mp.pop("up")], shards)
     return params
 
 

@@ -225,9 +225,11 @@ def test_slot_at_max_len_decodes_on(model, quantized_kv, acts):
 
 
 def test_tensor_parallel_raises(model):
+    """A TP mesh serves eagerly (``tests/test_torch_tp.py``); a CUDA graph
+    with one raises, naming its ROADMAP item, before the mesh is read."""
     _, _, tcfg, tp = model
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ContinuousBatcher(tp, tcfg, tp_mesh=object())
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        ContinuousBatcher(tp, tcfg, tp_mesh=object(), graph=True)
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,8 @@ MODULES = [
     "llm_compressor_tpu_torch.evalx.profiler", "llm_compressor_tpu_torch.evalx.mpq",
     "llm_compressor_tpu_torch.evalx.lm_eval_bridge", "llm_compressor_tpu_torch.evalx.clip",
     "llm_compressor_tpu_torch.evalx.image_reward", "llm_compressor_tpu_torch.evalx.t2i_eval",
+    "llm_compressor_tpu_torch.parallel", "llm_compressor_tpu_torch.parallel.launch",
+    "llm_compressor_tpu_torch.parallel.multihost", "llm_compressor_tpu_torch.parallel.tp",
 ]
 FORBIDDEN = ("jax", "llm_compressor_tpu", "safetensors", "ml_dtypes", "transformers",
              "lm_eval", "triton", "PIL")

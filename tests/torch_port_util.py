@@ -19,6 +19,8 @@ from llm_compressor_tpu.models import layer_ops as j_layer_ops
 from llm_compressor_tpu.qformats.qtensor import QTensor as JQTensor
 from llm_compressor_tpu_torch.capture import pipeline as tpipe
 
+ARCHS = ("llama", "qwen2", "qwen3", "gemma", "gemma2", "gemma3", "opt", "bloom", "phi")
+
 
 def jax_qspec(q) -> str:
     """DSL string of a JAX Quantizer (``qformats.config.qspec_string``)."""
@@ -253,3 +255,31 @@ def variant_pair(name, seed=0, **kw):
     jcfg, tcfg = jm.tiny_config(arch, **over), tm.tiny_config(arch, **over)
     tree = randomize(jax_to_numpy(jm.init_params(jcfg, jax.random.PRNGKey(seed))), seed + 1)
     return jcfg, tcfg, jax.tree_util.tree_map(jnp.asarray, tree), params_from_numpy(tree, "cpu")
+
+
+def tree_copy(tree):
+    """A JAX params tree with new containers (the arrays shared), for the
+    JAX functions that edit their dicts in place (``fuse_model``)."""
+    return jax.tree_util.tree_map(lambda x: x, tree)
+
+
+def jax_spec_leaves(tree) -> dict:
+    """{path: spec tuple} of a JAX ``PartitionSpec`` tree, the path as dict
+    keys, list indices and QTensor field names."""
+    from jax.sharding import PartitionSpec
+
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, PartitionSpec))
+    key = lambda k: getattr(k, "key", getattr(k, "idx", getattr(k, "name", None)))
+    return {tuple(key(k) for k in path): tuple(spec) for path, spec in flat}
+
+
+def port_spec_leaves(tree, path=()) -> dict:
+    """{path: spec tuple} of a port spec tree (``parallel.mesh``)."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in port_spec_leaves(sub, path + (key,)).items()}
+    if isinstance(tree, list):
+        return {k: v for i, sub in enumerate(tree)
+                for k, v in port_spec_leaves(sub, path + (i,)).items()}
+    return {path: tree}
