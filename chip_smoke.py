@@ -216,7 +216,29 @@ Phases (each prints a line; any failure exits non-zero):
    4); the CLIP (ViT-B/32 widths) and ImageReward (``BlipConfig()``)
    towers from random weights, 4 inputs, the card's embeddings, 100 cos,
    CLIPScores and rewards within 1e-4 of the largest CPU value.
-15. tensor_parallel — W4A8 Llama-3.2-1B served by n_model ranks, one
+15. cli — the port's command-line pipeline on Llama-3.2-1B at full width
+   and depth (random weights from ``--seed``, written as an HF bf16
+   directory), a 32 KiB synthetic text corpus and a byte-level stand-in
+   for ``transformers.AutoTokenizer`` (the card's machine has none), in a
+   temporary working directory. Run A: ``cli.main.run_pipeline`` with
+   ``--quant-method spinquant-had``, W4A8 flags, 128 x 512 calibration
+   windows of the corpus, ``--tasks ppl --pack`` (counts set to 0 just
+   before: 17 B10 and no other kernel; a finite perplexity over 16
+   windows of 2048; ``results.json`` and ``run.log``; the params on the
+   card; seconds by stage: load, calibration, evaluation, pack; peak
+   memory), then the returned state fused, stacked and served as the
+   checkpoint phase serves (48 B1, 16 B2, 1 B3, 16 B4 a step, graph and
+   eager bitwise). Run B: ``examples.tinychat.prepare`` with RTN W4A8,
+   ``--pack --kv-quant --save-path`` (no kernel; the checkpoint's four
+   files), one ``generate_text`` of 16 tokens on the unfused params it
+   returns (ids equal to ``generate``'s; 7 x 16 + 1 B3 and 16 B4 a decode
+   step, the prompt's prefill apart), the checkpoint reloaded
+   (``load_hf_checkpoint`` for the config, ``load_compressed``,
+   ``pack_model``: every QTensor bitwise) and both served (tokens, cache
+   codes and scales bitwise). The phase must take under 150 s. The CLI
+   does not save Run A: SpinQuant's untied head would be saved under the
+   loaded, tied ``config.json``, as the JAX package does (ROADMAP C).
+16. tensor_parallel — W4A8 Llama-3.2-1B served by n_model ranks, one
    process each (``parallel/launch.py``), last: over NCCL with a card a
    rank where ``torch.cuda.device_count() >= n_model``, else every rank on
    card 0 over gloo (the backend and placement are printed). At 2 layers,
@@ -240,8 +262,8 @@ first-call and capture seconds, the eager loop's tok/s, peak memory; calibration
 for ``spinquant_gptq``, RTN seconds for the formats slices; the formats phase's 2-layer
 checks; the archs, archs_b and calibration_b phases' checks; Wanda's and
 AWQ's seconds for ``wanda_awq_w4a8``; the optimize mode's losses, seconds a
-step and orthogonality for ``spinquant_opt_gptq``; the evalx and
-tensor_parallel phases' numbers) come on the three lines before the last; the last is ``{"ok": true, "device": {...}}``.
+step and orthogonality for ``spinquant_opt_gptq``; the evalx, cli
+and tensor_parallel phases' numbers) come on the three lines before the last; the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -3640,7 +3662,324 @@ def report_evalx(ev, smi: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 15: tensor-parallel serving
+# phase 15: the CLI
+# ---------------------------------------------------------------------------
+
+CLI_CORPUS_BYTES = 32 * 1024
+CLI_CHAT_TOKENS = 16
+CLI_BUDGET_S = 150.0
+CLI_W4A8 = ["--weight", "int4-g[128]-rw", "--act-in", "int8-g[-1]-rw", "--head",
+            "int8-g[128]-rw", "--head-act", "int8-g[-1]-rw"]
+# a decode step of the unfused, unstacked packed model: every projection
+# (q, k, v, o, gate, up, down) and the head through B3, and B4
+CLI_CHAT_PER_STEP = {"w4a8_flat": 7 * LAYERS + 1, "decode_attention_append": LAYERS}
+
+
+class StandInTokenizer(ByteTokenizer):
+    """What the stand-in ``transformers.AutoTokenizer.from_pretrained``
+    returns: :class:`ByteTokenizer` with the calls the dataset loaders
+    (``tok(text, return_tensors="np").input_ids``) and ``save_compressed``
+    (``save_pretrained``) make. It writes one file, ``FILE``."""
+    FILE = "stand_in_tokenizer.json"
+
+    def __call__(self, text, return_tensors="np"):
+        import types
+
+        import numpy as np
+
+        return types.SimpleNamespace(input_ids=np.asarray([self.encode(text)], np.int32))
+
+    def save_pretrained(self, path):
+        with open(os.path.join(path, self.FILE), "w") as f:
+            json.dump({"kind": "utf-8 bytes", "decode_base": self.BASE}, f)
+
+
+@contextlib.contextmanager
+def stand_in_transformers():
+    """A module ``transformers`` whose ``AutoTokenizer.from_pretrained``
+    returns a :class:`StandInTokenizer` (the card's machine has no
+    ``transformers`` and the repo no tokenizer), in ``sys.modules`` inside
+    the block; what was there before is put back after."""
+    import types
+
+    mod = types.ModuleType("transformers")
+    mod.AutoTokenizer = types.SimpleNamespace(from_pretrained=lambda path: StandInTokenizer())
+    prev = sys.modules.get("transformers")
+    sys.modules["transformers"] = mod
+    try:
+        yield mod
+    finally:
+        if prev is None:
+            del sys.modules["transformers"]
+        else:
+            sys.modules["transformers"] = prev
+
+
+@contextlib.contextmanager
+def stage_seconds(stages: dict, targets):
+    """Replace each ``(label, module, name)`` of ``targets`` by a wrapper
+    that adds the call's host seconds, ended by a synchronize, to
+    ``stages[label]``; the originals are put back after the block."""
+    saved = []
+
+    def timed(fn, label):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stages[label] = stages.get(label, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    for label, mod, name in targets:
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, timed(getattr(mod, name), label))
+    try:
+        yield stages
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def synthetic_corpus(seed: int, n_bytes: int) -> str:
+    """ASCII text of ``n_bytes`` bytes from ``seed``: 12 words a line,
+    Zipf-drawn from 512 random lowercase words of 2-8 letters."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vocab = ["".join(chr(97 + c) for c in rng.integers(0, 26, rng.integers(2, 9)))
+             for _ in range(512)]
+    p = 1.0 / np.arange(1, 513)
+    words = [vocab[i] for i in rng.choice(512, size=n_bytes // 2, p=p / p.sum())]
+    text = "\n".join(" ".join(words[i:i + 12]) for i in range(0, len(words), 12))
+    return text[:n_bytes]
+
+
+def _on_card(tree) -> bool:
+    from llm_compressor_tpu_torch.qformats import QTensor
+
+    for _, v in _flat_leaves(tree):
+        ts = [v.codes, v.scales] if isinstance(v, QTensor) else [v]
+        if any(t.device.type != "cuda" for t in ts if isinstance(t, torch.Tensor)):
+            return False
+    return True
+
+
+def cli_run_a(hf_dir, corpus, seed: int):
+    """``run_pipeline`` of SpinQuant-Hadamard + GPTQ W4A8 on the HF directory,
+    calibrated and evaluated on the corpus, packed: 17 B10 launches and no
+    other kernel, a finite perplexity, ``results.json`` and ``run.log``;
+    then the returned state served (B1-B4 a step, graph and eager bitwise)."""
+    from llm_compressor_tpu_torch import algorithms, evalx, kernels
+    from llm_compressor_tpu_torch.cli import main as cli_main
+    from llm_compressor_tpu_torch.cli.args import build_parser
+
+    argv = ["--model", str(hf_dir), "--quantize", "--quant-method", "spinquant-had", *CLI_W4A8,
+            "--calib-dataset", str(corpus), "--calib-num", str(CALIB_SAMPLES), "--seq-len",
+            str(CALIB_LEN), "--tasks", "ppl", "--pack"]
+    stages = {}
+    targets = [("load", cli_main, "_load_model"), ("calibration", algorithms, "spinquant"),
+               ("evaluation", evalx, "evaluate"), ("pack", algorithms, "pack_model")]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with stage_seconds(stages, targets):
+        kernels.reset_counts()
+        (results, state), total_s = _timed(
+            lambda: cli_main.run_pipeline(build_parser().parse_args(argv), return_state=True))
+        counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if counts["hadamard"] != B10_PER_CALIBRATION or any(
+            v for k, v in counts.items() if k != "hadamard"):
+        raise AssertionError(f"the CLI's SpinQuant run launched {counts}, not "
+                             f"{B10_PER_CALIBRATION} x B10 and nothing else")
+    ppl = results.get("ppl.wikitext2", float("nan"))
+    if not math.isfinite(ppl):
+        raise AssertionError(f"the CLI's perplexity {ppl} is not finite")
+    for name in ("results.json", "run.log"):
+        if not os.path.isfile(os.path.join("experiments", "exp", name)):
+            raise AssertionError(f"the CLI wrote no experiments/exp/{name}")
+    cfg, qcfg, params = state["cfg"], state["qcfg"], state["params"]
+    if cfg.tie_word_embeddings or not _on_card(params):
+        raise AssertionError("the CLI's SpinQuant state is tied or not on the card")
+    del state
+    stacked, host, serve_counts, per_step = serve_checkpointed(params, cfg, qcfg, seed)
+    del stacked, params, host
+    torch.cuda.empty_cache()
+    return {"argv": argv, "s": total_s, "stages": stages, "peak_mem_gib": peak,
+            "launches": counts, "ppl": ppl, "serve_launches": serve_counts,
+            "serve_per_step": per_step}
+
+
+def cli_run_b(hf_dir, out_dir, seed: int):
+    """tinychat's ``prepare`` (RTN W4A8, packed, saved with the int8 KV
+    flag) on the HF directory, one ``generate_text`` of CLI_CHAT_TOKENS
+    tokens on the unfused params it returns (B3 and B4; its ids those of
+    ``generate``), the checkpoint reloaded (every QTensor bitwise), and
+    both served (tokens, cache codes and scales bitwise)."""
+    import numpy as np
+
+    from llm_compressor_tpu_torch import algorithms, kernels, models
+    from llm_compressor_tpu_torch.algorithms import pack_model
+    from llm_compressor_tpu_torch.cli import main as cli_main
+    from llm_compressor_tpu_torch.engine import (
+        CHAT_TEMPLATE, generate, generate_text, init_cache, prefill)
+    from llm_compressor_tpu_torch.examples import tinychat
+    from llm_compressor_tpu_torch.models import load_compressed, load_hf_checkpoint
+
+    args = tinychat.build_chat_parser().parse_args(
+        ["--model", str(hf_dir), "--quantize", "--quant-method", "rtn", *CLI_W4A8, "--pack",
+         "--kv-quant", "--save-path", str(out_dir), "--max-new-tokens", str(CLI_CHAT_TOKENS)])
+    stages = {}
+    targets = [("load", cli_main, "_load_model"), ("rtn", algorithms, "rtn"),
+               ("pack", algorithms, "pack_model"), ("save", models, "save_compressed")]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with stage_seconds(stages, targets):
+        kernels.reset_counts()
+        (cfg, params, qcfg), prepare_s = _timed(lambda: tinychat.prepare(args))
+        prepare_counts = kernels.launch_counts()
+    if any(prepare_counts.values()) or not _on_card(params):
+        raise AssertionError(f"tinychat.prepare launched {prepare_counts} or left the params "
+                             "off the card")
+    files = sorted(f.name for f in out_dir.iterdir())
+    if files != sorted(["config.json", "model.safetensors", "packed.npz",
+                        StandInTokenizer.FILE]):
+        raise AssertionError(f"the saved checkpoint holds {files}")
+
+    tok = sys.modules["transformers"].AutoTokenizer.from_pretrained(args.model)
+    prompt = "Name three colours."
+    ids = tok.encode(CHAT_TEMPLATE.format(message=prompt))
+    dev = params["embed"]["weight"].device
+    cache = init_cache(cfg.num_layers, 1, len(ids) + CLI_CHAT_TOKENS, cfg.num_kv_heads,
+                       cfg.head_dim, quantized=True, device=dev)
+    kernels.reset_counts()
+    prefill(params, torch.tensor([ids], dtype=torch.int32, device=dev), cache, cfg=cfg,
+            qcfg=qcfg)
+    prefill_counts = kernels.launch_counts()
+    del cache
+    kernels.reset_counts()
+    text, chat_s = _timed(lambda: generate_text(
+        params, cfg, tok, prompt, max_new_tokens=args.max_new_tokens, qcfg=qcfg,
+        quantized_kv=args.kv_quant))
+    chat_counts = kernels.launch_counts()
+    out = generate(params, cfg, np.asarray([ids], np.int32), max_new_tokens=CLI_CHAT_TOKENS,
+                   qcfg=qcfg, quantized_kv=True)
+    new, got = out[0, len(ids):].tolist(), [ord(c) - tok.BASE for c in text]
+    if len(new) != CLI_CHAT_TOKENS or got != new:
+        raise AssertionError(f"tinychat's generate_text gave ids {got}, generate {new}")
+    # generate runs a decode step after each sampled token
+    chat_per_step = {k: (chat_counts[k] - prefill_counts[k]) / CLI_CHAT_TOKENS
+                     for k in chat_counts if chat_counts[k] or prefill_counts[k]}
+    if chat_per_step != {k: float(v) for k, v in CLI_CHAT_PER_STEP.items()}:
+        raise AssertionError(f"tinychat's decode launched {chat_per_step} a step, not "
+                             f"{CLI_CHAT_PER_STEP} (prefill {prefill_counts})")
+
+    saved = {k: _qtensor_on_host(v) for k, v in _qtensors(params).items()}
+    (cfg2, loaded), hf_load_s = _timed(lambda: load_hf_checkpoint(out_dir))
+    if cfg2 != cfg:
+        raise AssertionError(f"the saved config.json reads as {cfg2}, not {cfg}")
+    del loaded
+    reloaded, load_s = _timed(lambda: load_compressed(out_dir, cfg2, qcfg))
+    if "lm_head" in reloaded:
+        raise AssertionError("the tied packed head was written")
+    pack_model(reloaded, cfg2, qcfg)
+    back = _qtensors(reloaded)
+    if set(back) != set(saved) or any(not _same_qtensor(back[k], saved[k]) for k in saved):
+        raise AssertionError("the CLI's checkpoint, reloaded: a QTensor differs from the "
+                             "returned params'")
+    stacked, first, serve_counts, per_step = serve_checkpointed(params, cfg, qcfg, seed)
+    del stacked, params
+    stacked, second, _, _ = serve_checkpointed(reloaded, cfg2, qcfg, seed)
+    for name, a in first.items():
+        if not torch.equal(a, second[name]):
+            raise AssertionError(f"the reloaded CLI checkpoint's {name} differ from the "
+                                 "returned params'")
+    del stacked, reloaded
+    torch.cuda.empty_cache()
+    return {"prepare_s": prepare_s, "stages": stages,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "files": {f.name: f.stat().st_size for f in sorted(out_dir.iterdir())},
+            "chat_ids": new, "chat_s": chat_s, "chat_prefill_launches": prefill_counts,
+            "chat_launches": chat_counts, "chat_per_step": chat_per_step,
+            "hf_load_s": hf_load_s, "load_compressed_s": load_s, "qtensors": len(saved),
+            "serve_launches": serve_counts, "serve_per_step": per_step}
+
+
+def phase_cli(seed: int):
+    """Phase 15: the port's CLI on Llama-3.2-1B at full width and depth,
+    random weights from ``--seed`` written as an HF directory, a synthetic
+    corpus of CLI_CORPUS_BYTES bytes and a byte-level stand-in tokenizer,
+    all in a temporary working directory that is removed at the end.
+    Run A: SpinQuant-Hadamard through ``run_pipeline`` (:func:`cli_run_a`);
+    Run B: tinychat and the checkpoint (:func:`cli_run_b`). Under
+    CLI_BUDGET_S seconds."""
+    import logging
+    import tempfile
+    from pathlib import Path
+
+    from llm_compressor_tpu_torch.models import init_params
+    from llm_compressor_tpu_torch.utils.logging import LOGGER
+
+    t_start = time.perf_counter()
+    cwd = os.getcwd()
+    sinks = set(LOGGER.handlers)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp, \
+                stand_in_transformers():
+            tmp = Path(tmp)
+            os.chdir(tmp)
+            cfg = flagship_cfg(LAYERS)
+            params = init_params(cfg, seed=seed)
+            _, write_s = _timed(lambda: write_hf_dir(params, cfg, tmp / "hf"))
+            del params
+            torch.cuda.empty_cache()
+            (tmp / "corpus.txt").write_text(synthetic_corpus(seed + 5, CLI_CORPUS_BYTES))
+            out = {"hf_write_s": write_s, "corpus_bytes": (tmp / "corpus.txt").stat().st_size}
+            out["run_a"] = cli_run_a(tmp / "hf", tmp / "corpus.txt", seed)
+            out["run_b"] = cli_run_b(tmp / "hf", tmp / "out", seed)
+    finally:
+        os.chdir(cwd)
+        for h in set(LOGGER.handlers) - sinks:   # the runs' run.log sinks
+            LOGGER.removeHandler(h)
+            if isinstance(h, logging.FileHandler):
+                h.close()
+    out["s"] = time.perf_counter() - t_start
+    if out["s"] > CLI_BUDGET_S:
+        raise AssertionError(f"the cli phase took {out['s']:.1f} s, over {CLI_BUDGET_S}")
+    return out
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def report_cli(c, smi: str) -> None:
+    """Log phase 15."""
+    a, b = c["run_a"], c["run_b"]
+    log(f"cli tokenizer: a byte-level stand-in (UTF-8 bytes as ids, {StandInTokenizer.FILE}) "
+        f"put in sys.modules as transformers.AutoTokenizer; the card's machine has no "
+        f"transformers and the repo no tokenizer; corpus {c['corpus_bytes']} bytes of synthetic "
+        f"text, HF bf16 directory written in {c['hf_write_s']:.2f} s")
+    log(f"cli run A: run_pipeline({' '.join(a['argv'])}) on Llama-3.2-1B, {LAYERS} layers, "
+        f"random weights: {a['s']:.2f} s (stages {json.dumps(a['stages'])}), peak "
+        f"{a['peak_mem_gib']:.2f} GiB on {smi}; launches {_nonzero(a['launches'])}; "
+        f"ppl.wikitext2 {a['ppl']:.6g} ({c['corpus_bytes'] // 2048} windows of 2048 corpus "
+        f"bytes); the returned state served W4A8 "
+        f"({CKPT_BATCH} x {CKPT_PROMPT} prompts, {CKPT_STEPS} greedy steps, graph and eager "
+        f"bitwise): launches a step {a['serve_per_step']}")
+    log(f"cli run B: tinychat.prepare (RTN W4A8, --pack --kv-quant --save-path) {b['prepare_s']:.2f}"
+        f" s (stages {json.dumps(b['stages'])}), peak {b['peak_mem_gib']:.2f} GiB on {smi}; "
+        f"saved {json.dumps(b['files'])}; generate_text of {CLI_CHAT_TOKENS} tokens on the "
+        f"unfused params {b['chat_s']:.2f} s, ids equal to generate's, launches a decode step "
+        f"{b['chat_per_step']} (prefill {_nonzero(b['chat_prefill_launches'])}); reloaded "
+        f"(load_hf_checkpoint {b['hf_load_s']:.2f} s, load_compressed {b['load_compressed_s']:.2f}"
+        f" s): {b['qtensors']} QTensors bitwise, served as the returned params bitwise, "
+        f"launches a step {b['serve_per_step']}; the phase {c['s']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 16: tensor-parallel serving
 # ---------------------------------------------------------------------------
 
 # part 1 (2 layers, full width, W4A8): slots, prompt, teacher-forced decode
@@ -3951,7 +4290,7 @@ def phase_tensor_parallel(seed: int) -> dict:
 
 
 def report_tensor_parallel(tp: dict, smi: str) -> None:
-    """Log phase 15."""
+    """Log phase 16."""
     B, T, steps, _ = TP_SHAPE
     for key, r in tp.items():
         if key == "seconds":
@@ -4269,6 +4608,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     report_evalx(ev, smi)
 
+    cl = phase_cli(args.seed)
+    torch.cuda.empty_cache()
+    report_cli(cl, smi)
+
     tp = phase_tensor_parallel(args.seed)
     report_tensor_parallel(tp, smi)
 
@@ -4296,7 +4639,7 @@ def main() -> int:
                       "archs_b_checks": {"families": ab["families"]},
                       "calibration_b_checks": cb["checks"],
                       "spinquant_optimize_2_layers": so["two_layers"], "evalx_checks": ev,
-                      "tensor_parallel": tp}),
+                      "cli": cl, "tensor_parallel": tp}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": count}}),
           flush=True)

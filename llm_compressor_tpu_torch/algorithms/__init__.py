@@ -1,7 +1,8 @@
 """algorithms — calibration (RTN, SmoothQuant, GPTQ, AWQ, AWQ+, GPTAQ,
 SpinQuant) and pruning (magnitude, Wanda, SparseGPT, RIA) as functions
 over params, and packing (port of ``llm_compressor_tpu.algorithms``;
-``spinquant`` runs the Hadamard mode and raises for the optimize mode)."""
+``spinquant`` runs both modes: Hadamard rotations, or rotations learned
+by Cayley SGD)."""
 
 from .awq import awq, awq_plus
 from .common import PhaseTimer

@@ -45,6 +45,7 @@ import torch
 from ..device import resolve_device
 from ..qformats.config import QuantConfig
 from ..qformats.qtensor import FP8_DTYPES, QTensor, dequantize
+from ..utils.logging import LOGGER
 from ..utils.npz_io import FP8_DESCR, load_npz, save_npz
 from ..utils.safetensors_io import load_file, save_file
 from .config import ModelConfig, from_hf_config
@@ -248,11 +249,11 @@ def save_compressed(params, cfg: ModelConfig, path, hf_config: Optional[dict] = 
     """Write the compressed checkpoint of ``params`` (unfused, unstacked) to
     the directory ``path``: ``model.safetensors``, ``packed.npz`` when a
     weight is packed, ``config.json`` when ``hf_config`` is given (see the
-    module doc). Copying a tokenizer needs ``transformers``, which the port
-    does not use: ``tokenizer_path`` raises."""
-    if tokenizer_path is not None:
-        raise NotImplementedError(
-            "copying the tokenizer is not ported yet: ROADMAP.md queue A item 12")
+    module doc), and the tokenizer of ``tokenizer_path`` when given
+    (``AutoTokenizer.from_pretrained(...).save_pretrained(path)``,
+    ``transformers`` imported only then). A tokenizer that cannot be copied
+    logs a warning and the save goes on; the JAX package passes over it
+    silently."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     sd: Dict[str, torch.Tensor] = {}
@@ -297,6 +298,14 @@ def save_compressed(params, cfg: ModelConfig, path, hf_config: Optional[dict] = 
         save_npz(path / "packed.npz", packed, descr)
     if hf_config is not None:
         (path / "config.json").write_text(json.dumps(hf_config, indent=2))
+    if tokenizer_path is not None:
+        try:
+            from transformers import AutoTokenizer
+
+            AutoTokenizer.from_pretrained(tokenizer_path).save_pretrained(str(path))
+        except Exception as e:
+            LOGGER.warning(f"save_compressed: the tokenizer of {tokenizer_path} was not "
+                           f"copied ({type(e).__name__}: {e})")
 
 
 def _tensor(a: np.ndarray, dev) -> torch.Tensor:

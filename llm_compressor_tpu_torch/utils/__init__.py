@@ -1,5 +1,9 @@
-"""utils — host-side helpers (port of part of ``llm_compressor_tpu.utils``)."""
+"""utils — host-side helpers (port of ``llm_compressor_tpu.utils``):
+logging and seeding, the dataset loaders, the native host packer, and
+the port's own safetensors and npz readers and writers."""
 
-from .dataset import synthetic_tokens
+from .dataset import get_calib_dataset, get_loaders, synthetic_tokens
+from .logging import LOGGER, colorstr, init_seeds
 
-__all__ = ["synthetic_tokens"]
+__all__ = ["LOGGER", "colorstr", "init_seeds", "get_calib_dataset", "get_loaders",
+           "synthetic_tokens"]

@@ -60,7 +60,7 @@ from llm_compressor_tpu_torch.qformats import QTensor, dequantize, qspec_string
 from llm_compressor_tpu_torch.qformats import build_quant_config as tbuild
 from llm_compressor_tpu_torch.qformats import register_4_to_8bit as t_register_4_to_8bit
 from llm_compressor_tpu_torch.utils import safetensors_io
-from torch_port_util import jax_to_numpy, one_torch_thread  # noqa: F401
+from torch_port_util import jax_to_numpy, one_torch_thread, word_tokenizer  # noqa: F401
 
 CFG = dict(hidden_size=128, intermediate_size=256, num_heads=4, num_kv_heads=2, head_dim=32)
 SLOTS = (("attn", "q"), ("attn", "k"), ("attn", "v"), ("attn", "o"),
@@ -304,11 +304,35 @@ def test_fp8_checkpoint_jax_writes_port_reads(tmp_path, weight):
         j_load_compressed(tmp_path / "jax", jcfg, jq)
 
 
-def test_save_compressed_refuses_tokenizer(tmp_path):
+def test_save_compressed_copies_tokenizer(tmp_path):
+    """``save_compressed(tokenizer_path=)`` writes the tokenizer files the
+    JAX package's writes, byte for byte (a word-level tokenizer built
+    here), beside the same checkpoint."""
+    jcfg, tcfg = _configs("float32", True)
+    word_tokenizer(tmp_path / "tok")
+    tree = jax_to_numpy(jm.init_params(jcfg, jax.random.PRNGKey(0)))
+    j_save_compressed(jax.tree_util.tree_map(jnp.asarray, tree), jcfg, tmp_path / "jax",
+                      tokenizer_path=str(tmp_path / "tok"))
+    tm.save_compressed(params_from_numpy(tree, "cpu"), tcfg, tmp_path / "port",
+                       tokenizer_path=str(tmp_path / "tok"))
+    names = sorted(f.name for f in (tmp_path / "jax").iterdir())
+    assert names == sorted(f.name for f in (tmp_path / "port").iterdir())
+    assert {"tokenizer.json", "tokenizer_config.json", "special_tokens_map.json"} <= set(names)
+    for name in names:
+        if name != "model.safetensors":
+            assert ((tmp_path / "port" / name).read_bytes()
+                    == (tmp_path / "jax" / name).read_bytes()), name
+
+
+def test_save_compressed_bad_tokenizer_warns(tmp_path, caplog):
+    """A tokenizer that cannot be loaded logs a warning and the checkpoint
+    is still written (the JAX package passes over it silently)."""
     _, tcfg = _configs("float32", True)
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        tm.save_compressed(tm.init_params(tcfg, device="cpu"), tcfg, tmp_path,
-                           tokenizer_path="tok")
+    with caplog.at_level("WARNING", logger="llm_compressor_tpu_torch"):
+        tm.save_compressed(tm.init_params(tcfg, device="cpu"), tcfg, tmp_path / "out",
+                           tokenizer_path=str(tmp_path / "missing"))
+    assert "tokenizer" in caplog.text and "was not copied" in caplog.text
+    assert sorted(f.name for f in (tmp_path / "out").iterdir()) == ["model.safetensors"]
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port stands alone: importing it loads neither JAX nor the JAX
-package (nor ``safetensors``, ``ml_dtypes``, ``transformers``, ``lm_eval``,
-``triton`` or PIL, which the card's machine lacks or which load only
-where used, also while it writes and reads checkpoints or evaluates), its
+package (nor ``safetensors``, ``ml_dtypes``, ``transformers``,
+``datasets``, ``lm_eval``, ``triton`` or PIL, which the card's machine
+lacks or which load only where used, also while it writes and reads
+checkpoints, evaluates or runs its CLI), its
 entry points default to the card and raise without one, and a kernel
 build without nvcc raises instead of falling back."""
 
@@ -36,9 +37,13 @@ MODULES = [
     "llm_compressor_tpu_torch.evalx.image_reward", "llm_compressor_tpu_torch.evalx.t2i_eval",
     "llm_compressor_tpu_torch.parallel", "llm_compressor_tpu_torch.parallel.launch",
     "llm_compressor_tpu_torch.parallel.multihost", "llm_compressor_tpu_torch.parallel.tp",
-]
+    "llm_compressor_tpu_torch.cli", "llm_compressor_tpu_torch.cli.args",
+    "llm_compressor_tpu_torch.cli.main", "llm_compressor_tpu_torch.utils.logging",
+    "llm_compressor_tpu_torch.utils.native", "llm_compressor_tpu_torch.utils.dataset",
+] + [f"llm_compressor_tpu_torch.examples.{name}" for name in (
+    "llama", "opt", "bloom", "phi", "qwen2", "qwen3", "gemma", "gemma2", "gemma3", "tinychat")]
 FORBIDDEN = ("jax", "llm_compressor_tpu", "safetensors", "ml_dtypes", "transformers",
-             "lm_eval", "triton", "PIL")
+             "datasets", "lm_eval", "triton", "PIL")
 _CHECK = ("bad = [m for m in sys.modules if m.split('.')[0] in {forbidden}]; "
           "print(bad); sys.exit(1 if bad else 0)").format(forbidden=set(FORBIDDEN))
 
@@ -90,6 +95,26 @@ def test_checkpoint_run_leaves_other_packages_out():
     """Writing and reading both checkpoint kinds (fp8 codes included) and
     ``generate_text`` load no package the card's machine lacks."""
     res = _fresh(CHECKPOINT_RUN + _CHECK)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+CLI_RUN = """
+import os, sys, tempfile
+sys.path.insert(0, {root!r})
+os.chdir(tempfile.mkdtemp())
+from llm_compressor_tpu_torch.examples import llama
+r = llama.main(["--tiny", "--cpu", "--quantize", "--quant-method", "rtn", "--weight",
+                "int4-g[32]-rw", "--act-in", "int8-g[-1]-rw", "--tasks", "ppl", "--pack",
+                "--calib-num", "4", "--seq-len", "16", "--save-path", "out"])
+assert r["ppl.wikitext2"] > 0 and os.path.exists("out/packed.npz"), r
+"""
+
+
+def test_cli_run_leaves_other_packages_out():
+    """A whole ``--tiny`` CLI run (RTN, perplexity, pack, save) loads no
+    package the card's machine lacks."""
+    root = str(Path(__file__).resolve().parent.parent)
+    res = _fresh(CLI_RUN.format(root=root) + _CHECK)
     assert res.returncode == 0, res.stdout + res.stderr
 
 

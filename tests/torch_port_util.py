@@ -283,3 +283,54 @@ def port_spec_leaves(tree, path=()) -> dict:
         return {k: v for i, sub in enumerate(tree)
                 for k, v in port_spec_leaves(sub, path + (i,)).items()}
     return {path: tree}
+
+
+def cli_hand_over(mp):
+    """The port's ``cli.main._load_model`` returns, for ``--tiny`` runs, the
+    model the JAX package's CLI draws for the same flags:
+    ``tiny_config(arch, dtype=...)`` and ``init_params(cfg,
+    PRNGKey(seed))``, handed over as numpy onto the run's device."""
+    from llm_compressor_tpu import models as jm
+    from llm_compressor_tpu_torch import models as tm
+    from llm_compressor_tpu_torch.cli import main as tmain
+    from llm_compressor_tpu_torch.convert import params_from_numpy
+
+    real = tmain._load_model
+
+    def load(args):
+        if not (args.tiny or args.model is None):
+            return real(args)
+        arch = args.arch or "llama"
+        tree = jax_to_numpy(jm.init_params(jm.tiny_config(arch, dtype=args.dtype),
+                                           jax.random.PRNGKey(args.seed)))
+        return (tm.tiny_config(arch, dtype=args.dtype),
+                params_from_numpy(tree, tmain._device(args)), None)
+
+    mp.setattr(tmain, "_load_model", load)
+
+
+WORDS = tuple(f"w{i}" for i in range(200))
+
+
+def word_tokenizer(path, vocab_words=WORDS):
+    """A word-level tokenizer built here with ``tokenizers`` (whitespace
+    split, one id a word, ``[UNK]`` 0 and ``</s>`` 1), wrapped as
+    ``PreTrainedTokenizerFast`` and saved to the directory ``path``, so
+    that ``AutoTokenizer.from_pretrained(path)`` loads it. Nothing is
+    downloaded."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+    from transformers import PreTrainedTokenizerFast
+
+    vocab = {"[UNK]": 0, "</s>": 1} | {w: i + 2 for i, w in enumerate(vocab_words)}
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="[UNK]"))
+    tok.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    fast = PreTrainedTokenizerFast(tokenizer_object=tok, unk_token="[UNK]", eos_token="</s>")
+    fast.save_pretrained(str(path))
+    return fast
+
+
+def word_corpus(n_words: int, seed: int, vocab_words=WORDS, line: int = 12) -> str:
+    """Text of ``n_words`` words drawn from ``seed``, ``line`` words a line."""
+    rng = np.random.default_rng(seed)
+    words = [vocab_words[i] for i in rng.integers(0, len(vocab_words), n_words)]
+    return "\n".join(" ".join(words[i:i + line]) for i in range(0, n_words, line))
