@@ -94,11 +94,14 @@ Phases (each prints a line; any failure exits non-zero):
    (B1-B4): continuous batching, 32 slots, ``max_len`` 512, chunks of 128,
    96 requests with prompts of 16-384 tokens from ``--seed``, 32 greedy
    new tokens each, one request ending on an EOS id that it reaches; the
-   decode step as one CUDA graph and eagerly: ids bitwise equal, launches
-   as the steps and chunks ask; requests/s, tok/s, ms per decode step and
-   per chunk prefill, peak memory, and how many of 8 requests equal
-   ``generate`` alone. Then speculative decoding: 16 prompts, a 16-token
-   motif from ``--seed`` repeated 8 times, k_draft 4, 8 rounds a dispatch,
+   batcher with graphs (``warmup`` captures one chunk graph a chunk-count
+   class and the decode graph; ``run`` replays them and captures none)
+   and eagerly: ids bitwise equal, launches as the steps and chunks ask
+   and equal; requests/s, tok/s, ms per decode step and per chunk
+   prefill, warmup seconds, the memory the graphs add, peak memory of
+   each, and how many of 8 requests equal ``generate`` alone. Then
+   speculative decoding: 16 prompts, a 16-token motif from ``--seed``
+   repeated 8 times, k_draft 4, 8 rounds a dispatch,
    64 new tokens: three dispatches of rounds through the graph path
    (eager, capture, replay) and eagerly, history, accept counts and cache
    bitwise equal after each; ``generate_speculative`` with
@@ -249,12 +252,17 @@ Phases (each prints a line; any failure exits non-zero):
    own TP plain path's wherever the reference's top-2 gap exceeds 0.1, and
    each decode step launches 6 B1, 2 B2, 1 B3 (0 at n = 4, whose 32064-row
    head block B3 refuses: the dense route) and 2 B4 on each rank. At full
-   depth, n_model = 2: batch 32, prompt 64, 16 eager decode steps (48 B1,
-   16 B2, 1 B3, 16 B4 a step and rank), TTFT, tok/s and peak memory per
-   rank, beside the unsharded model's eager steps on one process and the
-   host time of each kind of collective. The TP continuous batcher at 2
-   layers (W4A8 in float32): ids bitwise equal to the single-device eager
-   batcher's. Every rank's tokens, logits and ids must equal rank 0's.
+   depth, n_model = 2: batch 32, prompt 64, 2 + 16 eager decode steps (48
+   B1, 16 B2, 1 B3, 16 B4 a step and rank), TTFT, tok/s and peak memory
+   per rank, beside the unsharded model's eager steps on one process and
+   the host time of each kind of collective; over NCCL the same steps as
+   CUDA graphs (eager first call, capture, 16 timed replays), tokens,
+   last logits and cache bitwise the eager TP run's, beside the unsharded
+   model's graph step (on one card this is printed as not run: it needs a
+   card a rank). The TP continuous batcher at 2 layers (W4A8 in float32):
+   ids bitwise equal to the single-device eager batcher's; over NCCL also
+   with its chunk and decode graphs, the same launches as its eager run.
+   Every rank's tokens, logits and ids must equal rank 0's.
    Step 3 adds B1, B2, B3 and B4 at the ranks' local shapes (n = 2, 4).
 The ``kernels`` JSON object, nvidia-smi's name and power limit and the
 slices' and serving engine's numbers (TTFT, decode tok/s over the graph,
@@ -2108,11 +2116,14 @@ SPEC_BATCH, SPEC_MOTIF, SPEC_REPEAT, SPEC_K, SPEC_ROUNDS, SPEC_NEW = 16, 16, 8, 
 
 def _batcher_run(params, cfg, qcfg, requests, graph: bool):
     """``requests`` ((prompt, submit kwargs) pairs) through a
-    ``ContinuousBatcher`` (W4A8 over an int8 cache): ``warmup`` (with a
-    graph, the decode step's eager first call and its capture), then
-    ``run`` with the launch counts set to 0 and the peak memory reset just
-    before. Each decode step and
-    each chunk prefill is timed on the host, ended by ``synchronize``."""
+    ``ContinuousBatcher`` (W4A8 over an int8 cache): ``warmup`` (with
+    graphs, each chunk-count class's chunk graph and the decode step's
+    graph: the eager first call and the capture of each), timed, with the
+    device memory it adds (allocated, and reserved: the graphs' shared
+    pool); then ``run`` with the launch counts set to 0 and the peak memory
+    reset just before. Each decode step and each chunk prefill is timed on
+    the host, ended by ``synchronize``. With graphs ``warmup`` must make
+    one chunk graph a class and one decode graph, and ``run`` none."""
     from llm_compressor_tpu_torch import kernels
     from llm_compressor_tpu_torch.engine import ContinuousBatcher
 
@@ -2137,10 +2148,17 @@ def _batcher_run(params, cfg, qcfg, requests, graph: bool):
 
     eng = Timed(params, cfg, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, qcfg=qcfg,
                 quantized_kv=True, prefill_chunk=SERVE_CHUNK, graph=graph)
+    captures = lambda: (sum(m.graphs.captures for m in eng._minis.values()),
+                        eng.cache.graphs.captures)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
     t0 = time.perf_counter()
     eng.warmup()
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
+    warm_gib = [(torch.cuda.memory_allocated() - mem0[0]) / 2 ** 30,
+                (torch.cuda.memory_reserved() - mem0[1]) / 2 ** 30]
+    warm = captures()
     times["on"] = True
     for toks, kw in requests:
         eng.submit(toks, **kw)
@@ -2152,7 +2170,13 @@ def _batcher_run(params, cfg, qcfg, requests, graph: bool):
     wall_s = time.perf_counter() - t0
     steps, chunks = len(times["decode"]), len(times["chunk"])
     generated = sum(len(v) for v in res.values())
+    want = (eng.chunk_classes, 1) if graph else (0, 0)
+    if not warm == captures() == want:
+        raise AssertionError(f"batcher (graph {graph}): {warm} (chunk, decode) captures after "
+                             f"warmup, {captures()} after run, not {want}")
     return res, {"wall_s": wall_s, "warmup_s": warmup_s, "requests_per_s": len(res) / wall_s,
+                 "captures": warm, "chunk_classes": eng.chunk_classes,
+                 "warmup_allocated_reserved_gib": warm_gib,
                  "generated_tok_s": generated / wall_s, "generated": generated,
                  "decode_steps": steps, "chunks": chunks,
                  "host_ms_per_step": wall_s / steps * 1e3,
@@ -2223,9 +2247,11 @@ def check_batching(cfg, qcfg, params, seed: int):
         ids = ids[0, len(prompts[i]):]
         same = np.asarray(ids[:len(got[i + 1])]) == got[i + 1][:len(ids)]
         alone.append(int(np.argmin(same)) if not same.all() else len(same))
-    return {"graph": g, "eager": {k: e[k] for k in ("wall_s", "requests_per_s",
+    return {"graph": g, "eager": {k: e[k] for k in ("wall_s", "warmup_s", "requests_per_s",
                                                     "generated_tok_s", "host_ms_per_step",
-                                                    "decode_ms_mean")},
+                                                    "decode_ms_mean", "chunk_prefill_ms_mean",
+                                                    "peak_mem_gib",
+                                                    "warmup_allocated_reserved_gib")},
             "eos_request_tokens": len(want_first), "standalone_prefix": alone,
             "generate_first_call": {k: {"s": [a for a, _ in v], "extra_peak_gib": max(
                 b for _, b in v)} for k, v in first_calls.items()},
@@ -4095,10 +4121,12 @@ def _tp_checks(rank: int, n: int, seed: int, mesh) -> dict:
             "checksum": float(sum(g.double().abs().sum() for g in got))}
 
 
-def _timed_decode_loop(prefill_fn, decode_fn, params, cache, toks, steps: int):
-    """Prefill, then ``steps`` greedy decode steps, both ranks started
-    together -> (prefill s, decode s, the last logits); the launch counts
-    are set to 0 after the prefill."""
+def _timed_decode_loop(prefill_fn, decode_fn, params, cache, toks, steps: int, warm: int = 0):
+    """Prefill, then ``warm`` greedy decode steps (with a graph: its eager
+    first call and its capture), then ``steps`` timed ones, both ranks
+    started together -> (prefill s, decode s, the last logits, each
+    step's greedy tokens (on the card)); the launch counts are set to 0
+    before the timed steps."""
     import torch.distributed as dist
 
     from llm_compressor_tpu_torch import kernels
@@ -4110,14 +4138,18 @@ def _timed_decode_loop(prefill_fn, decode_fn, params, cache, toks, steps: int):
     torch.cuda.synchronize()
     ttft = time.perf_counter() - t0
     tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
-    kernels.reset_counts()
-    dist.barrier()
-    t0 = time.perf_counter()
-    for _ in range(steps):
+    toks_out = [tok]
+    for i in range(warm + steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+            dist.barrier()
+            t0 = time.perf_counter()
         logits, cache = decode_fn(params, tok, cache)
         tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        toks_out.append(tok)
     torch.cuda.synchronize()
-    return ttft, time.perf_counter() - t0, logits
+    return ttft, time.perf_counter() - t0, logits, torch.cat(toks_out, 1)
 
 
 def _collective_ms(mesh, B: int, E: int, V: int) -> dict:
@@ -4152,54 +4184,82 @@ def _collective_ms(mesh, B: int, E: int, V: int) -> dict:
 
 
 def _tp_full_depth(rank: int, seed: int, mesh) -> dict:
-    """Part 2: full depth, n_model = 2: prefill, then eager decode steps;
-    TTFT, tok/s and peak memory on this rank. Then the same steps of the
-    unsharded model on one process, each rank at once on the same card (the
-    eager single-device step under the same sharing), and the host time of
-    each kind of collective a step runs."""
+    """Part 2: full depth, n_model = 2: prefill, then 2 warm-up and 16 timed
+    eager decode steps; TTFT, tok/s and peak memory on this rank. Over
+    NCCL (a card a rank) the same steps again as CUDA graphs (the warm-up:
+    the eager first call and the capture; timed: replays), their tokens at
+    every step, last logits and cache bitwise the eager TP run's. Then the
+    same steps of the unsharded model on one process, each rank at once
+    (on one card: sharing it), eagerly and, over NCCL, as graphs; and the
+    host time of each kind of collective a step runs."""
     from llm_compressor_tpu_torch import kernels, parallel
     from llm_compressor_tpu_torch.engine import decode_step, init_cache, prefill
+    from llm_compressor_tpu_torch.engine.graph import _map
 
     B, T, steps, max_len = TP_FULL_SHAPE
     n = parallel.mesh.axis_size(mesh, "model")
+    nccl = parallel.tp.graphs_ok(mesh)
     cfg, qcfg, one, fused = tp_models(LAYERS, seed, n)
     sp = parallel.tp_shard_params(fused, cfg, mesh, fused=True)
     del fused
     torch.cuda.empty_cache()
-    prefill_fn, decode_fn = parallel.tp_serve_fns(sp, cfg, mesh, qcfg=qcfg, fused=True)
     gen = torch.Generator(device="cuda").manual_seed(seed + 19)
     toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device="cuda",
                          dtype=torch.int32)
-    single = _timed_decode_loop(
+    new_cache = lambda: init_cache(cfg.num_layers, B, max_len, cfg.num_kv_heads, cfg.head_dim,
+                                   quantized=True)
+    single = {graph: _timed_decode_loop(
         lambda p, t, c: prefill(p, t, c, cfg=cfg, qcfg=qcfg),
-        lambda p, t, c: decode_step(p, t, c, cfg=cfg, qcfg=qcfg, graph=False), one,
-        init_cache(cfg.num_layers, B, max_len, cfg.num_kv_heads, cfg.head_dim, quantized=True),
-        toks, steps)
+        lambda p, t, c: decode_step(p, t, c, cfg=cfg, qcfg=qcfg, graph=graph), one, new_cache(),
+        toks, steps, warm=2) for graph in ((False, True) if nccl else (False,))}
     del one
     torch.cuda.empty_cache()
-    cache = parallel.tp_init_cache(cfg, mesh, B, max_len, quantized=True)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ttft, dec, logits = _timed_decode_loop(prefill_fn, decode_fn, sp, cache, toks, steps)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    counts = kernels.launch_counts()
-    per_step = {k: v / steps for k, v in counts.items() if v}
     want = {k: v for k, v in tp_per_step(n, LAYERS, cfg.vocab_size).items() if v}
-    if per_step != want:
-        raise AssertionError(f"rank {rank}: TP decode launched {per_step} a step, not {want}")
-    if not bool(torch.isfinite(logits).all()):
-        raise AssertionError("non-finite logits at full depth")
-    return {"ttft_ms": ttft * 1e3, "decode_ms_per_step": dec / steps * 1e3,
-            "decode_tok_s": B * steps / dec, "peak_gib": peak, "per_step": per_step,
-            "single_ttft_ms": single[0] * 1e3, "single_decode_ms_per_step": single[1] / steps * 1e3,
-            "collective_ms": _collective_ms(mesh, B, cfg.hidden_size, cfg.vocab_size)}
+    runs = {}
+    for graph in (False, True) if nccl else (False,):
+        prefill_fn, decode_fn = parallel.tp_serve_fns(sp, cfg, mesh, qcfg=qcfg, fused=True,
+                                                      graph=graph)
+        cache = parallel.tp_init_cache(cfg, mesh, B, max_len, quantized=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ttft, dec, logits, tokens = _timed_decode_loop(prefill_fn, decode_fn, sp, cache, toks,
+                                                       steps, warm=2)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        per_step = {k: v / steps for k, v in kernels.launch_counts().items() if v}
+        if per_step != want:
+            raise AssertionError(f"rank {rank}: TP decode (graph {graph}) launched {per_step} a "
+                                 f"step, not {want}")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("non-finite logits at full depth")
+        runs[graph] = {"ttft_ms": ttft * 1e3, "decode_ms_per_step": dec / steps * 1e3,
+                       "decode_tok_s": B * steps / dec, "peak_gib": peak, "per_step": per_step,
+                       "captures": cache.graphs.captures,
+                       "state": (logits, tokens, _map(torch.clone, cache))}
+    out = dict(runs[False], single_ttft_ms=single[False][0] * 1e3,
+               single_decode_ms_per_step=single[False][1] / steps * 1e3,
+               collective_ms=_collective_ms(mesh, B, cfg.hidden_size, cfg.vocab_size))
+    if nccl:
+        g, e = runs[True].pop("state"), runs[False]["state"]
+        same = (torch.equal(g[0], e[0]) and torch.equal(g[1], e[1])
+                and _same_cache(g[2], e[2]) and runs[True]["captures"] == 1)
+        if not same:
+            raise AssertionError(f"rank {rank}: the NCCL graph TP decode's tokens, logits or "
+                                 "cache differ from the eager TP decode's, or it did not capture "
+                                 "once")
+        out["graph"] = runs[True]
+        out["single_graph_decode_ms_per_step"] = single[True][1] / steps * 1e3
+    del out["state"]
+    return out
 
 
 def _tp_batcher(rank: int, seed: int, mesh) -> dict:
     """Part 3: the TP continuous batcher against the single-device eager
     batcher on the same requests, 2 layers of W4A8 in float32 (TP sums its
     partials in another order, so a greedy tie under bf16 roundings could
-    break otherwise: float32 keeps that far below every top-2 gap)."""
+    break otherwise: float32 keeps that far below every top-2 gap). Over
+    NCCL both the eager TP batcher and the default one, which replays its
+    chunk and decode graphs (made in ``warmup``: one a chunk-count class
+    and one decode graph, none in ``run``), with the same launches."""
     import numpy as np
 
     from llm_compressor_tpu_torch import kernels, parallel
@@ -4213,29 +4273,51 @@ def _tp_batcher(rank: int, seed: int, mesh) -> dict:
                for t in rng.integers(lo, hi, n_req)]
 
     def run(params, **kw):
+        """-> (ids, seconds of ``run``, decode steps, captures after
+        ``warmup``, after ``run``, chunk-count classes); the launch counts
+        are set to 0 after ``warmup``."""
         eng = ContinuousBatcher(params, cfg, batch_slots=slots, max_len=max_len, qcfg=qcfg,
                                 quantized_kv=True, prefill_chunk=chunk, **kw)
+        captures = lambda: (sum(m.graphs.captures for m in eng._minis.values()),
+                            eng.cache.graphs.captures)
+        eng.warmup()
+        warm = captures()
         for p in prompts:
             eng.submit(p, max_new_tokens=new)
         torch.cuda.synchronize()
+        kernels.reset_counts()
         t0 = time.perf_counter()
         out = eng.run()
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t0, eng.decode_steps
+        return (out, time.perf_counter() - t0, eng.decode_steps, warm, captures(),
+                eng.chunk_classes)
 
-    single, single_s, _ = run(one, graph=False)
+    single, single_s = run(one, graph=False)[:2]
     del one
     sp = parallel.tp_shard_params(fused, cfg, mesh, fused=True)
-    kernels.reset_counts()
-    tp, tp_s, tp_steps = run(sp, tp_mesh=mesh, tp_fused=True)
-    counts = {k: v for k, v in kernels.launch_counts().items() if v}
-    same = set(tp) == set(single) and all(np.array_equal(tp[u], single[u]) for u in single)
-    if not same:
-        raise AssertionError(f"rank {rank}: the TP batcher's ids differ from the single-device "
-                             f"eager batcher's")
-    return {"ids": {int(u): v.tolist() for u, v in tp.items()}, "requests": n_req,
-            "tokens": int(sum(len(v) for v in tp.values())), "tp_s": tp_s,
-            "single_s": single_s, "decode_steps": tp_steps, "counts": counts}
+    out = {"requests": n_req, "single_s": single_s}
+    # over NCCL the default batcher replays its chunk and decode graphs
+    for label, graph in (("eager", False), ("graph", None)) if parallel.tp.graphs_ok(mesh) \
+            else (("eager", None),):
+        tp, tp_s, tp_steps, warm, after, classes = run(sp, tp_mesh=mesh, tp_fused=True,
+                                                       graph=graph)
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        if label == "graph" and not warm == after == (classes, 1):
+            raise AssertionError(f"rank {rank}: the TP batcher captured {warm} (chunk, decode) "
+                                 f"graphs in warmup and {after} by the end of run, not one a "
+                                 f"chunk-count class ({classes}) and one decode graph")
+        same = set(tp) == set(single) and all(np.array_equal(tp[u], single[u]) for u in single)
+        if not same:
+            raise AssertionError(f"rank {rank}: the {label} TP batcher's ids differ from the "
+                                 f"single-device eager batcher's")
+        if label == "graph" and counts != out["eager"]["counts"]:
+            raise AssertionError(f"rank {rank}: the TP batcher's graphs launched {counts}, the "
+                                 f"eager run {out['eager']['counts']}")
+        out[label] = {"tp_s": tp_s, "decode_steps": tp_steps, "counts": counts,
+                      "captures": after}
+    out.update(ids={int(u): v.tolist() for u, v in tp.items()},
+               tokens=int(sum(len(v) for v in tp.values())))
+    return out
 
 
 def tp_rank(rank: int, world: int, seed: int, full: bool) -> dict:
@@ -4309,7 +4391,7 @@ def report_tensor_parallel(tp: dict, smi: str) -> None:
                 f = rr["full_depth"]
                 Bf, Tf, sf, _ = TP_FULL_SHAPE
                 log(f"tensor_parallel full depth, rank {rank}: {LAYERS} layers, batch {Bf}, "
-                    f"prompt {Tf}, {sf} eager decode steps: TTFT {f['ttft_ms']:.2f} ms, decode "
+                    f"prompt {Tf}, 2 + {sf} eager decode steps: TTFT {f['ttft_ms']:.2f} ms, decode "
                     f"{f['decode_ms_per_step']:.2f} ms a step = {f['decode_tok_s']:.1f} tok/s, "
                     f"peak {f['peak_gib']:.2f} GiB on {smi}; launches a step {f['per_step']}"
                     + ("; the ranks share one card, so these numbers measure the collectives' "
@@ -4317,12 +4399,29 @@ def report_tensor_parallel(tp: dict, smi: str) -> None:
                     + f"; the unsharded model's eager step on one process, each rank at once: "
                     f"TTFT {f['single_ttft_ms']:.2f} ms, {f['single_decode_ms_per_step']:.2f} ms "
                     f"a step; host ms of one collective {json.dumps(f['collective_ms'])}")
+                if "graph" in f:
+                    gr = f["graph"]
+                    log(f"tensor_parallel full depth as NCCL CUDA graphs, rank {rank}: the same "
+                        f"steps (eager first call, capture, then {sf} replays) "
+                        f"{gr['decode_ms_per_step']:.3f} ms a step = {gr['decode_tok_s']:.1f} "
+                        f"tok/s, peak {gr['peak_gib']:.2f} GiB, {gr['captures']} capture; tokens "
+                        f"at every step, last logits and cache bitwise the eager TP run's; "
+                        f"launches a replay {gr['per_step']}; the unsharded model's graph step "
+                        f"{f['single_graph_decode_ms_per_step']:.3f} ms on {smi}")
+                else:
+                    log(f"tensor_parallel full depth, rank {rank}: the NCCL graph path needs a "
+                        f"card a rank ({len(r['placement'])} ranks, "
+                        f"{torch.cuda.device_count()} card(s)): not run")
                 b = rr["batcher"]
-                log(f"tensor_parallel batcher, rank {rank}: 2 layers, W4A8 in float32, "
-                    f"{b['requests']} requests, {b['tokens']} greedy tokens: ids bitwise equal "
-                    f"to the single-device eager batcher's; {b['tp_s']:.2f} s TP against "
-                    f"{b['single_s']:.2f} s single-device; {b['decode_steps']} decode steps; "
-                    f"launches {b['counts']}")
+                for label in ("eager", "graph"):
+                    if label not in b:
+                        continue
+                    log(f"tensor_parallel batcher ({label}), rank {rank}: 2 layers, W4A8 in "
+                        f"float32, {b['requests']} requests, {b['tokens']} greedy tokens: ids "
+                        f"bitwise equal to the single-device eager batcher's; "
+                        f"{b[label]['tp_s']:.3f} s TP against {b['single_s']:.3f} s "
+                        f"single-device; {b[label]['decode_steps']} decode steps; captures "
+                        f"(chunk, decode) {b[label]['captures']}; launches {b[label]['counts']}")
     log(f"tensor_parallel: {tp['seconds']:.1f} s")
 
 
@@ -4421,10 +4520,19 @@ def main() -> int:
                 f"{g['wall_s']:.2f} s = {g['requests_per_s']:.2f} requests/s, "
                 f"{g['generated_tok_s']:.1f} tok/s; {g['decode_steps']} decode steps "
                 f"({g['decode_ms_mean']:.2f} ms each) and {g['chunks']} chunk prefills "
-                f"({g['chunk_prefill_ms_mean']:.2f} ms each), {g['host_ms_per_step']:.2f} host ms "
-                f"per step; eager decode {b['eager']['generated_tok_s']:.1f} tok/s "
-                f"({b['eager']['decode_ms_mean']:.2f} ms a step); ids of graph and eager "
-                f"bitwise equal; EOS request ended after {b['eos_request_tokens']} tokens; "
+                f"({g['chunk_prefill_ms_mean']:.2f} ms each, graph replays), "
+                f"{g['host_ms_per_step']:.2f} host ms per step; warmup {g['warmup_s']:.2f} s "
+                f"made {g['captures'][0]} chunk graphs (one a chunk-count class of "
+                f"{g['chunk_classes']}) and {g['captures'][1]} decode graph, run none, adding "
+                f"{g['warmup_allocated_reserved_gib'][0]:.3f} GiB allocated and "
+                f"{g['warmup_allocated_reserved_gib'][1]:.3f} GiB reserved; eager batcher "
+                f"{b['eager']['requests_per_s']:.2f} requests/s, "
+                f"{b['eager']['generated_tok_s']:.1f} tok/s, decode "
+                f"{b['eager']['decode_ms_mean']:.2f} ms a step, chunk prefill "
+                f"{b['eager']['chunk_prefill_ms_mean']:.2f} ms, warmup "
+                f"{b['eager']['warmup_s']:.2f} s, peak {b['eager']['peak_mem_gib']:.2f} GiB; ids, "
+                f"launches of graph and eager bitwise equal; EOS request ended after "
+                f"{b['eos_request_tokens']} tokens; "
                 f"tokens agreeing with generate alone before the first difference, requests "
                 f"1-{SERVE_STANDALONE}: {b['standalone_prefix']}, each call's seconds with "
                 f"its graph (one per call, captured at step 2) "

@@ -10,21 +10,37 @@ chunk per decode step while slots decode (shortest remaining prompt
 first), back to back while none does; the finished mini cache is spliced
 into its slot (``kvcache.write_slot``).
 
-Device work is two programs, as in the JAX package: the chunk prefill,
-which runs eagerly here (its CUDA graph is later work, ROADMAP.md), and the
-batched decode step, which on the card replays one CUDA graph over the
-shared cache (``engine/graph.py``) with the tokens and the active mask as
-its static inputs. Sampling runs on the host from a ``torch.Generator``
-seeded from ``seed``, outside the graph, as the JAX batcher samples on the
-host.
+Device work is two programs, as in the JAX package, and on the card each
+replays a CUDA graph (``engine/graph.py``), as JAX compiles each once:
+
+* the chunk prefill, one graph for each chunk-count class (the prompt's
+  chunks, ``padded / C``), as JAX compiles one program a class with
+  ``start`` traced (JAX :62-72, :179-186). A graph bakes in its buffers,
+  so each class keeps one static mini cache, and the chunk's tokens, its
+  ``start`` and the prompt's last row ``last_idx`` are the graph's inputs
+  (0-d device tensors; the row is picked inside the graph). Admissions of
+  one class interleave (``_admit``), so the class's cache holds the rows
+  of one of them at a time: another admission's rows are copied out when
+  it takes the cache over and back in when it resumes (exact copies of
+  the mini cache's few MB); a new admission starts on zeroed rows, as on
+  a new cache. The captures are bounded by the classes, whatever the
+  number of requests; ``warmup`` makes them all, in one memory pool
+  shared by the chunk graphs (they never run at once);
+* the batched decode step, one graph over the shared cache with the
+  tokens and the active mask as its inputs. The splice writes the shared
+  cache in place, so its buffers, and the graph, stay.
+
+Sampling runs on the host from a ``torch.Generator`` seeded from ``seed``,
+outside the graphs, as the JAX batcher samples on the host.
 
 With ``tp_mesh`` the two programs run tensor-parallel over the mesh's
 model group (``parallel.tp.tp_batch_fns``; JAX :95-140): each rank of the
 group runs a batcher over its shard of the params, its caches hold its KV
 heads, the slots are replicated, and every rank samples the same token
-from the gathered logits with the same seeded generator. Its decode runs
-eagerly: a CUDA graph's capture cannot hold a gloo collective (ROADMAP.md
-queue A item 11b).
+from the gathered logits with the same seeded generator. Under NCCL, with
+a card a rank, both programs replay graphs, the collectives inside; over
+gloo (ranks that share a card, or the CPU) they run eagerly, since a
+capture cannot hold a gloo collective, which stages through the host.
 """
 
 from __future__ import annotations
@@ -60,29 +76,38 @@ class Request:
 
 @dataclass
 class _Pending:
-    """A request mid-admission: its prompt prefills chunk by chunk into a
-    single-slot mini cache, interleaved with decode steps."""
+    """A request mid-admission: its prompt prefills chunk by chunk into the
+    static mini cache of its class, interleaved with decode steps."""
     req: Request
-    mini: KVCache
     padded: np.ndarray              # (1, ceil(T / C) * C) zero-padded prompt
     length: int                     # true prompt length T
     offset: int = 0                 # tokens prefilled so far
     last: Optional[torch.Tensor] = None   # last-token logits (final chunk)
+    # its mini cache's tensors while another admission of its class holds
+    # the class's cache (None while it holds it, or before its first chunk)
+    saved: Optional[List[torch.Tensor]] = None
+
+
+def _kv(cache: KVCache) -> List[torch.Tensor]:
+    """The K/V tensors of a cache: values or codes, and scales where kept."""
+    return [t for t in (cache.k, cache.v, cache.k_scale, cache.v_scale) if t is not None]
 
 
 @torch.inference_mode()
-def _prefill_chunk(params, tokens, cache1: KVCache, start: int, last_idx: int, *,
+def _prefill_chunk(params, tokens, cache1: KVCache, start, last_idx, *,
                    cfg: ModelConfig, qcfg: Optional[QuantConfig]):
     """One prompt chunk (1, C) on a single-slot cache at offset ``start``
     -> the logits (1, V) f32 at chunk row ``last_idx`` (they matter on the
     final chunk only: padding K/V past the prompt is causally masked and
-    overwritten as the slot decodes). The head runs over every row of the
-    chunk, as the JAX program does, so that each row takes its kernels'
-    M = C plan; the matmuls accumulate in f32, as in ``prefill``."""
+    overwritten as the slot decodes). ``start`` and ``last_idx`` are 0-d
+    int64 tensors on the cache's device, so that one CUDA graph serves
+    every chunk of a class, as JAX traces them. The head runs over every
+    row of the chunk, as the JAX program does, so that each row takes its
+    kernels' M = C plan; the matmuls accumulate in f32, as in ``prefill``."""
     with full_f32_accumulation():
         h = _forward_cached(params, cfg, tokens, cache1, qcfg, start=start)
         logits = head(params, cfg, h, qcfg)
-    return logits[:, last_idx, :]
+    return logits.index_select(1, last_idx.reshape(1))[:, 0]
 
 
 def _decode_all(params, tokens, cache: KVCache, active, *, cfg: ModelConfig,
@@ -104,33 +129,41 @@ class ContinuousBatcher:
         eng.submit(prompt_tokens, max_new_tokens=64)
         results = eng.run()          # {uid: np.ndarray of generated ids}
 
-    ``graph`` as ``generate.use_graph`` says: by default the decode step
-    is one CUDA graph on the card, and eager on the CPU.
+    ``graph`` as ``generate.use_graph`` says: by default the chunk prefill
+    and the decode step replay CUDA graphs on the card (module doc), and
+    run eagerly on the CPU; ``graph=False`` runs them eagerly on the card
+    too, bitwise the same.
 
     ``tp_mesh``: run both programs tensor-parallel over the mesh's model
     group; ``params`` is then this rank's shard (``parallel.tp_shard_params``,
     with ``tp_fused`` for ``fuse_model(shards=n)`` params), and every rank
-    of the group runs the same batcher on the same requests. A CUDA graph
-    is refused there (``graph=True`` raises ``NotImplementedError``)."""
+    of the group runs the same batcher on the same requests, in the same
+    order, so that every rank captures and replays the same collectives.
+    The graphs need NCCL with a card a rank (``parallel.tp.graphs_ok``):
+    over gloo ``graph=None`` runs eagerly and ``graph=True`` raises
+    ``ValueError``."""
 
     def __init__(self, params, cfg: ModelConfig, batch_slots: int = 8,
                  max_len: int = 1024, qcfg: Optional[QuantConfig] = None,
                  quantized_kv: bool = False, seed: int = 0,
                  prefill_chunk: int = 128, tp_mesh=None, tp_fused: bool = False,
                  graph: Optional[bool] = None):
+        self.device = params["embed"]["weight"].device
         self._kv_heads = cfg.num_kv_heads
+        group = None
         if tp_mesh is None:
             self._chunk_fn = functools.partial(_prefill_chunk, cfg=cfg, qcfg=qcfg)
             self._decode_fn = functools.partial(_decode_all, cfg=cfg, qcfg=qcfg)
         else:
-            if graph:
-                raise NotImplementedError(
-                    "tensor-parallel decode runs eagerly: its CUDA graph over NCCL is "
-                    "ROADMAP.md queue A item 11b")
-            from ..parallel.mesh import axis_size
-            from ..parallel.tp import tp_batch_fns
+            from ..parallel.mesh import axis_group, axis_size
+            from ..parallel.tp import GRAPHS_NEED, graphs_ok, tp_batch_fns
 
-            graph = False
+            # the device first: on the CPU the mesh is not read
+            ok = self.device.type == "cuda" and graphs_ok(tp_mesh)
+            if graph and not ok:
+                raise ValueError(GRAPHS_NEED)
+            graph = graph if ok else False
+            group = axis_group(tp_mesh, "model")
             self._kv_heads //= axis_size(tp_mesh, "model")
             self._chunk_fn, self._decode_fn = tp_batch_fns(params, cfg, tp_mesh, qcfg=qcfg,
                                                            fused=tp_fused)
@@ -141,9 +174,16 @@ class ContinuousBatcher:
         self.max_len = max_len
         self.quantized_kv = quantized_kv
         self.prefill_chunk = min(prefill_chunk, max_len)
-        self.device = params["embed"]["weight"].device
         self.cache = self._new_cache(batch_slots, max_len)
         self.graph = use_graph(graph, self.cache.lengths)
+        # what a graph's key holds beside its buffers: the configs and, under
+        # TP, the model group whose communicator its collectives bake in
+        self._key = (cfg, qcfg, group)
+        # chunk-count class -> its static single-slot cache, and the
+        # admission whose rows that cache holds
+        self._minis: Dict[int, KVCache] = {}
+        self._holder: Dict[int, _Pending] = {}
+        self._pool = torch.cuda.graph_pool_handle() if self.graph else None
         self.slot_req: List[Optional[Request]] = [None] * batch_slots
         self.pending: Dict[int, _Pending] = {}        # slot -> mid-admission
         self.queue: List[Request] = []
@@ -157,9 +197,49 @@ class ContinuousBatcher:
         return init_cache(self.cfg.num_layers, batch, max_len, self._kv_heads,
                           self.cfg.head_dim, quantized=self.quantized_kv, device=self.device)
 
+    @property
+    def chunk_classes(self) -> int:
+        """The chunk-count classes a prompt can take: a prompt of at most
+        ``max_len - 1`` tokens prefills in 1 .. this many chunks."""
+        return -(-(self.max_len - 1) // self.prefill_chunk)
+
+    def _mini(self, n: int, p: Optional[_Pending]) -> KVCache:
+        """The static mini cache of class ``n`` (``n`` chunks), holding the
+        rows of admission ``p`` (None: scratch rows, for ``warmup``). The
+        admission that held it keeps a copy of its rows; ``p`` gets its own
+        back, or zeroed rows before its first chunk."""
+        mini = self._minis.get(n)
+        if mini is None:
+            mini = self._minis[n] = self._new_cache(1, n * self.prefill_chunk)
+        holder = self._holder.get(n)
+        if holder is not p:
+            with torch.inference_mode():
+                if holder is not None:
+                    holder.saved = [t.clone() for t in _kv(mini)]
+                if p is not None and p.saved is not None:
+                    for t, rows in zip(_kv(mini), p.saved):
+                        t.copy_(rows)
+                else:
+                    for t in _kv(mini):
+                        t.zero_()
+            if p is None:
+                self._holder.pop(n, None)
+            else:
+                self._holder[n], p.saved = p, None
+        return mini
+
     def _chunk(self, tokens: np.ndarray, mini: KVCache, start: int, last_idx: int):
-        return self._chunk_fn(self.params, torch.from_numpy(tokens).to(self.device), mini,
-                              start, last_idx)
+        """One chunk prefill on ``mini`` -> the logits (1, V) at chunk row
+        ``last_idx``: a replay of the class's graph, with ``graph``."""
+        inputs = (torch.from_numpy(tokens).to(self.device),
+                  torch.tensor(start, device=self.device),
+                  torch.tensor(last_idx, device=self.device))
+        fn = lambda tok, at, row: self._chunk_fn(self.params, tok, mini, at, row)
+        if not self.graph:
+            with torch.inference_mode():
+                return fn(*inputs)
+        return graphs.run(mini, ("chunk",) + self._key, fn, inputs, reads=self.params,
+                          pool=self._pool)
 
     def _decode(self, active: List[bool]) -> torch.Tensor:
         """One decode step over the shared cache -> logits (B, V)."""
@@ -169,8 +249,8 @@ class ContinuousBatcher:
         if not self.graph:
             with torch.inference_mode():
                 return step(tokens, act)
-        return graphs.run(self.cache, ("decode_all", self.cfg, self.qcfg), step,
-                          (tokens, act), reads=self.params)
+        return graphs.run(self.cache, ("decode_all",) + self._key, step, (tokens, act),
+                          reads=self.params)
 
     # ------------------------------------------------------------------
     def submit(self, tokens: np.ndarray, **kw) -> int:
@@ -185,14 +265,18 @@ class ContinuousBatcher:
         return self._uid
 
     def warmup(self) -> None:
-        """Run both device programs before serving: the chunk prefill on a
-        scratch mini cache, and the decode step with no slot active, twice
-        with a graph (the eager first call, then the capture). Safe: the
-        dummy decode writes K/V at the lengths of idle slots, which
-        admission later overwrites."""
-        mini = self._new_cache(1, self.prefill_chunk)
-        self._chunk(np.zeros((1, self.prefill_chunk), np.int32), mini, 0, 0)
+        """Run both device programs before serving: the chunk prefill (with
+        a graph, of every chunk-count class on its static cache; else of
+        one class) and the decode step with no slot active, twice with a
+        graph (the eager first call, then the capture), so that ``run``
+        captures nothing. Safe: the dummy chunks write scratch rows, which
+        an admission zeroes or overwrites with its own, and the dummy
+        decode writes K/V at the lengths of idle slots, which admission
+        later overwrites."""
+        zeros = np.zeros((1, self.prefill_chunk), np.int32)
         for _ in range(2 if self.graph else 1):
+            for n in range(1, (self.chunk_classes if self.graph else 1) + 1):
+                self._chunk(zeros, self._mini(n, None), 0, 0)
             self._decode([False] * self.slots)
 
     def _start_pending(self) -> None:
@@ -204,24 +288,26 @@ class ContinuousBatcher:
                 C = self.prefill_chunk
                 padded = np.zeros((1, -(-T // C) * C), np.int32)
                 padded[0, :T] = req.tokens
-                # a mini cache of the chunk-rounded prompt, not of max_len
-                self.pending[s] = _Pending(req, self._new_cache(1, padded.shape[1]), padded, T)
+                # its class's mini cache holds the chunk-rounded prompt, not max_len
+                self.pending[s] = _Pending(req, padded, T)
 
     def _advance_pending(self, s: int) -> None:
         """Run one prompt chunk for slot ``s``; splice and activate the slot
         when its prompt is prefilled."""
         p = self.pending[s]
         C = self.prefill_chunk
+        n = p.padded.shape[1] // C
+        m = self._mini(n, p)
         last_idx = max(0, min(p.length - 1 - p.offset, C - 1))
-        p.last = self._chunk(p.padded[:, p.offset:p.offset + C], p.mini, p.offset, last_idx)
+        p.last = self._chunk(p.padded[:, p.offset:p.offset + C], m, p.offset, last_idx)
         p.offset += C
         if p.offset < p.padded.shape[1]:
             return
-        m = p.mini
         with torch.inference_mode():
             write_slot(self.cache, s, m.k[:, 0], m.v[:, 0],
                        *((m.k_scale[:, 0], m.v_scale[:, 0]) if self.quantized_kv else ()))
             self.cache.lengths[s] = p.length
+        del self._holder[n]
         self.slot_req[s] = p.req
         self.next_token[s, 0] = self._pick(p.last, p.req)
         del self.pending[s]

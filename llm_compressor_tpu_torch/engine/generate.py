@@ -183,7 +183,7 @@ def _i8_decode_attention(cfg: ModelConfig, layer: int, q, k, v, cache: KVCache):
 
 
 def _cached_attention(lp, cfg: ModelConfig, layer: int, x, cache: KVCache,
-                      ops: Optional[LayerOps], cos, sin, mask, start: Optional[int]):
+                      ops: Optional[LayerOps], cos, sin, mask, start):
     """Attention of a (B, T, E) slice: ``start`` set is prefill (K/V written
     at [start, start + T) of every slot), ``start`` None is decode (at each
     slot's length). Routed as the module doc says."""
@@ -209,11 +209,11 @@ def _o_proj(lp, out, ops: Optional[LayerOps]):
     return qlinear(out, o["weight"], o.get("bias"), ops.get("o") if ops else None, slot="o")
 
 
-def _forward_cached(params, cfg: ModelConfig, tokens, cache: KVCache, qcfg,
-                    start: Optional[int]):
+def _forward_cached(params, cfg: ModelConfig, tokens, cache: KVCache, qcfg, start):
     """Hidden states (B, T, E) of ``tokens`` at positions [start, start + T)
-    (prefill) or at each slot's length (decode, ``start`` None), writing
-    their K/V into ``cache``."""
+    (prefill; ``start`` a Python int or a 0-d int64 device tensor, as the
+    batcher's chunk graph passes it) or at each slot's length (decode,
+    ``start`` None), writing their K/V into ``cache``."""
     B, T = tokens.shape
     dev = tokens.device
     if start is None:

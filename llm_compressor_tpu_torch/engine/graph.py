@@ -27,6 +27,19 @@ port captures the same work in one CUDA graph and replays it.
   into the cache, give a new key;
 * copies the inputs into the graph's static inputs, replays, and returns
   the outputs as clones (the next replay overwrites the graph's pool).
+  Graphs that never run at once may share one memory pool (``pool``, a
+  ``torch.cuda.graph_pool_handle()``): a later capture may then take
+  blocks an earlier graph uses for its intermediates or its outputs,
+  which the clone has read before any other graph replays.
+
+Captures run in ``thread_local`` error mode, so that only the capturing
+thread's CUDA calls are checked: NCCL's watchdog thread polls the events
+of the eager collectives that run before a tensor-parallel capture
+(``parallel/tp.py``), and in the default ``global`` mode another thread's
+call that the capture forbids fails the capture. Collectives inside a
+capture are NCCL's, on ranks that each have a card: their communicator
+exists by then, since the eager first call of the key ran the same
+collectives on every rank.
 
 Nothing falls back: CPU tensors, a failed capture or a failed replay
 raise, and after a failed capture every call for its key captures again
@@ -122,12 +135,12 @@ class Graphs:
 _NEW = object()
 
 
-def _capture(fn: Callable, inputs: tuple) -> _Graph:
+def _capture(fn: Callable, inputs: tuple, pool=None) -> _Graph:
     static = tuple(x.clone() for x in inputs)
     graph = torch.cuda.CUDAGraph()
     before = launch_counts()
     try:
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
             outputs = fn(*static)
     finally:
         after = launch_counts()
@@ -136,13 +149,14 @@ def _capture(fn: Callable, inputs: tuple) -> _Graph:
     return _Graph(graph, static, outputs, counts)
 
 
-def run(cache, key, fn: Callable, inputs: Sequence[torch.Tensor] = (), reads=None):
+def run(cache, key, fn: Callable, inputs: Sequence[torch.Tensor] = (), reads=None, pool=None):
     """``fn(*inputs)``, which updates ``cache`` (a KVCache) in place, as one
     CUDA graph kept on the cache: eager at the first call for ``key`` and
     these buffers, captured at the second, replayed after (module doc).
     ``inputs`` are the tensors copied in at each call, ``reads`` what else
-    ``fn`` closes over (the params, buffers it updates beside the cache).
-    Returns ``fn``'s outputs: clones, where a graph ran."""
+    ``fn`` closes over (the params, buffers it updates beside the cache),
+    ``pool`` the memory pool a capture shares (None: its own). Returns
+    ``fn``'s outputs: clones, where a graph ran."""
     inputs = tuple(inputs)
     baked = _signature((cache, reads))
     devices = {x[0].type for x in baked if isinstance(x, tuple)} | {x.device.type for x in inputs}
@@ -154,7 +168,7 @@ def run(cache, key, fn: Callable, inputs: Sequence[torch.Tensor] = (), reads=Non
     with torch.inference_mode():
         entry = entries.get(full, _NEW)
         if entry is None:           # a failed capture leaves None: the next call raises too
-            entry = entries[full] = _capture(fn, inputs)
+            entry = entries[full] = _capture(fn, inputs, pool)
             cache.graphs.captures += 1
         elif entry is _NEW:
             entries[full] = None

@@ -97,16 +97,24 @@ def _quant_i8(x: torch.Tensor):
     return codes.transpose(1, 2), scale.transpose(1, 2)
 
 
-def append_prefill(cache: KVCache, layer: int, k, v, start: int) -> None:
-    """Write k/v (B, T, KV, D) at positions [start, start + T) of every slot."""
+def append_prefill(cache: KVCache, layer: int, k, v, start) -> None:
+    """Write k/v (B, T, KV, D) at positions [start, start + T) of every slot.
+    ``start`` is a Python int (a slice), or a 0-d int64 device tensor, as
+    the batcher's chunk graph takes it (``index_copy_`` along S: a capture
+    cannot read a slice bound from the device); both write the same bits."""
     T = k.shape[1]
+    if isinstance(start, int):
+        put = lambda buf, x: buf[layer, :, :, start:start + T].copy_(x)
+    else:
+        rows = start + torch.arange(T, device=k.device)
+        put = lambda buf, x: buf[layer].index_copy_(2, rows, x)
     for buf, scale_buf, x in ((cache.k, cache.k_scale, k), (cache.v, cache.v_scale, v)):
         if cache.quantized:
             c, s = _quant_i8(x)
-            buf[layer, :, :, start:start + T] = c
-            scale_buf[layer, :, :, start:start + T] = s
+            put(buf, c)
+            put(scale_buf, s)
         else:
-            buf[layer, :, :, start:start + T] = x.transpose(1, 2).to(buf.dtype)
+            put(buf, x.transpose(1, 2).to(buf.dtype))
 
 
 def append_decode(cache: KVCache, layer: int, k, v, positions) -> None:

@@ -24,10 +24,10 @@ The JAX package drives every device from one process inside
   (all-reduce of a sum and of a max, all-gather) and stages them through
   the host itself.
 
-Decode runs eagerly under tensor parallelism: a CUDA graph's capture
-cannot hold a gloo collective, and ``ContinuousBatcher(tp_mesh=...,
-graph=True)`` raises ``NotImplementedError`` (ROADMAP.md queue A item
-11b).
+Under NCCL (a card a rank) the TP decode step and the TP batcher's two
+programs replay one CUDA graph a rank, the collectives captured inside
+(``tp.graphs_ok``); over gloo they run eagerly, since a capture cannot
+hold a gloo collective, and ``graph=True`` raises ``ValueError``.
 
 The JAX GSPMD path (``shard_params``, then a plain jitted ``forward`` that
 lets XLA place the collectives) has no PyTorch counterpart: here

@@ -29,9 +29,21 @@ Head and FFN counts must divide by ``n_model``.
 
 The functions return, on every rank, what the JAX package's global array
 holds: (B, vocab) logits, the vocab gathered over "model" and, for
-:func:`tp_serve_fns`, the batch over "data". Decode runs eagerly: a
-capture of a CUDA graph cannot hold a gloo collective (ROADMAP.md queue A
-item 11b).
+:func:`tp_serve_fns`, the batch over "data".
+
+JAX jits both program pairs under ``shard_map`` (JAX :235-248, :299-312).
+The port's counterpart is a CUDA graph a rank (``engine/graph.py``): where
+every rank of the group has a card of its own, over NCCL
+(:func:`graphs_ok`), ``tp_serve_fns``' decode step and both programs of
+the TP batcher replay one graph on each rank's card, its collectives
+(the act absmax's and the row-parallel sums' all-reduces, the logits'
+all-gather into one preallocated tensor) captured inside. Each graph is
+keyed by the model group as well as by its buffers. Every rank runs the
+same calls in the same order, so each makes its eager first call, whose
+collectives set NCCL's communicator up, before any rank captures, and the
+ranks' replays launch matching collectives. Over gloo (ranks that share a
+card, or the CPU) the steps run eagerly: a capture cannot hold a gloo
+collective, which stages through the host.
 """
 
 from __future__ import annotations
@@ -42,8 +54,9 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from ..engine import graph as graphs
 from ..engine.batching import _decode_all, _prefill_chunk
-from ..engine.generate import decode_step, prefill
+from ..engine.generate import _check_decode, _decode_one, prefill, use_graph
 from ..engine.kvcache import KVCache, init_cache
 from ..models.config import ModelConfig
 from ..models.layers import tp_trace
@@ -179,15 +192,31 @@ def _local_cfg(cfg: ModelConfig, n_model: int) -> ModelConfig:
                    num_kv_heads=cfg.num_kv_heads // n_model)
 
 
+GRAPHS_NEED = ("a CUDA graph of a tensor-parallel step needs NCCL with a card a rank: over "
+               "gloo (ranks that share a card, or the CPU) the step runs eagerly (graph=None "
+               "or False)")
+
+# PyTorch's newer name of ``all_gather_into_tensor``, which it deprecates
+_all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+def graphs_ok(mesh) -> bool:
+    """Whether the mesh's model group can run a TP step as a CUDA graph:
+    it runs over NCCL, which ``launch.pick_backend`` chooses only when
+    every rank has a card of its own."""
+    return dist.get_backend(axis_group(mesh, "model")) == "nccl"
+
+
 def _gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     """The blocks of ``x`` of the ``n`` ranks of ``group``, in rank order,
-    concatenated along ``dim`` (an all-gather)."""
+    concatenated along ``dim``: one all-gather into a tensor allocated
+    here, which a CUDA graph's capture can hold."""
     if n == 1:
         return x
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x, group=group)
-    return torch.cat(parts, dim=dim)
+    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    _all_gather_single(out, x, group=group)
+    return torch.cat(out.view(n, *x.shape).unbind(0), dim=dim)
 
 
 def _vocab_sharded(params, cfg: ModelConfig) -> bool:
@@ -231,17 +260,27 @@ def tp_forward(params, cfg: ModelConfig, mesh, tokens: torch.Tensor,
 
 
 def tp_serve_fns(params, cfg: ModelConfig, mesh, qcfg: Optional[QuantConfig] = None,
-                 fused: bool = False):
+                 fused: bool = False, graph: Optional[bool] = None):
     """(prefill_fn, decode_fn) over this rank's shard.
 
     ``prefill_fn(p, tokens, cache)`` and ``decode_fn(p, token, cache)``
     take the global tokens (B, T) / (B, 1) and this rank's cache
     (:func:`tp_init_cache`); each returns the last position's logits (B,
     vocab) f32 on every rank and the cache, updated in place. ``params``
-    is this rank's shard (``tp_shard_params``)."""
+    is this rank's shard (``tp_shard_params``).
+
+    ``graph``: by default the decode step, its gathers included, replays
+    one CUDA graph kept on the cache where :func:`graphs_ok` (NCCL, a card
+    a rank; the first call on a cache runs eagerly, the second captures),
+    and runs eagerly otherwise; ``graph=True`` over gloo raises
+    ``ValueError``, ``graph=False`` runs eagerly, bitwise the same."""
     tp = _ModelGroup(params, cfg, mesh)
     _check_fused(params, fused)
     data_group, n_data = axis_group(mesh, "data"), axis_size(mesh, "data")
+    ok = graphs_ok(mesh)
+    if graph and not ok:
+        raise ValueError(GRAPHS_NEED)
+    key = ("tp_decode_step", tp.lcfg, qcfg, tp.group, data_group)
 
     def _out(logits):
         return _gather(tp.logits(logits), 0, data_group, n_data)
@@ -251,11 +290,17 @@ def tp_serve_fns(params, cfg: ModelConfig, mesh, qcfg: Optional[QuantConfig] = N
             logits, cache = prefill(p, data_sharding(mesh, tokens), cache, cfg=tp.lcfg, qcfg=qcfg)
         return _out(logits), cache
 
-    def decode_fn(p, token, cache):
+    def step(p, token, cache):
         with tp.trace():
-            logits, cache = decode_step(p, data_sharding(mesh, token), cache, cfg=tp.lcfg,
-                                        qcfg=qcfg, graph=False)
-        return _out(logits), cache
+            return _out(_decode_one(p, token, cache, tp.lcfg, qcfg))
+
+    def decode_fn(p, token, cache):
+        token = data_sharding(mesh, token)
+        _check_decode(cache, 1)
+        if not (ok and use_graph(graph, token)):
+            with torch.inference_mode():
+                return step(p, token, cache), cache
+        return graphs.run(cache, key, lambda tok: step(p, tok, cache), (token,), reads=p), cache
 
     return prefill_fn, decode_fn
 

@@ -145,8 +145,9 @@ def test_short_admitted_before_long(model):
 
 
 def test_admission_mini_cache_right_sized(model):
-    """A pending mini cache is chunk-rounded to the prompt, not max_len:
-    at most 1.25x the prompt's own K/V plus one chunk of rounding."""
+    """The cache a chunk runs on is its class's static mini cache,
+    chunk-rounded to the prompt, not max_len: at most 1.25x the prompt's
+    own K/V plus one chunk of rounding."""
     _, _, tcfg, tp = model
     rng = np.random.default_rng(6)
     C, T = 4, 18                                        # 5 chunks of 4 -> 20
@@ -155,15 +156,20 @@ def test_admission_mini_cache_right_sized(model):
                             prefill_chunk=C)
     uid = eng.submit(toks, max_new_tokens=2)
     eng._start_pending()
-    (pend,) = eng.pending.values()
-    mini_cols = pend.mini.max_len
-    assert mini_cols == -(-T // C) * C
+    ((s, pend),) = eng.pending.items()
+    eng._advance_pending(s)                             # the first chunk
+    n = -(-T // C)
+    assert list(eng._minis) == [n] and eng._holder[n] is pend
+    mini = eng._minis[n]
+    mini_cols = mini.max_len
+    assert mini_cols == n * C
     kv_bytes = lambda c: sum(a.numel() * a.element_size()
                              for a in (c.k, c.v, c.k_scale, c.v_scale) if a is not None)
-    per_col = kv_bytes(pend.mini) / mini_cols
-    assert kv_bytes(pend.mini) <= 1.25 * T * per_col + C * per_col
+    per_col = kv_bytes(mini) / mini_cols
+    assert kv_bytes(mini) <= 1.25 * T * per_col + C * per_col
     assert mini_cols < eng.max_len
     tres = eng.run()
+    assert not eng._holder and eng._minis[n] is mini    # kept for the class's next prompt
     jres, _ = _both(model, [(toks, dict(max_new_tokens=2))], batch_slots=2, max_len=512,
                     quantized_kv=True, prefill_chunk=C)
     assert list(tres) == [uid] and len(tres[uid]) == 2
@@ -225,10 +231,11 @@ def test_slot_at_max_len_decodes_on(model, quantized_kv, acts):
 
 
 def test_tensor_parallel_raises(model):
-    """A TP mesh serves eagerly (``tests/test_torch_tp.py``); a CUDA graph
-    with one raises, naming its ROADMAP item, before the mesh is read."""
+    """A TP mesh serves eagerly over gloo (``tests/test_torch_tp.py``,
+    where ``graph=True`` over gloo raises too); a CUDA graph with one on
+    the CPU raises, naming what it needs, before the mesh is read."""
     _, _, tcfg, tp = model
-    with pytest.raises(NotImplementedError, match="item 11b"):
+    with pytest.raises(ValueError, match="needs NCCL with a card a rank"):
         ContinuousBatcher(tp, tcfg, tp_mesh=object(), graph=True)
 
 

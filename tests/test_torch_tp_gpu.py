@@ -1,6 +1,7 @@
 """Tensor parallelism on the card: the TP kernel path against the TP plain
-path, and B1-B4 at the local shapes of Llama-3.2-1B's ranks, each against
-its plain version.
+path, B1-B4 at the local shapes of Llama-3.2-1B's ranks, each against
+its plain version, and, with a card a rank, the NCCL graphs of the TP
+decode step and of the TP batcher against their eager runs (bitwise).
 
 Run on a machine with an H100:
 ``python -m pytest -m gpu --noconftest tests/test_torch_tp_gpu.py``.
@@ -59,6 +60,24 @@ def test_tp_kernel_path_matches_plain(cuda, n, tmp_path):
             checked += int(sure.sum())
             np.testing.assert_array_equal(got.argmax(-1)[sure], want.argmax(-1)[sure])
         assert checked > 0
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_nccl_graphs_equal_eager(cuda, n, tmp_path):
+    """Over NCCL, a card a rank: ``tp_serve_fns``' decode step replays a
+    CUDA graph (the first call eager, the second captures) with logits and
+    cache bitwise the eager TP step's on every rank, and the TP batcher's
+    chunk and decode graphs give the eager TP batcher's ids and shared
+    cache, with one capture a chunk-count class and one for the decode."""
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"the NCCL graph path needs a card a rank: {n} cards")
+    res = launch.run(torch_tp_ranks.nccl_graphs, n, str(tmp_path), (1,), backend="nccl",
+                     devices=[f"cuda:{r}" for r in range(n)], timeout=600)
+    for r in res:
+        assert r["decode_steps"] == [(True, 0), (True, 1), (True, 1), (True, 1)]
+        assert r["batcher_graph"] is True and r["batcher_eager"] is False
+        assert r["ids_equal"] and r["cache_equal"] and r["ids"] == res[0]["ids"]
+        assert r["captures"] == (r["captures"][2], 1, r["captures"][2])
 
 
 def _codes(gen, shape, int4):

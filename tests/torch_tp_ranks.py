@@ -71,7 +71,8 @@ def serve(case):
 
 def batcher(case):
     """The same requests through the TP batcher and the single-device one
-    (both eager, greedy)."""
+    (both eager, greedy); the errors of ``graph=True`` over gloo, for the
+    TP batcher and for ``tp_serve_fns``."""
     def run(params, tp_mesh=None):
         eng = engine.ContinuousBatcher(params, cfg, batch_slots=2, max_len=32, prefill_chunk=8,
                                        qcfg=qcfg, quantized_kv=case["quantized_kv"],
@@ -85,12 +86,15 @@ def batcher(case):
     mesh = parallel.make_mesh(n_data=1, n_model=case["n_model"])
     cfg, params, qcfg = _model(case)
     tp = run(parallel.tp_shard_params(models.stack_model(params), cfg, mesh), tp_mesh=mesh)
-    try:
-        engine.ContinuousBatcher(params, cfg, tp_mesh=mesh, graph=True)
-        graph_error = None
-    except NotImplementedError as e:
-        graph_error = str(e)
-    return {"tp": tp, "single": single, "graph_error": graph_error}
+    graph_errors = []
+    for build in (lambda: engine.ContinuousBatcher(params, cfg, tp_mesh=mesh, graph=True),
+                  lambda: parallel.tp_serve_fns(params, cfg, mesh, graph=True)):
+        try:
+            build()
+            graph_errors.append(None)
+        except ValueError as e:
+            graph_errors.append(str(e))
+    return {"tp": tp, "single": single, "graph_errors": graph_errors}
 
 
 def forward(case):
@@ -195,6 +199,77 @@ def row_parallel(case):
     return out
 
 
+def _gpu_model(world: int, seed: int):
+    """A small W4A8 model whose every local projection takes the kernels
+    (hidden 512, int4-g128: o and down at whole groups on each of 2 or 4
+    ranks), fused with ``shards=world`` and sharded over a 1 x world mesh:
+    (cfg, qcfg, mesh, this rank's shard)."""
+    from llm_compressor_tpu_torch.algorithms import pack_model, rtn
+
+    cfg = models.tiny_config("llama", hidden_size=512, intermediate_size=1024, num_heads=8,
+                             num_kv_heads=4, head_dim=64, vocab_size=1024, dtype="bfloat16")
+    qcfg = qformats.build_quant_config("int4-g[128]-rw", "int8-g[-1]-rw", None,
+                                       "int8-g[128]-rw", head_act="int8-g[-1]-rw")
+    params = models.init_params(cfg, seed=seed, device="cuda")
+    rtn(params, cfg, qcfg)
+    pack_model(params, cfg, qcfg)
+    mesh = parallel.make_mesh(n_data=1)
+    sp = parallel.tp_shard_params(
+        models.stack_model(models.fuse_model(params, cfg, qcfg, shards=world)), cfg, mesh,
+        fused=True)
+    return cfg, qcfg, mesh, sp
+
+
+def nccl_graphs(rank: int, world: int, seed: int) -> dict:
+    """Over NCCL, a card a rank (``tests/test_torch_tp_gpu.py``): the
+    decode step of ``tp_serve_fns`` as a CUDA graph against the eager TP
+    step from one prefilled state, 4 steps (the first eager, the second
+    captures, then replays): whether logits and cache were bitwise equal,
+    and the captures, after each; then the TP batcher with graphs against
+    the eager TP batcher on the same requests."""
+    from llm_compressor_tpu_torch.engine.graph import _map
+
+    def same(a, b):
+        return all(getattr(a, n) is None or torch.equal(getattr(a, n), getattr(b, n))
+                   for n in ("k", "v", "k_scale", "v_scale", "lengths"))
+
+    cfg, qcfg, mesh, sp = _gpu_model(world, seed)
+    prefill_fn, decode_fn = parallel.tp_serve_fns(sp, cfg, mesh, qcfg=qcfg, fused=True)
+    _, eager_fn = parallel.tp_serve_fns(sp, cfg, mesh, qcfg=qcfg, fused=True, graph=False)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (8, 16), generator=g, device="cuda",
+                         dtype=torch.int32)
+    cache = parallel.tp_init_cache(cfg, mesh, 8, 32, quantized=True)
+    logits, cache = prefill_fn(sp, toks, cache)
+    ref = _map(torch.clone, cache)
+    tok, steps = torch.argmax(logits, -1).to(torch.int32)[:, None], []
+    for _ in range(4):
+        got, cache = decode_fn(sp, tok, cache)
+        want, ref = eager_fn(sp, tok, ref)
+        steps.append((bool(torch.equal(got, want) and same(cache, ref)), cache.graphs.captures))
+        tok = torch.argmax(got, -1).to(torch.int32)[:, None]
+
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, (t,)).astype(np.int32) for t in (5, 40, 17, 58, 33)]
+    engines = []
+    for graph in (None, False):
+        eng = engine.ContinuousBatcher(sp, cfg, batch_slots=3, max_len=64, qcfg=qcfg,
+                                       quantized_kv=True, prefill_chunk=16, tp_mesh=mesh,
+                                       tp_fused=True, graph=graph)
+        eng.warmup()
+        for p in prompts:
+            eng.submit(p, max_new_tokens=8)
+        engines.append((eng, eng.run()))
+    (ge, gids), (ee, eids) = engines
+    return {"decode_steps": steps, "batcher_graph": ge.graph, "batcher_eager": ee.graph,
+            "ids_equal": set(gids) == set(eids) and all(np.array_equal(gids[u], eids[u])
+                                                         for u in gids),
+            "ids": {int(u): v.tolist() for u, v in gids.items()},
+            "cache_equal": same(ge.cache, ee.cache),
+            "captures": (sum(m.graphs.captures for m in ge._minis.values()),
+                         ge.cache.graphs.captures, ge.chunk_classes)}
+
+
 KINDS = {"row_parallel": row_parallel, "serve": serve, "batcher": batcher, "forward": forward, "refusals": refusals,
          "mesh_layout": mesh_layout}
 
@@ -212,17 +287,15 @@ def fail_on(rank: int, world: int, bad_rank: int) -> int:
 
 
 def gpu_paths(rank: int, world: int, seed: int) -> dict:
-    """On the card (``tests/test_torch_tp_gpu.py``): a small W4A8 model
-    whose every local projection takes the kernels (hidden 512, int4-g128:
-    o and down at whole groups on each of 2 or 4 ranks), fused with
-    ``shards=world``, served by ``tp_serve_fns`` through the kernels and
-    through their plain versions; each rank's logits of the prefill and 3
-    decode steps, and the launches of each decode step."""
+    """On the card (``tests/test_torch_tp_gpu.py``): :func:`_gpu_model`
+    served by ``tp_serve_fns`` through the kernels and through their plain
+    versions (over NCCL the decode steps replay graphs from the second
+    step on); each rank's logits of the prefill and 3 decode steps, and
+    the launches of each decode step."""
     import contextlib
     import importlib
 
     from llm_compressor_tpu_torch import kernels
-    from llm_compressor_tpu_torch.algorithms import pack_model, rtn
     from llm_compressor_tpu_torch.kernels import decode_attention as da
     from llm_compressor_tpu_torch.kernels import w4a8_matmul as wm
 
@@ -245,17 +318,7 @@ def gpu_paths(rank: int, world: int, seed: int) -> dict:
             for m, n, f in saved:
                 setattr(m, n, f)
 
-    cfg = models.tiny_config("llama", hidden_size=512, intermediate_size=1024, num_heads=8,
-                             num_kv_heads=4, head_dim=64, vocab_size=1024, dtype="bfloat16")
-    qcfg = qformats.build_quant_config("int4-g[128]-rw", "int8-g[-1]-rw", None,
-                                       "int8-g[128]-rw", head_act="int8-g[-1]-rw")
-    params = models.init_params(cfg, seed=seed, device="cuda")
-    rtn(params, cfg, qcfg)
-    pack_model(params, cfg, qcfg)
-    mesh = parallel.make_mesh(n_data=1)
-    sp = parallel.tp_shard_params(
-        models.stack_model(models.fuse_model(params, cfg, qcfg, shards=world)), cfg, mesh,
-        fused=True)
+    cfg, qcfg, mesh, sp = _gpu_model(world, seed)
     fns = parallel.tp_serve_fns(sp, cfg, mesh, qcfg=qcfg, fused=True)
     g = torch.Generator(device="cuda").manual_seed(seed)
     toks = torch.randint(0, cfg.vocab_size, (8, 16), generator=g, device="cuda",
