@@ -264,14 +264,28 @@ Phases (each prints a line; any failure exits non-zero):
    with its chunk and decode graphs, the same launches as its eager run.
    Every rank's tokens, logits and ids must equal rank 0's.
    Step 3 adds B1, B2, B3 and B4 at the ranks' local shapes (n = 2, 4).
+17. surface — right after the ``w4a8`` slice (whose params it keeps as the
+   packed-head reference), Llama-3.2-1B at full width and depth, random
+   weights from ``--seed``, RTN W4A8: ``accumulate_hessian(...,
+   collect_outputs=True)`` on layer 0 over 8 x 512 synthetic tokens in
+   chunks of 4, its outputs bitwise ``decoder_layer``'s on each chunk on
+   the card; then ``pack_model(...,
+   pack_head=False)``, fused, stacked and served as the slices of step 5
+   (48 B1, 16 B2, 16 B4 and no B3 a decode step asserted, equal to the
+   replay's trace; B3 only in prefill), its graph tok/s beside the
+   packed-head ``w4a8`` slice's; its first 8 steps fed the packed-head
+   model's tokens, every token with a packed-head top-2 gap > 0.1 the
+   same; and the packed-weight bytes a decode step reads, the sum of
+   ``QTensor.nbytes`` over each stacked tree, equal to the bytes the
+   widths and weight formats give.
 The ``kernels`` JSON object, nvidia-smi's name and power limit and the
 slices' and serving engine's numbers (TTFT, decode tok/s over the graph,
 first-call and capture seconds, the eager loop's tok/s, peak memory; calibration seconds
 for ``spinquant_gptq``, RTN seconds for the formats slices; the formats phase's 2-layer
 checks; the archs, archs_b and calibration_b phases' checks; Wanda's and
 AWQ's seconds for ``wanda_awq_w4a8``; the optimize mode's losses, seconds a
-step and orthogonality for ``spinquant_opt_gptq``; the evalx, cli
-and tensor_parallel phases' numbers) come on the three lines before the last; the last is ``{"ok": true, "device": {...}}``.
+step and orthogonality for ``spinquant_opt_gptq``; the evalx, cli,
+tensor_parallel and surface phases' numbers) come on the three lines before the last; the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1511,7 +1525,7 @@ def check_gptq_beats_rtn(info, cfg, qcfg):
     ratios = {}
     for group in sequential_groups(cfg):
         tap = slot_tap(group[0])
-        H = accumulate_hessian(ctx, lp, 0, (tap,), ops)[tap]
+        H = accumulate_hessian(ctx, lp, 0, (tap,), ops)[0][tap]
         with full_f32_matmul():
             for slot in group:
                 W = get_weight(lp, slot)
@@ -1613,54 +1627,67 @@ def _traced_launches(names) -> dict:
     return out
 
 
+# profiled replays a slice may take before its trace holds every launch: the
+# profiler has been seen to drop about 1 % of a replay's kernel records
+# (hybrid decode, 1550 of 1568 B1 launches traced, the counters exact)
+TRACE_ATTEMPTS = 2
+
+
 def profile_decode(params, cfg, qcfg, cache, token, steps: int, attention="append"):
     """Device time per decode step by kernel class, and the device's idle
     share of the wall-clock window, from a ``torch.profiler`` trace of one
     replay of the ``steps``-step graph already captured for this cache
     (none may be captured inside the window). The trace's launches of each
     kernel (``launches_traced``) must equal what the replay added to the
-    launch counters. Where the trace holds no kernel of the graph, "not
-    measured"."""
+    launch counters; a trace short of records is kept in ``traces_short``
+    and the replay profiled again, up to TRACE_ATTEMPTS in all. Where the
+    trace holds no kernel of the graph, "not measured"."""
     from torch.profiler import ProfilerActivity, profile
 
     from llm_compressor_tpu_torch import kernels
     from llm_compressor_tpu_torch.engine import decode_greedy_steps
 
     captures = cache.graphs.captures
-    before = kernels.launch_counts()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        decode_greedy_steps(params, token, cache, n=steps, cfg=cfg, qcfg=qcfg,
-                            attention=attention)
+    mismatches = []
+    for _ in range(TRACE_ATTEMPTS):
+        before = kernels.launch_counts()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    after = kernels.launch_counts()
-    if cache.graphs.captures != captures:
-        raise AssertionError("the profiled decode captured a graph")
-    spans, by_class, names = [], {}, []
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        a, b = e.time_range.start, e.time_range.end
-        spans.append((a, b))
-        names.append(e.name)
-        k = _kernel_class(e.name)
-        by_class[k] = by_class.get(k, 0.0) + (b - a) / 1e3 / steps
-    busy_us = _union_us(spans)
-    if not any(k != "other" for k in by_class):
-        return {"device_ms_per_step": "not measured", "idle_share": "not measured",
-                "launches_traced": "not measured", "wall_ms_per_step": wall_ms / steps}
-    traced = _traced_launches(names)
-    counted = {k: sum(after[c] - before[c] for c in cs) for k, cs in TRACED_KERNELS.items()}
-    if traced != counted:
-        raise AssertionError(f"{attention} decode: the replay's trace launched {traced}, its "
-                             f"counters added {counted}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            decode_greedy_steps(params, token, cache, n=steps, cfg=cfg, qcfg=qcfg,
+                                attention=attention)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        after = kernels.launch_counts()
+        if cache.graphs.captures != captures:
+            raise AssertionError("the profiled decode captured a graph")
+        spans, by_class, names = [], {}, []
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            a, b = e.time_range.start, e.time_range.end
+            spans.append((a, b))
+            names.append(e.name)
+            k = _kernel_class(e.name)
+            by_class[k] = by_class.get(k, 0.0) + (b - a) / 1e3 / steps
+        busy_us = _union_us(spans)
+        if not any(k != "other" for k in by_class):
+            return {"device_ms_per_step": "not measured", "idle_share": "not measured",
+                    "launches_traced": "not measured", "wall_ms_per_step": wall_ms / steps}
+        traced = _traced_launches(names)
+        counted = {k: sum(after[c] - before[c] for c in cs) for k, cs in TRACED_KERNELS.items()}
+        if traced == counted:
+            break
+        mismatches.append({"traced": traced, "counted": counted})
+    else:
+        raise AssertionError(f"{attention} decode: in {TRACE_ATTEMPTS} profiled replays the "
+                             f"trace's launches never equalled the counters': {mismatches}")
     return {"wall_ms_per_step": wall_ms / steps,
             "device_busy_ms_per_step": busy_us / 1e3 / steps,
             "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
             "device_ms_per_step": {k: round(v, 4) for k, v in sorted(by_class.items())},
-            "launches_traced": {k: v for k, v in traced.items() if v}}
+            "launches_traced": {k: v for k, v in traced.items() if v},
+            "traces_short": mismatches}
 
 
 ATTENTION_MARK = "chip_smoke.prefill_attention"
@@ -1795,6 +1822,156 @@ def phase_slice(seed: int, serving, kernel_names, model=None, attention="append"
             "loop_decode_tok_s": BATCH * STEPS / (r["loop_ms"] / 1e3),
             "peak_mem_gib": r["peak"] / 2 ** 30,
             "allocated_before_gib": r["allocated_before"] / 2 ** 30, "profile": prof}
+
+
+# the surface phase: calibration samples x tokens of the Hessian pass, and the
+# teacher-forced decode steps held to the packed-head model's tokens
+SURFACE_HESSIAN = (8, 512)
+SURFACE_STEPS = 8
+W4A8_DENSE_HEAD_PER_STEP = W4A8_PER_STEP | {"w4a8_flat": 0, "decode_attention_append": LAYERS}
+
+
+# bytes a code of each weight format takes in the checkpoint (int4: two a byte)
+CODE_BYTES = {"int4": 0.5, "int8": 1, "fp8_e4m3": 1, "fp8_e5m2": 1}
+
+
+def expected_packed_bytes(cfg, qcfg, pack_head: bool) -> int:
+    """The packed-weight bytes of a Llama-family model, from its widths and
+    its weight formats alone: for each decoder projection (N, C) and, with
+    ``pack_head``, the (V, H) head, N * C codes at ``CODE_BYTES`` of the
+    format, plus N * C / g f32 scales (and as many f32 zeros with a zero
+    point) for group size g."""
+    H, I, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    q_out, kv_out = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    layer = [(q_out, H), (kv_out, H), (kv_out, H), (H, q_out), (I, H), (I, H), (H, I)]
+
+    def linear_bytes(q, n, c):
+        if q.qtype != "int" or q.group_size <= 0 or c % q.group_size:
+            raise ValueError(f"no byte formula here for {q}")
+        per_group = 4 * (2 if q.zero_point else 1)
+        return int(n * c * CODE_BYTES[q.fmt.name]) + n * (c // q.group_size) * per_group
+
+    w = qcfg.linear.weight
+    total = cfg.num_layers * sum(linear_bytes(w, n, c) for n, c in layer)
+    if pack_head:
+        total += linear_bytes(qcfg.head.weight, cfg.vocab_size, H)
+    return total
+
+
+def packed_bytes(params, expected: int) -> dict:
+    """The packed weights of a params tree (stacked or not): how many
+    QTensors and the sum of their ``nbytes``, which must equal
+    ``expected`` (``expected_packed_bytes``)."""
+    qts = list(_qtensors(params).values())
+    nbytes = sum(q.nbytes for q in qts)
+    if nbytes != expected:
+        raise AssertionError(f"QTensor.nbytes sums to {nbytes} bytes, the widths and formats "
+                             f"give {expected}")
+    return {"qtensors": len(qts), "nbytes": nbytes, "expected": expected}
+
+
+def phase_surface(seed: int, packed_head_model, packed_head_tok_s: float) -> dict:
+    """The options that close the port's surface, on Llama-3.2-1B at full
+    width and depth (random bf16 weights from ``seed``, RTN under the
+    headline W4A8 config, as ``build_model``):
+
+    * ``accumulate_hessian(..., collect_outputs=True)`` on layer 0 (RTN'd,
+      before packing, with its W4A8 act quantizers) over SURFACE_HESSIAN
+      synthetic tokens in chunks of 4: the outputs, in sample order,
+      bitwise those of ``decoder_layer`` called on each chunk under the
+      same ``full_f32_matmul``, the Hessians finite;
+    * ``pack_model(..., pack_head=False)``, fused, stacked and served as the
+      ``w4a8`` slice (``phase_slice``): 48 B1, 16 B2, 16 B4 and no B3 a
+      decode step (the dense head runs its int8 act fake quantization and
+      a bf16 matmul), equal to the replay's trace; its graph tok/s beside
+      the packed-head ``w4a8`` slice's (``packed_head_tok_s``);
+    * the first SURFACE_STEPS decode steps teacher-forced with the
+      packed-head model's tokens (``packed_head_model``, the ``w4a8``
+      slice's params): every token whose packed-head top-2 gap exceeds 0.1
+      the same;
+    * the packed-weight bytes a decode step reads, both models: the sum of
+      ``QTensor.nbytes`` equal to the bytes the widths and formats give
+      (``packed_bytes``, ``expected_packed_bytes``)."""
+    from llm_compressor_tpu_torch import kernels
+    from llm_compressor_tpu_torch.algorithms import pack_model, rtn
+    from llm_compressor_tpu_torch.capture import TAP_KEYS, accumulate_hessian, capture_layer0
+    from llm_compressor_tpu_torch.device import full_f32_matmul
+    from llm_compressor_tpu_torch.models import (decoder_layer, fuse_model, init_params,
+                                                 layer_ops, make_causal_mask, rope_for_layer,
+                                                 stack_model)
+    from llm_compressor_tpu_torch.qformats import build_quant_config
+    from llm_compressor_tpu_torch.utils import synthetic_tokens
+
+    t_start = time.perf_counter()
+    qargs, head_act, _ = W4A8
+    cfg = flagship_cfg(LAYERS)
+    qcfg = build_quant_config(*qargs, head_act=head_act)
+    params = init_params(cfg, seed=seed)
+    rtn(params, cfg, qcfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_start
+
+    n, T = SURFACE_HESSIAN
+    ctx = capture_layer0(params, cfg, synthetic_tokens(n, T, cfg.vocab_size, seed), chunk=4)
+    lp0, ops = params["layers"][0], layer_ops(cfg, qcfg, 0)
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    H, outs = accumulate_hessian(ctx, lp0, 0, TAP_KEYS, ops, collect_outputs=True)
+    torch.cuda.synchronize()
+    hessian_s = time.perf_counter() - t0
+    want = []
+    with full_f32_matmul(), torch.no_grad():
+        for a in range(0, n, ctx.chunk):
+            pos = ctx.positions[a:a + ctx.chunk]
+            cos, sin = rope_for_layer(cfg, 0, pos)
+            want.append(decoder_layer(lp0, cfg, ctx.hidden[a:a + ctx.chunk], cos, sin,
+                                      make_causal_mask(cfg, 0, pos, pos), ops, {}))
+    want = torch.cat(want, 0)
+    hessians = {"samples_tokens": [n, T], "chunk": ctx.chunk, "outputs": list(outs.shape),
+                "outputs_bitwise_decoder_layer": torch.equal(outs, want),
+                "hessians": {k: list(v.shape) for k, v in H.items()},
+                "hessians_finite": all(bool(torch.isfinite(v).all()) for v in H.values()),
+                "seconds": hessian_s, "launches": _nonzero(kernels.launch_counts())}
+    if not (hessians["outputs_bitwise_decoder_layer"] and hessians["hessians_finite"]
+            and tuple(outs.shape) == (n, T, cfg.hidden_size) and set(H) == set(TAP_KEYS)):
+        raise AssertionError(f"accumulate_hessian(collect_outputs=True): {hessians}")
+    del ctx, H, outs, want
+
+    t0 = time.perf_counter()
+    pack_model(params, cfg, qcfg, pack_head=False)
+    if "lm_head" in params:
+        raise AssertionError("pack_head=False added a packed lm_head")
+    params = stack_model(fuse_model(params, cfg, qcfg))
+    torch.cuda.synchronize()
+    build_s += time.perf_counter() - t0
+    model = (cfg, qcfg, params)
+    s = phase_slice(seed, W4A8, W4A8_KERNELS, model=model, per_step=W4A8_DENSE_HEAD_PER_STEP)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    toks = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    ref, _ = teacher_forced(packed_head_model, W4A8, toks, SURFACE_STEPS, MAX_LEN)
+    feed = [torch.argmax(lg, -1).to(torch.int32)[:, None] for lg in ref[:-1]]
+    got, _ = teacher_forced(model, W4A8, toks, SURFACE_STEPS, MAX_LEN, feed=feed)
+    checked, agree, max_err = confident_agreement(ref, got, 0.1)
+    if agree != checked or checked == 0:
+        raise AssertionError(f"dense head against packed head: {agree}/{checked} confident "
+                             "tokens agree")
+    del ref, got
+    s.update(build_s=build_s, hessians=hessians,
+             packed_head_decode_tok_s=packed_head_tok_s,
+             vs_packed_head={"confident_tokens_equal": agree, "tokens": checked,
+                             "of": (SURFACE_STEPS + 1) * BATCH, "max_abs_logit_diff": max_err},
+             weight_bytes={"packed_head": packed_bytes(
+                               packed_head_model[2], expected_packed_bytes(cfg, qcfg, True)),
+                           "dense_head": packed_bytes(
+                               params, expected_packed_bytes(cfg, qcfg, False)),
+                           "dense_head_bf16_bytes": params["embed"]["weight"].numel()
+                           * params["embed"]["weight"].element_size()},
+             phase_s=time.perf_counter() - t_start)
+    del s["params"]
+    return s
 
 
 def check_generate(params, cfg, qcfg, seed: int):
@@ -3098,7 +3275,7 @@ def _layer0_error_ratios(cfg, qcfg, lp0, ctx0, calibrated):
     from llm_compressor_tpu_torch.models.transformer import arch_slots
     from llm_compressor_tpu_torch.qformats import quantize_dequant
 
-    H = accumulate_hessian(ctx0, lp0, 0, TAP_KEYS, layer_ops(cfg, qcfg, 0))
+    H, _ = accumulate_hessian(ctx0, lp0, 0, TAP_KEYS, layer_ops(cfg, qcfg, 0))
     n, out = ctx0.hidden.shape[0], {}
     with full_f32_matmul():
         for s in arch_slots(cfg):
@@ -4425,6 +4602,31 @@ def report_tensor_parallel(tp: dict, smi: str) -> None:
     log(f"tensor_parallel: {tp['seconds']:.1f} s")
 
 
+def report_surface(sf: dict, smi: str) -> None:
+    h, wb, vs = sf["hessians"], sf["weight_bytes"], sf["vs_packed_head"]
+    log(f"surface: Llama-3.2-1B W4A8, {LAYERS} layers, pack_model(pack_head=False) (RTN -> "
+        f"pack -> fuse -> stack {sf['build_s']:.2f} s), batch {BATCH}, prompt {PROMPT}, max_len "
+        f"{MAX_LEN}: prefill (TTFT) {sf['ttft_ms']:.2f} ms, {STEPS} decode steps as one CUDA "
+        f"graph {sf['decode_ms']:.2f} ms = {sf['decode_tok_s']:.1f} tok/s against "
+        f"{sf['packed_head_decode_tok_s']:.1f} for the packed-head w4a8 slice (first call "
+        f"{sf['first_call_s']:.2f} s, capture {sf['capture_s']:.2f} s; eager loop "
+        f"{sf['loop_decode_tok_s']:.1f} tok/s, tokens and cache bitwise equal), peak memory "
+        f"{sf['peak_mem_gib']:.2f} GiB on {smi}; launches {sf['counts']}, per decode step "
+        f"{sf['per_step']}, traced {sf['profile'].get('launches_traced')}")
+    log(f"surface: the first {SURFACE_STEPS} steps fed the packed-head model's tokens: "
+        f"{vs['confident_tokens_equal']}/{vs['tokens']} tokens with a packed-head top-2 gap > "
+        f"0.1 equal (of {vs['of']}); max |logit diff| {vs['max_abs_logit_diff']:.4g}")
+    log(f"surface: packed weights a decode step reads, sum of QTensor.nbytes over the stacked "
+        f"tree = the bytes the widths and formats give: packed head "
+        f"{wb['packed_head']['nbytes']} bytes in {wb['packed_head']['qtensors']} QTensors, dense "
+        f"head {wb['dense_head']['nbytes']} in {wb['dense_head']['qtensors']} (plus the bf16 "
+        f"head, {wb['dense_head_bf16_bytes']} bytes)")
+    log(f"surface: accumulate_hessian(collect_outputs=True), layer 0, {h['samples_tokens'][0]} "
+        f"x {h['samples_tokens'][1]} tokens in chunks of {h['chunk']}: outputs {h['outputs']} "
+        f"bitwise decoder_layer's {h['outputs_bitwise_decoder_layer']}, Hessians {h['hessians']} finite, "
+        f"{h['seconds']:.3f} s, launches {h['launches']}; the phase {sf['phase_s']:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4574,6 +4776,9 @@ def main() -> int:
             s["prefill_profile"] = profile_prefill(*w4a8_model, serving, args.seed)
             log(f"slice w4a8 prefill profile ({BATCH} x {PROMPT} tokens, torch.profiler, "
                 f"device ms by kernel family): {json.dumps(s['prefill_profile'])}")
+            surface = phase_surface(args.seed, w4a8_model, s["decode_tok_s"])
+            torch.cuda.empty_cache()
+            report_surface(surface, smi)
         if key == "weight_only":
             s["prefill_reduction"] = compare_prefill_reduction(
                 (s["cfg"], s["qcfg"], s["params"]), serving, BATCH, PROMPT, args.seed)
@@ -4725,6 +4930,7 @@ def main() -> int:
 
     metrics = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = lambda c: {k: c[k] for k in EXTRA_METRICS if k in c}
+    slices["w4a8_dense_head"] = surface
     runs = slices | {"actq_entry": actq}
     kernels = []
     for kname, cs in cases.items():
@@ -4747,7 +4953,10 @@ def main() -> int:
                       "archs_b_checks": {"families": ab["families"]},
                       "calibration_b_checks": cb["checks"],
                       "spinquant_optimize_2_layers": so["two_layers"], "evalx_checks": ev,
-                      "cli": cl, "tensor_parallel": tp}),
+                      "cli": cl, "tensor_parallel": tp,
+                      "surface_checks": {k: surface[k] for k in (
+                          "hessians", "vs_packed_head", "weight_bytes", "build_s",
+                          "phase_s")}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": count}}),
           flush=True)

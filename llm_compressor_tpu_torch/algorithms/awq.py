@@ -198,8 +198,13 @@ def _apply_scale(lp, cfg: ModelConfig, pair: ScalePair, scales):
 # ---------------------------------------------------------------------------
 
 
+# the slots whose clip search is skipped: the reference's q_/k_/query/key/
+# Wqkv names, by slot (JAX ``algorithms/awq.py:171``)
+CLIP_SKIP_SUBSTRINGS = ("q", "k", "qkv")
+
+
 def _clip_skip(slot: str) -> bool:
-    return slot in ("q", "k", "qkv")
+    return slot in CLIP_SKIP_SUBSTRINGS
 
 
 def _shrink(i: int, n_grid: int) -> float:

@@ -44,7 +44,7 @@ def gptq(params, cfg: ModelConfig, ctx: CalibContext, qcfg: QuantConfig,
         ops = layer_ops(cfg, qcfg, i)
         for group in sequential_groups(cfg):
             tap = slot_tap(group[0])
-            H = accumulate_hessian(ctx, lp, i, (tap,), ops)
+            H, _ = accumulate_hessian(ctx, lp, i, (tap,), ops)
             if timings is not None:
                 t = timings.add("hessians", t, dev)
             for slot in group:

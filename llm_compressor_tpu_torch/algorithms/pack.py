@@ -20,11 +20,15 @@ from .common import get_weight, set_weight, weight_quantizer_for
 
 
 def pack_model(params, cfg: ModelConfig, qcfg: QuantConfig,
-               scale_book: Optional[dict] = None) -> None:
+               scale_book: Optional[dict] = None, pack_head: bool = True) -> None:
     """Replace every quantizable linear weight with a packed QTensor (in
-    place); ``scale_book`` maps ``(layer, slot)`` to the (scales, zeros) to
-    pack with. With a head quantizer the lm_head is packed too; for tied embeddings a packed ``lm_head`` copy is added and the
-    embedding table stays dense for the gathers."""
+    place; JAX ``algorithms/pack.py:26-56``); ``scale_book`` maps ``(layer,
+    slot)`` to the (scales, zeros) to pack with. With ``pack_head`` and a
+    head quantizer the lm_head is packed too; for tied embeddings a packed
+    ``lm_head`` copy is added and the embedding table stays dense for the
+    gathers. ``pack_head=False`` leaves the head dense, tied or not: it is
+    then served as its (RTN'd) float weight behind the head's act
+    quantizer."""
     for i, lp in enumerate(params["layers"]):
         for slot in arch_slots(cfg):
             q = weight_quantizer_for(cfg, qcfg, i, slot)
@@ -42,7 +46,7 @@ def pack_model(params, cfg: ModelConfig, qcfg: QuantConfig,
             else:
                 set_weight(lp, slot, quantize_pack(q, W))
     hq = qcfg.head.weight
-    if hq.qtype != "dummy":
+    if pack_head and hq.qtype != "dummy":
         W = params["lm_head"]["weight"] if "lm_head" in params else params["embed"]["weight"]
         if not isinstance(W, QTensor):
             params.setdefault("lm_head", {})["weight"] = quantize_pack(hq, W)

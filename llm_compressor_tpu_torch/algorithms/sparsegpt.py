@@ -31,7 +31,7 @@ def sparsegpt(params, cfg: ModelConfig, ctx: CalibContext, sparsity_ratio: float
     taps = tuple(dict.fromkeys(slot_tap(s) for s in slots))
     for i, lp in enumerate(params["layers"]):
         ops = layer_ops(cfg, qcfg, i)
-        H = accumulate_hessian(ctx, lp, i, taps, ops)
+        H, _ = accumulate_hessian(ctx, lp, i, taps, ops)
         for slot in slots:
             W = get_weight(lp, slot)
             Wp = sparsegpt_update(W, H[slot_tap(slot)], sparsity_ratio, blocksize=blocksize)

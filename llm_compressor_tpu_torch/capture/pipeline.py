@@ -105,18 +105,25 @@ def _hessian_chunk(x: torch.Tensor) -> torch.Tensor:
 
 
 def accumulate_hessian(ctx: CalibContext, layer_params, layer_idx: int,
-                       tap_keys: Tuple[str, ...],
-                       ops: Optional[LayerOps] = None) -> Dict[str, torch.Tensor]:
+                       tap_keys: Tuple[str, ...], ops: Optional[LayerOps] = None,
+                       collect_outputs: bool = False):
     """One pass over the calibration set accumulating, per tap key,
-    H = (2 / n_samples) * sum_tokens x x^T. Returns {tap: (C, C) f32}."""
+    H = (2 / n_samples) * sum_tokens x x^T (JAX :136-160). Returns
+    (hessians {tap: (C, C) f32}, outs): with ``collect_outputs`` the
+    layer's outputs (N, T, hidden), concatenated over the chunks, else
+    None."""
     n_samples = ctx.hidden.shape[0]
     H: Dict[str, torch.Tensor] = {}
+    outs = [] if collect_outputs else None
     with full_f32_matmul():
-        for _, _, _, taps in run_layer(ctx, layer_params, layer_idx, ops, tap_keys):
+        for _, _, y, taps in run_layer(ctx, layer_params, layer_idx, ops, tap_keys):
             for k, x in taps.items():
                 h = _hessian_chunk(x)
                 H[k] = h if k not in H else H[k] + h
-    return {k: 2.0 * v / n_samples for k, v in H.items()}
+            if collect_outputs:
+                outs.append(y)
+    return ({k: 2.0 * v / n_samples for k, v in H.items()},
+            torch.cat(outs, 0) if collect_outputs else None)
 
 
 def layer_taps(ctx: CalibContext, layer_params, layer_idx: int,

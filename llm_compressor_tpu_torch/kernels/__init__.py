@@ -13,6 +13,7 @@ launch (``_build.py``).
 """
 
 from . import decode_attention, dequant_matmul, hadamard, w4a8_matmul
+from .hadamard import hadamard_transform
 
 _WRAPPERS = {
     "w4a8_stacked": (w4a8_matmul, "matmul_stacked"),

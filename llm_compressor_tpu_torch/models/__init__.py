@@ -17,14 +17,20 @@ from .params import (
 )
 from .transformer import (
     LayerOps,
+    arch_slots,
+    decoder_layer,
     embed,
     forward,
     forward_hidden,
     fuse_model,
     head,
     layer_ops,
+    make_causal_mask,
+    op_names,
     quant_uniform,
+    rope_for_layer,
     scan_segments,
+    stack_layers,
     stack_model,
     uniform_layers,
 )
@@ -87,6 +93,7 @@ __all__ = [
     "ModelConfig", "RopeScaling", "SUPPORTED_ARCHS", "from_hf_config", "to_hf_config",
     "init_params", "load_params_from_state_dict", "save_compressed", "load_compressed",
     "load_hf_checkpoint", "forward", "forward_hidden", "embed", "head", "tiny_config", "LayerOps",
-    "layer_ops", "fuse_model", "stack_model", "scan_segments", "uniform_layers",
-    "quant_uniform",
+    "layer_ops", "fuse_model", "stack_model", "stack_layers", "scan_segments", "uniform_layers",
+    "quant_uniform", "decoder_layer", "make_causal_mask", "op_names", "rope_for_layer",
+    "arch_slots",
 ]

@@ -16,7 +16,7 @@ as plain tensors, packed :class:`~..qformats.QTensor` or a
   (prefill) -> plain dequantization + torch.matmul, and M <= 256 -> the
   dequantize-in-kernel matmul (B5; weight-only serving).
 The thresholds were measured on a TPU; re-tuning them for the H100 is
-later work (ROADMAP.md).
+queue B step 7 of ROADMAP.md.
 
 Tensor parallelism (``parallel/tp.py``): inside :func:`tp_trace` a
 row-parallel slot (``o``, ``down``, ``fc2``: its contraction dim sharded

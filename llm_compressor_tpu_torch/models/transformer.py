@@ -521,12 +521,19 @@ def _stack(nodes):
     return torch.stack(nodes)
 
 
+def stack_layers(params: Params):
+    """The per-layer trees stacked along a leading L axis (JAX :716-718),
+    packed weights as stacked QTensors. Raises ``ValueError`` when the
+    layers' packed weights differ in format."""
+    return _stack(params["layers"])
+
+
 def stack_model(params: Params) -> Params:
     """Serving form: the per-layer list becomes one stacked dict
-    ``layers_stacked`` (leading L axis). Raises ``ValueError`` when the
-    layers' packed weights differ in format."""
+    ``layers_stacked`` (:func:`stack_layers`; JAX :721-727)."""
     new = dict(params)
-    new["layers_stacked"] = _stack(new.pop("layers"))
+    new["layers_stacked"] = stack_layers(params)
+    del new["layers"]
     return new
 
 

@@ -13,7 +13,8 @@ import enum
 from dataclasses import dataclass
 from functools import lru_cache
 
-FP32_MIN_NORMAL = 2.0 ** -126   # the smallest normal float32
+FP32_EXPONENT_BIAS = 127
+FP32_MIN_NORMAL = 2.0 ** (-FP32_EXPONENT_BIAS + 1)   # the smallest normal float32
 
 
 class ElemFormat(enum.Enum):
@@ -31,6 +32,11 @@ class ElemFormat(enum.Enum):
             return ElemFormat(fmt.lower())
         except ValueError as e:
             raise ValueError(f"Unknown element format: {fmt!r}") from e
+
+    @property
+    def is_int(self) -> bool:
+        """int4 and int8 (JAX ``qformats/formats.py:47-49``)."""
+        return self in (ElemFormat.int4, ElemFormat.int8)
 
     @property
     def bits(self) -> int:

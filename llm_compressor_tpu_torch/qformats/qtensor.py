@@ -62,6 +62,17 @@ class QTensor:
         return self.quantizer.fmt
 
     @property
+    def nbytes(self) -> int:
+        """Bytes of the codes, scales and zeros (JAX
+        ``qformats/qtensor.py:81-86``): what a checkpoint writes for this
+        tensor, and what a matmul over it reads."""
+        n = self.codes.numel() * self.codes.element_size()
+        n += self.scales.numel() * self.scales.element_size()
+        if self.zeros is not None:
+            n += self.zeros.numel() * self.zeros.element_size()
+        return n
+
+    @property
     def scales_t(self) -> Optional[torch.Tensor]:
         """(.., G, N) transposed scale strip of a 2-D row-wise symmetric int
         weight (the JAX kernels' layout; the CUDA kernels read ``scales``)."""

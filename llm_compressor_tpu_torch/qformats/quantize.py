@@ -296,11 +296,12 @@ def block_for(q: Quantizer, x) -> tuple[torch.Tensor, Optional[BlockMeta], Optio
     return xb, meta, axes
 
 
-def _qdq(q: Quantizer, x, jitted: bool):
+def _qdq(q: Quantizer, x, jitted: bool, scales=None, zeros=None):
     if q.qtype == "dummy":
         return x, (None, None)
     xb, meta, axes = block_for(q, x)
-    scales, zeros = find_params_blocked(q, xb, axes, jitted)
+    if scales is None:
+        scales, zeros = find_params_blocked(q, xb, axes, jitted)
     x_dq = fake_quantize_blocked(q, xb, scales, zeros, jitted)
     if meta is not None:
         x_dq = unblock(x_dq, meta)
@@ -314,8 +315,10 @@ def quantize_dequant_with_params(q: Quantizer, x):
     return _qdq(q, x, jitted=False)
 
 
-def quantize_dequant(q: Quantizer, x):
-    """Full fake quantization with the group statistics solved per call
-    (dynamic activation quantization). Jitted rounding, as the JAX
-    function, which is ``@jax.jit``."""
-    return _qdq(q, x, jitted=True)[0]
+def quantize_dequant(q: Quantizer, x, scales=None, zeros=None):
+    """Full fake quantization (JAX ``qformats/quantize.py:288-305``). With
+    ``scales`` None the group statistics are solved per call (dynamic
+    activation quantization); given ``scales`` and ``zeros`` (blocked, as
+    :func:`find_params` returns them) skip the solve. Jitted rounding, as
+    the JAX function, which is ``@jax.jit``."""
+    return _qdq(q, x, True, scales, zeros)[0]

@@ -103,7 +103,7 @@ def test_capture_and_hessians(chunk):
     np.testing.assert_array_equal(tctx.hidden.numpy(), np.asarray(jctx.hidden))
     for i in range(jcfg.num_layers):
         jH, _ = jpipe.accumulate_hessian(jctx, jp["layers"][i], i, jpipe.TAP_KEYS)
-        tH = tpipe.accumulate_hessian(tctx, tp["layers"][i], i, tpipe.TAP_KEYS)
+        tH, _ = tpipe.accumulate_hessian(tctx, tp["layers"][i], i, tpipe.TAP_KEYS)
         assert set(tH) == set(jH) == set(tpipe.TAP_KEYS)
         for k in jH:
             _close(tH[k].numpy(), jH[k], 1e-5)
@@ -131,7 +131,7 @@ def test_capture_and_hessians_w4a8(seed):
         jops, tops = jm.layer_ops(jcfg, jq, i), tm.layer_ops(tcfg, tq, i)
         tctx.hidden = torch.from_numpy(np.array(jctx.hidden))
         jH, _ = jpipe.accumulate_hessian(jctx, jp["layers"][i], i, jpipe.TAP_KEYS, jops)
-        tH = tpipe.accumulate_hessian(tctx, tp["layers"][i], i, tpipe.TAP_KEYS, tops)
+        tH, _ = tpipe.accumulate_hessian(tctx, tp["layers"][i], i, tpipe.TAP_KEYS, tops)
         for k in jH:
             want = np.asarray(jH[k])
             err = np.abs(tH[k].numpy() - want) / np.abs(want).max()

@@ -85,9 +85,10 @@ def recording(module, name):
 
     def rec(ctx, lp, i, taps, ops=None):
         out = real(ctx, lp, i, taps, ops)
+        stats = out[0] if isinstance(out, tuple) else out   # accumulate_hessian's pair
         calls.append(dict(layer=i, hidden=ctx.hidden.clone(), params=clone_tree(lp),
                           positions=ctx.positions.clone(), chunk=ctx.chunk,
-                          out={k: v.clone() for k, v in out.items()}))
+                          out={k: v.clone() for k, v in stats.items()}))
         return out
 
     with pytest.MonkeyPatch.context() as mp:

@@ -132,11 +132,11 @@ def recording_gptq_chain():
     calls = []
 
     def recording(ctx, lp, i, taps, ops=None):
-        H = tpipe.accumulate_hessian(ctx, lp, i, taps, ops)
+        H, outs = tpipe.accumulate_hessian(ctx, lp, i, taps, ops)
         calls.append(dict(layer=i, taps=tuple(taps), hidden=ctx.hidden.clone(),
                           positions=ctx.positions.clone(), chunk=ctx.chunk, params=clone_tree(lp),
                           H={k: v.clone() for k, v in H.items()}))
-        return H
+        return H, outs
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tgptq, "accumulate_hessian", recording)
