@@ -49,7 +49,9 @@ baked in, as the JAX scan traces it) and ``decode_step`` one step, so
 for a key on a cache runs eagerly and warms the kernels up, the second
 captures, later calls replay: a call made once on a new cache costs what
 the eager loop costs. The host checks that the steps fit the cache once
-per call, before the graph. The eager loop over steps and layers is the
+per call, before the graph. A ``decode_greedy_steps`` call is an
+``engine.decode`` span and the check an ``engine.check`` span
+(``utils/trace.py``). The eager loop over steps and layers is the
 CPU path, and the card's with ``graph=False``.
 ``generate_text`` wraps ``generate`` in the reference's chat template, or
 ``generate_speculative`` (``engine/speculative.py``) with ``speculative``.
@@ -86,6 +88,7 @@ from ..models.transformer import (
     scan_segments,
 )
 from ..qformats import QuantConfig
+from ..utils import trace
 from . import graph as graphs
 from .kvcache import (
     FreshKV,
@@ -248,7 +251,9 @@ def prefill(params, tokens: torch.Tensor, cache: KVCache, *, cfg: ModelConfig,
 def _check_decode(cache: KVCache, n: int) -> None:
     """Raise where ``n`` steps overrun the cache: one host sync, made before
     a graph's capture or replay, never inside it."""
-    if int(cache.lengths.max()) + n > cache.max_len:
+    with trace.span("engine.check"):
+        longest = int(cache.lengths.max())
+    if longest + n > cache.max_len:
         raise ValueError(f"{n} decode steps overrun the cache (max_len {cache.max_len})")
 
 
@@ -389,17 +394,19 @@ def decode_greedy_steps(params, token: torch.Tensor, cache: KVCache, *, n: int,
     decodes the same tokens and cache bitwise)."""
     if attention not in ATTENTION_MODES:
         raise ValueError(f"attention must be one of {ATTENTION_MODES}, not {attention!r}")
-    _check_decode(cache, n)
     if cfg.pos_embedding == "alibi":
         attention = "append"
     if attention != "append" and not fresh_path_ok(params, cfg, cache, qcfg):
         raise ValueError(f"attention={attention!r} needs stacked layers, an int8 cache and "
                          "int8 per-token acts on both attention matmuls")
-    if not use_graph(graph, token):
-        return _greedy_steps(params, token, cache, n, cfg, qcfg, attention), cache
-    toks = graphs.run(cache, ("decode_greedy_steps", n, cfg, qcfg, attention),
-                      lambda tok: _greedy_steps(params, tok, cache, n, cfg, qcfg, attention),
-                      (token,), reads=params)
+    replay = use_graph(graph, token)
+    with trace.span("engine.decode"):
+        _check_decode(cache, n)
+        if not replay:
+            return _greedy_steps(params, token, cache, n, cfg, qcfg, attention), cache
+        toks = graphs.run(cache, ("decode_greedy_steps", n, cfg, qcfg, attention),
+                          lambda tok: _greedy_steps(params, tok, cache, n, cfg, qcfg, attention),
+                          (token,), reads=params)
     return toks, cache
 
 

@@ -41,6 +41,11 @@ capture are NCCL's, on ranks that each have a card: their communicator
 exists by then, since the eager first call of the key ran the same
 collectives on every rank.
 
+A call's host work before and at the launch is in spans
+(``utils/trace.py``): ``graph.key`` (the key, the lookup and the
+eviction), ``graph.inputs`` and ``graph.replay`` (the host time of the
+launch).
+
 Nothing falls back: CPU tensors, a failed capture or a failed replay
 raise, and after a failed capture every call for its key captures again
 (and so raises again) instead of running eagerly.
@@ -55,6 +60,7 @@ from typing import Any, Callable, NamedTuple, Sequence
 import torch
 
 from ..kernels import add_counts, launch_counts
+from ..utils import trace
 
 MAX_GRAPHS = 8      # keys kept per cache: graphs, and first calls awaiting their capture
 
@@ -158,27 +164,31 @@ def run(cache, key, fn: Callable, inputs: Sequence[torch.Tensor] = (), reads=Non
     ``pool`` the memory pool a capture shares (None: its own). Returns
     ``fn``'s outputs: clones, where a graph ran."""
     inputs = tuple(inputs)
-    baked = _signature((cache, reads))
-    devices = {x[0].type for x in baked if isinstance(x, tuple)} | {x.device.type for x in inputs}
-    if devices != {"cuda"}:
-        raise ValueError("a CUDA graph needs CUDA tensors: on the CPU run the eager loop "
-                         "(graph=False)")
-    full = (key, baked, tuple((tuple(x.shape), x.dtype, x.device) for x in inputs))
     entries = cache.graphs.entries
-    with torch.inference_mode():
+    with trace.span("graph.key"):
+        baked = _signature((cache, reads))
+        devices = ({x[0].type for x in baked if isinstance(x, tuple)}
+                   | {x.device.type for x in inputs})
+        if devices != {"cuda"}:
+            raise ValueError("a CUDA graph needs CUDA tensors: on the CPU run the eager loop "
+                             "(graph=False)")
+        full = (key, baked, tuple((tuple(x.shape), x.dtype, x.device) for x in inputs))
         entry = entries.get(full, _NEW)
-        if entry is None:           # a failed capture leaves None: the next call raises too
-            entry = entries[full] = _capture(fn, inputs, pool)
-            cache.graphs.captures += 1
-        elif entry is _NEW:
+        if entry is _NEW:
             entries[full] = None
         entries.move_to_end(full)
         while len(entries) > MAX_GRAPHS:
             entries.popitem(last=False)
+    with torch.inference_mode():
         if entry is _NEW:           # the first call: eager, and the capture's warm-up
             return fn(*inputs)
-        for dst, x in zip(entry.inputs, inputs):
-            dst.copy_(x)
-        entry.graph.replay()
+        if entry is None:           # a failed capture leaves None: the next call raises too
+            entry = entries[full] = _capture(fn, inputs, pool)
+            cache.graphs.captures += 1
+        with trace.span("graph.inputs"):
+            for dst, x in zip(entry.inputs, inputs):
+                dst.copy_(x)
+        with trace.span("graph.replay"):
+            entry.graph.replay()
         add_counts(entry.counts)
         return _map(torch.clone, entry.outputs)

@@ -1,11 +1,16 @@
 """The CUDA-graph helper's CPU side (``engine/graph.py``): asking for a graph
 on CPU tensors raises instead of running the eager loop, a graph's key
 changes with every buffer it bakes in, and each cache keeps its own graphs.
-The graphs themselves run on the card (``tests/test_torch_kernels_gpu.py``)."""
+The graphs themselves run on the card (``tests/test_torch_kernels_gpu.py``);
+so do the tests of their spans (``utils/trace.py``) at the end of this file,
+marked ``gpu``: ``python -m pytest -m gpu tests/test_torch_graph.py``."""
+
+from collections import Counter
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from llm_compressor_tpu_torch import kernels
 from llm_compressor_tpu_torch.engine import ContinuousBatcher, decode_greedy_steps, init_cache
@@ -13,7 +18,8 @@ from llm_compressor_tpu_torch.engine import decode_step
 from llm_compressor_tpu_torch.engine import graph as tgraph
 from llm_compressor_tpu_torch.engine.speculative import speculative_rounds
 from llm_compressor_tpu_torch.models import init_params, tiny_config
-from torch_port_util import one_torch_thread  # noqa: F401
+from llm_compressor_tpu_torch.utils import trace
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -102,3 +108,88 @@ def test_add_counts():
     with pytest.raises(KeyError):
         kernels.add_counts({"no_such_kernel": 1})
     assert np.all(np.asarray(list(kernels.launch_counts().values())) == 0)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on the card)")
+    return torch.device("cuda")
+
+
+def _on_card(cuda):
+    cfg = tiny_config("llama")
+    p = init_params(cfg, device=cuda)
+    cache = init_cache(cfg.num_layers, 2, 64, cfg.num_kv_heads, cfg.head_dim, device=cuda)
+    return cfg, p, cache, torch.zeros((2, 1), dtype=torch.int32, device=cuda)
+
+
+PROGRAM_SPANS = ("engine.decode", "engine.check", "graph.key", "graph.inputs", "graph.replay")
+CUDA = torch.autograd.DeviceType.CUDA
+
+
+@pytest.mark.gpu
+def test_graph_spans_of_each_call(cuda):
+    """Every call for a key records ``graph.key``; the first (eager) no
+    more, and each from the second on (the capture, then replays)
+    ``graph.inputs`` and ``graph.replay``, all inside ``engine.decode``;
+    ``decode_step`` makes the same spans without ``engine.decode``."""
+    cfg, p, cache, tok = _on_card(cuda)
+    graph_steps = [[], ["graph.inputs", "graph.replay"], ["graph.inputs", "graph.replay"]]
+    for steps in graph_steps:
+        with trace.recording() as rec:
+            decode_greedy_steps(p, tok, cache, n=2, cfg=cfg)
+        rec = list(rec)
+        assert [s.name for s in rec] == ["engine.decode", "engine.check", "graph.key"] + steps
+        call = rec[0]
+        assert call.parent is None
+        assert all(s.parent == call.id and s.end_ns is not None for s in rec[1:])
+    for steps in graph_steps:
+        with trace.recording() as rec:
+            decode_step(p, tok, cache, cfg=cfg)
+        assert [s.name for s in rec] == ["engine.check", "graph.key"] + steps
+
+
+def _profiled_call(cfg, p, cache, tok):
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        decode_greedy_steps(p, tok, cache, n=2, cfg=cfg)
+        torch.cuda.synchronize()
+    return prof.events()
+
+
+@pytest.mark.gpu
+def test_spans_add_no_device_event(cuda):
+    """Under a profile with CUDA activity the spans of a replayed call
+    enter the trace as host ops, and no CUDA-type event bears a span's
+    name (the device's busy time and kernel classes stay the kernels')."""
+    cfg, p, cache, tok = _on_card(cuda)
+    for _ in range(2):                              # the eager call, the capture
+        decode_greedy_steps(p, tok, cache, n=2, cfg=cfg)
+    events = _profiled_call(cfg, p, cache, tok)
+    device = [e.name for e in events if e.device_type == CUDA]
+    host = {e.name for e in events if e.device_type != CUDA}
+    assert device and set(PROGRAM_SPANS) <= host
+    assert not [n for n in device if n.startswith(("engine.", "graph."))]
+
+
+@pytest.mark.gpu
+def test_replay_kernels_unchanged_by_the_tracer(cuda, monkeypatch):
+    """A replay's kernel events have the same names and count with the
+    tracer recording as with it off. (The profiler drops a record now and
+    then: a pair that differs is taken again once.)"""
+    cfg, p, cache, tok = _on_card(cuda)
+    for _ in range(2):
+        decode_greedy_steps(p, tok, cache, n=2, cfg=cfg)
+
+    def kernels_of(tracing):
+        with monkeypatch.context() as m:
+            if not tracing:
+                m.setattr(trace, "_profiler_enabled", lambda: False)
+            events = _profiled_call(cfg, p, cache, tok)
+        return Counter(e.name for e in events if e.device_type == CUDA)
+
+    for _ in range(2):
+        on, off = kernels_of(True), kernels_of(False)
+        if on == off:
+            break
+    assert on == off and sum(on.values()) > 0

@@ -18,6 +18,7 @@ from llm_compressor_tpu.capture import pipeline as jpipe
 from llm_compressor_tpu.models import layer_ops as j_layer_ops
 from llm_compressor_tpu.qformats.qtensor import QTensor as JQTensor
 from llm_compressor_tpu_torch.capture import pipeline as tpipe
+from torch_threads import one_torch_thread  # noqa: F401  (re-exported for the test files)
 
 ARCHS = ("llama", "qwen2", "qwen3", "gemma", "gemma2", "gemma3", "opt", "bloom", "phi")
 
@@ -67,17 +68,6 @@ def randomize(tree, seed):
 
     walk(tree)
     return tree
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The suite runs in several xdist workers: keep torch to one intra-op
-    thread each instead of oversubscribing the cores. Module scope, so it
-    also covers the module-scoped fixtures that run a whole slice."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def codes_of(Q, s, z, g):
