@@ -6,17 +6,18 @@ ops. Weights use the (out_features, in_features) orientation; they arrive
 as plain tensors, packed :class:`~..qformats.QTensor` or a
 :class:`LayerSlice` of a stacked one.
 
-:func:`qlinear` keeps the JAX package's routing so that numbers match:
-* a LayerSlice with int8 per-token acts and M <= 256 rows -> the stacked
-  W4A8 kernel (B1); any other LayerSlice is taken as its layer's QTensor
-  (a view);
-* a QTensor with int8 per-token acts and (M <= 256 or C/g <= 16) -> the
-  flat W4A8 kernel (B3);
-* otherwise the acts are quantized as configured, then M > 256 rows
-  (prefill) -> plain dequantization + torch.matmul, and M <= 256 -> the
-  dequantize-in-kernel matmul (B5; weight-only serving).
-The thresholds were measured on a TPU; re-tuning them for the H100 is
-queue B step 7 of ROADMAP.md.
+:func:`qlinear` routes a packed weight by :func:`w4a8_route`, given int8
+per-token acts and a weight the W4A8 kernels take: a LayerSlice within
+the device's row limit goes to the stacked W4A8 kernel (B1), read in
+place; any other LayerSlice is taken as its layer's QTensor (a view); a
+QTensor within the limit, or of C/g <= 16 K groups at any M, goes to the
+flat W4A8 kernel (B3). The limit is 256 rows on the CPU, the JAX
+package's (tuned on a TPU), so that the CPU tests see the JAX package's
+routes, and :data:`CARD_W4A8_ROWS` on the card, where the integer kernels
+beat the dense route up to that batch at any C/g (measured on the H100,
+PERF.md). Otherwise the acts are quantized as configured, then M > 256
+rows (prefill) -> plain dequantization + torch.matmul, and M <= 256 ->
+the dequantize-in-kernel matmul (B5; weight-only serving).
 
 Tensor parallelism (``parallel/tp.py``): inside :func:`tp_trace` a
 row-parallel slot (``o``, ``down``, ``fc2``: its contraction dim sharded
@@ -235,10 +236,31 @@ def int8_per_token(ai: Optional[Quantizer]) -> bool:
             and ai.group_size == -1 and not ai.zero_point)
 
 
-def _groups(qt: QTensor) -> int:
-    """C / g: the number of K groups of a packed weight."""
+# The most rows at which a W4A8 linear takes the integer kernels at any C/g
+# on the card. quantize_acts_per_token + B1 beat the dense route (fake
+# quant + dequantize + torch.matmul), each in a CUDA graph, by 14 % or more
+# at every row count up to 3072 for Qwen3's down and Phi-2's qkv and fc2,
+# tied at 4096 for Phi-2's qkv and lost at 6144 (PERF.md;
+# ``tools/w4a8_crossover.py``).
+CARD_W4A8_ROWS = 3072
+# The JAX package's limit, tuned on a TPU: it routes the CPU.
+_TPU_W4A8_ROWS = 256
+
+
+def w4a8_route(ai: Optional[Quantizer], qt: QTensor, m_rows: int, on_card: bool,
+               in_place: bool = False) -> bool:
+    """Whether a linear of ``m_rows`` rows over the packed weight ``qt``
+    (flat, or the stack a LayerSlice reads) takes the W4A8 kernels: int8
+    per-token acts, a weight they take, and M within the device's limit,
+    or, unless ``in_place`` (B1 reading a LayerSlice where it lies), C/g <=
+    16 K groups at any M. Off the card the limit is the JAX package's 256
+    rows, so the port's routes are the JAX package's."""
+    if not (int8_per_token(ai) and wm.supported(qt)):
+        return False
+    if m_rows <= (CARD_W4A8_ROWS if on_card else _TPU_W4A8_ROWS):
+        return True
     _, C, g = wm.weight_dims(qt)
-    return C // g
+    return not in_place and C // g <= 16
 
 
 def qlinear(x, weight, bias=None, op: Optional[OpQuantConfig] = None,
@@ -252,17 +274,14 @@ def qlinear(x, weight, bias=None, op: Optional[OpQuantConfig] = None,
     mm_bias = None if group is not None else bias
     layer = None
     if isinstance(weight, LayerSlice):
-        if int8_per_token(ai) and m_rows <= 256 and wm.supported(weight.qt):
+        if w4a8_route(ai, weight.qt, m_rows, x.is_cuda, in_place=True):
             weight, layer = weight.qt, weight.layer
         else:
             weight = weight.materialize()
 
     if isinstance(weight, QTensor):
-        if layer is not None:
+        if layer is not None or w4a8_route(ai, weight, m_rows, x.is_cuda):
             y = wm.w4a8_matmul(x, weight, mm_bias, layer=layer, absmax_group=group)
-        elif int8_per_token(ai) and wm.supported(weight) and (
-                m_rows <= 256 or _groups(weight) <= 16):
-            y = wm.w4a8_matmul(x, weight, mm_bias, absmax_group=group)
         else:
             x = _quant_in(ai, x, group)
             if m_rows > 256:

@@ -56,7 +56,6 @@ from .layers import (
     alibi_bias,
     apply_norm,
     apply_rope,
-    int8_per_token,
     layer_norm,
     qlinear,
     qmatmul_qk,
@@ -65,6 +64,7 @@ from .layers import (
     rope_cos_sin,
     rope_inv_freq,
     softcap,
+    w4a8_route,
 )
 
 Params = Dict[str, Any]
@@ -335,16 +335,13 @@ def attention(lp: Params, cfg: ModelConfig, x, cos, sin, mask,
 
 def _try_fused_gateup(cfg: ModelConfig, mp: Params, x, gop: Optional[OpQuantConfig]):
     """The fused gate|up + activation kernel (B2) for a stacked gateup
-    weight, under qlinear's integer-kernel conditions; None otherwise."""
+    weight, where qlinear would take the W4A8 kernels (:func:`w4a8_route`);
+    None otherwise."""
     w = mp["gateup"]["weight"]
-    if not isinstance(w, LayerSlice) or gop is None:
+    if not isinstance(w, LayerSlice) or gop is None or gop.act_out.qtype != "dummy":
         return None
-    if not (int8_per_token(gop.act_in) and gop.act_out.qtype == "dummy"):
-        return None
-    if not wm.gateup_silu_ok(w.qt, cfg.hidden_act):
-        return None
-    _, C, g = wm.weight_dims(w.qt)
-    if x.shape[:-1].numel() > 256 and C // g > 16:
+    if not (wm.gateup_silu_ok(w.qt, cfg.hidden_act)
+            and w4a8_route(gop.act_in, w.qt, x.shape[:-1].numel(), x.is_cuda)):
         return None
     return wm.gateup_silu_matmul(x, w.qt, cfg.hidden_act, w.layer)
 

@@ -136,6 +136,70 @@ def test_w4a8_ragged_n(cuda, N, out_dtype):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+def test_w4a8_qlinear_down_on_b1(cuda):
+    """``qlinear`` on a LayerSlice of a stacked int4-g128 weight of Qwen3's
+    ``down`` shape (N = 2048, C = 6144: 48 K groups) at M = 1024 rows with
+    int8 per-token acts: one B1 launch reading the layer in place (no B3,
+    no B5); bitwise the plain version on the same codes; within the JAX
+    routing test's bf16 tolerance (2e-2, ``tests/test_torch_dequant_matmul.py``)
+    of the dense route it took before (fake quant, dequantize,
+    ``torch.matmul``), which rounds acts and weights to bf16."""
+    from dataclasses import replace
+
+    from llm_compressor_tpu_torch import kernels
+    from llm_compressor_tpu_torch.models.layers import LayerSlice, maybe_quant, qlinear
+    from llm_compressor_tpu_torch.qformats import build_quant_config, dequantize
+
+    M, N, C = 1024, 2048, 6144
+    qts = _packed("int4-g[128]-rw", N, C, seed=5, stack=2)
+    qt = replace(qts[0], codes=torch.stack([q.codes for q in qts]).to(cuda),
+                 scales=torch.stack([q.scales for q in qts]).to(cuda))
+    op = build_quant_config("int4-g[128]-rw", "int8-g[-1]-rw", None, None).linear
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(M, C)).astype(np.float32))
+    x = x.to(cuda, torch.bfloat16)
+    before = kernels.launch_counts()
+    got = qlinear(x, LayerSlice(qt, 1), None, op, slot="down")
+    added = {k: n - before[k] for k, n in kernels.launch_counts().items()}
+    assert (added["w4a8_stacked"], added["w4a8_flat"], added["dequant_matmul"]) == (1, 0, 0)
+    x_i8, sx = wm.quantize_acts_per_token(x)
+    want = wm.w4a8_plain(x_i8, qt.codes[1], qt.scales[1], sx, wm._wfmt(qt), torch.bfloat16,
+                         splits=wm.matmul_stacked.last_grid[2])
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    dense = torch.matmul(maybe_quant(op.act_in, x), dequantize(qt.layer(1)).to(x.dtype).t())
+    torch.testing.assert_close(got.float(), dense.float(), rtol=2e-2,
+                               atol=2e-2 * float(dense.float().abs().max()))
+
+
+@pytest.mark.parametrize("C,above,want", [
+    (2048, False, (1, 0, 0)),  # 16 K groups within the limit: B1 in place
+    (2048, True, (0, 1, 0)),  # above it: the layer's view on B3
+    (6144, True, (0, 0, 0)),  # 48 groups above it: the dense route
+], ids=["16g_within", "16g_above", "48g_above"])
+def test_w4a8_qlinear_card_limit(cuda, C, above, want):
+    """``qlinear`` on a LayerSlice around ``CARD_W4A8_ROWS``: within it B1
+    reads the layer in place at any C/g; above it the layer is taken as a
+    view, B3 at C/g <= 16 and plain dequantization + ``torch.matmul``
+    beyond; each route's output is finite and of the input's dtype."""
+    from dataclasses import replace
+
+    from llm_compressor_tpu_torch import kernels
+    from llm_compressor_tpu_torch.models.layers import CARD_W4A8_ROWS, LayerSlice, qlinear
+    from llm_compressor_tpu_torch.qformats import build_quant_config
+
+    M, N = CARD_W4A8_ROWS + (1024 if above else -1024), 512
+    qts = _packed("int4-g[128]-rw", N, C, seed=7, stack=2)
+    qt = replace(qts[0], codes=torch.stack([q.codes for q in qts]).to(cuda),
+                 scales=torch.stack([q.scales for q in qts]).to(cuda))
+    op = build_quant_config("int4-g[128]-rw", "int8-g[-1]-rw", None, None).linear
+    x = torch.from_numpy(np.random.default_rng(8).normal(size=(M, C)).astype(np.float32))
+    x = x.to(cuda, torch.bfloat16)
+    before = kernels.launch_counts()
+    got = qlinear(x, LayerSlice(qt, 1), None, op, slot="down")
+    added = {k: n - before[k] for k, n in kernels.launch_counts().items()}
+    assert (added["w4a8_stacked"], added["w4a8_flat"], added["dequant_matmul"]) == want
+    assert got.dtype == x.dtype and got.shape == (M, N) and bool(torch.isfinite(got).all())
+
+
 @functools.lru_cache(maxsize=None)
 def _gateup_weights(spec, I, C):
     """A packed [gate | up] (2I, C) weight on the card, stacked as one

@@ -63,6 +63,27 @@ def test_tp_kernel_path_matches_plain(cuda, n, tmp_path):
 
 
 @pytest.mark.parametrize("n", [2, 4])
+def test_row_parallel_b1_above_256_rows(cuda, n, tmp_path):
+    """A row-parallel ``down`` at 1024 rows (Qwen3-1.7B's 2048 x 6144,
+    under ``models/layers.py::CARD_W4A8_ROWS``) takes B1 on every rank, as
+    the single device does: each rank's act codes and the per-token scales
+    (the absmax over the whole row) equal the single device's, every rank
+    holds rank 0's sum, within the dense-route routing tolerance
+    (``tests/test_torch_dequant_matmul.py``, 2e-2) of the single device's
+    output: the partials are rounded to bf16 and summed in bf16."""
+    backend = launch.pick_backend(n)
+    devices = [f"cuda:{r}" for r in range(n)] if backend == "nccl" else ["cuda:0"] * n
+    res = launch.run(torch_tp_ranks.gpu_row_parallel, n, str(tmp_path), (3,), backend=backend,
+                     devices=devices, timeout=600)
+    for r in res:
+        assert r["single"] == {"w4a8_stacked": 1} and r["tp"] == {"w4a8_stacked": 1}
+        assert r["codes_equal"] and r["scales_equal"]
+        np.testing.assert_array_equal(r["got"], res[0]["got"])
+        np.testing.assert_allclose(r["got"], r["want"], rtol=2e-2,
+                                   atol=2e-2 * np.abs(r["want"]).max())
+
+
+@pytest.mark.parametrize("n", [2, 4])
 def test_nccl_graphs_equal_eager(cuda, n, tmp_path):
     """Over NCCL, a card a rank: ``tp_serve_fns``' decode step replays a
     CUDA graph (the first call eager, the second captures) with logits and

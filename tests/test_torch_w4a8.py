@@ -12,6 +12,7 @@ the port does).
 """
 
 import importlib
+import itertools
 
 import numpy as np
 import jax
@@ -22,10 +23,13 @@ import torch
 from llm_compressor_tpu.qformats import parse_qspec as jparse, quantize_pack as jpack
 from llm_compressor_tpu_torch.convert import qtensor_from_numpy
 from llm_compressor_tpu_torch.kernels import w4a8_matmul as tw
+from llm_compressor_tpu_torch.models import layers as tl
+from llm_compressor_tpu_torch.qformats import parse_qspec as tparse
 from torch_port_util import jax_to_numpy, one_torch_thread  # noqa: F401
 
 # the package re-exports a function under the module's name
 jw = importlib.import_module("llm_compressor_tpu.kernels.w4a8_matmul")
+jl = importlib.import_module("llm_compressor_tpu.models.layers")
 C, N = 512, 256
 
 
@@ -110,6 +114,57 @@ def test_act_inside_bf16_matches_jax():
     assert got.dtype == torch.bfloat16
     a = np.asarray(want).astype(np.float32)
     np.testing.assert_allclose(got.float().numpy(), a, rtol=2.0 ** -8, atol=1e-5 * np.abs(a).max())
+
+
+@pytest.mark.parametrize("groups", [16, 48])
+@pytest.mark.parametrize("M", [256, 257, 1024, 3072, 3073, 24576])
+@pytest.mark.parametrize("stack", [1, 2], ids=["flat", "stacked"])
+def test_w4a8_route(M, groups, stack):
+    """qlinear's route to the W4A8 kernels (``w4a8_route``) over a weight of
+    C/g = ``groups`` K groups of 128 (48: Qwen3's down). On the CPU it is
+    the JAX package's rule, read from its own helpers, case for case: a
+    QTensor with int8 per-token acts, ``supported``, then M <= 256 or C/g
+    <= 16; a LayerSlice read in place (B1) at M <= 256 only. On the card M
+    up to ``CARD_W4A8_ROWS`` takes the kernels at any C/g: a down-like
+    weight at M = 1024 does, at 24576 rows (Qwen3's prefill group) it does
+    not; above the limit a LayerSlice is never read in place. Other acts
+    never take the kernels."""
+    jqt = _weights("int4-g[128]-rw", 128, 128 * groups, seed=groups, stack=stack)
+    tqt = qtensor_from_numpy(jax_to_numpy(jqt), "cpu")
+    ai = tparse("int8-g[-1]-rw")
+    jax_flat = jw.supported(jqt) and (M <= 256 or jl._w4a8_kgroups(jqt) <= 16)
+    jax_in_place = jw.supported(jqt) and M <= 256
+    assert tl.w4a8_route(ai, tqt, M, on_card=False) == jax_flat
+    assert tl.w4a8_route(ai, tqt, M, on_card=False, in_place=True) == jax_in_place
+    assert tl.w4a8_route(ai, tqt, M, on_card=True) == (M <= tl.CARD_W4A8_ROWS or groups <= 16)
+    assert tl.w4a8_route(ai, tqt, M, on_card=True, in_place=True) == (M <= tl.CARD_W4A8_ROWS)
+    assert 1024 <= tl.CARD_W4A8_ROWS < 9216
+    for other in (None, tparse("int8-g[128]-rw"), tparse("int4-g[-1]-rw")):
+        for on_card, in_place in itertools.product((False, True), repeat=2):
+            assert not tl.w4a8_route(other, tqt, M, on_card=on_card, in_place=in_place)
+
+
+@pytest.mark.parametrize("M,groups,want", [
+    (256, 16, 1), (257, 16, None), (256, 48, 1), (257, 48, "dense")])
+def test_qlinear_cpu_layer_slice_routes(monkeypatch, M, groups, want):
+    """On the CPU ``qlinear`` sends a LayerSlice as the JAX package does:
+    B1 on the layer in place at M <= 256; above, the layer's view on B3 at
+    C/g <= 16 K groups, else dequantization + ``torch.matmul``."""
+    from llm_compressor_tpu_torch.qformats import build_quant_config
+
+    jqt = _weights("int4-g[128]-rw", 128, 128 * groups, seed=groups, stack=2)
+    tqt = qtensor_from_numpy(jax_to_numpy(jqt), "cpu")
+    op = build_quant_config("int4-g[128]-rw", "int8-g[-1]-rw", None, None).linear
+    seen = []
+
+    def spy(x, qt, bias=None, layer=None, **kw):
+        seen.append(layer)
+        return torch.zeros(*x.shape[:-1], tl.wm.weight_dims(qt)[0], dtype=x.dtype)
+
+    monkeypatch.setattr(tl.wm, "w4a8_matmul", spy)
+    x = torch.randn(M, 128 * groups, generator=torch.Generator().manual_seed(M))
+    y = tl.qlinear(x.to(torch.bfloat16), tl.LayerSlice(tqt, 1), None, op, slot="down")
+    assert seen == ([] if want == "dense" else [want]) and y.shape == (M, 128)
 
 
 def test_act_quant_bitwise():

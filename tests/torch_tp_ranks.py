@@ -199,6 +199,54 @@ def row_parallel(case):
     return out
 
 
+def gpu_row_parallel(rank: int, world: int, seed: int) -> dict:
+    """On the card (``tests/test_torch_tp_gpu.py``): one row-parallel
+    ``down`` of Qwen3-1.7B's shape (2048 x 6144, int4-g128, a stacked
+    layer) at 1024 rows through ``qlinear``, on this rank's part of the
+    contraction dim under the model group, beside the single-device
+    ``qlinear`` over the whole row: the launches of each, whether this
+    rank's act codes and the scales equal the single device's, both
+    outputs."""
+    from dataclasses import replace
+
+    from llm_compressor_tpu_torch import kernels
+    from llm_compressor_tpu_torch.kernels import w4a8_matmul as wm
+    from llm_compressor_tpu_torch.models.layers import LayerSlice, qlinear, tp_trace
+    from llm_compressor_tpu_torch.qformats.config import parse_qspec
+    from llm_compressor_tpu_torch.qformats.qtensor import quantize_pack
+
+    M, N, C = 1024, 2048, 6144
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((M, C), generator=g, device="cuda").to(torch.bfloat16)
+    w = 0.02 * torch.randn((N, C), generator=g, device="cuda")
+    op = qformats.build_quant_config("int4-g[128]-rw", "int8-g[-1]-rw", None, None).linear
+    qt = quantize_pack(parse_qspec("int4-g[128]-rw"), w)
+    st = replace(qt, codes=torch.stack([qt.codes] * 2), scales=torch.stack([qt.scales] * 2))
+    mesh = parallel.make_mesh(n_data=1)
+    group, n = mesh.get_group("model"), mesh.size(1)
+    r = mesh.get_local_rank("model")
+    local = parallel.tp_shard_params({"layers_stacked": {"mlp": {"down": {"weight": st}}}},
+                                     None, mesh)["layers_stacked"]["mlp"]["down"]["weight"]
+    Cl = C // n
+    xl = x[:, r * Cl:(r + 1) * Cl].contiguous()
+
+    def launched(fn):
+        kernels.reset_counts()
+        y = fn()
+        torch.cuda.synchronize()
+        return y, {k: v for k, v in kernels.launch_counts().items() if v}
+
+    want, single = launched(lambda: qlinear(x, LayerSlice(st, 1), None, op, slot="down"))
+    with tp_trace(group, n):
+        got, tp = launched(lambda: qlinear(xl, LayerSlice(local, 1), None, op, slot="down"))
+    codes, scale = wm.quantize_acts_per_token(xl, group)
+    want_codes, want_scale = wm.quantize_acts_per_token(x)
+    return {"single": single, "tp": tp, "got": got.float().cpu().numpy(),
+            "want": want.float().cpu().numpy(),
+            "codes_equal": bool(torch.equal(codes, want_codes[:, r * Cl:(r + 1) * Cl])),
+            "scales_equal": bool(torch.equal(scale, want_scale))}
+
+
 def _gpu_model(world: int, seed: int):
     """A small W4A8 model whose every local projection takes the kernels
     (hidden 512, int4-g128: o and down at whole groups on each of 2 or 4
