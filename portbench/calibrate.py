@@ -1,7 +1,8 @@
 """Readings for a cell's limits: the program's widest gap and the
-control's (the reference with every 8-bit stage at 4 bits, at the same
-positions of the same served sequences) on each of several seeds, in one
-process, with the cell's own sizes and a short window.
+control's (the family's reference at its ``control_of`` precisions, by
+default every 8-bit stage at 4 bits, at the same positions of the same
+served sequences) on each of several seeds, in one process, with the
+cell's own sizes and a short window.
 
     python3 portbench/calibrate.py --workload <cell> --seconds <s> --seeds <n> [<n> ...]
 

@@ -5,7 +5,7 @@ prefilled once into an int8 cache, then jobs back to back, each
 
 Set-up: the prompts from the seed, prefilled by ``engine.prefill`` in
 groups of ``prefill_group`` slots (each group on a cache of its own,
-spliced into the shared cache by ``kvcache.write_slot``), then two calls
+spliced into the shared cache slot by slot), then two calls
 that build the graph (the eager first call, the capture). A job sets the
 cache's lengths back to the prompt's end in place and feeds new first
 tokens drawn from the seed; the rows past the prompt are written again.
@@ -14,6 +14,10 @@ Window: jobs until ``seconds`` have passed, ending at a job's end;
 ``decode_tok_s`` is every token generated in it over its seconds. Traced:
 the first call of the second job (the next call where the trace misses
 launches the counters saw) under the profiler.
+
+Every cache is made by the family's ``init_cache`` and filled by its
+``splice`` (``portbench/family.py``), so a family with state beside the
+KV cache runs through this driver as it is.
 """
 
 from __future__ import annotations
@@ -32,19 +36,15 @@ TRACE_ATTEMPTS = 2
 
 def _prefill(ctx, prompts, cache):
     from llm_compressor_tpu_torch import engine
-    from llm_compressor_tpu_torch.engine import kvcache
 
     t = ctx.traffic
     B, P = prompts.shape
     G = t["prefill_group"]
-    spec = ctx.spec
     for g0 in range(0, B, G):
-        group = engine.init_cache(spec.layers, G, P, spec.kv_heads, spec.head_dim,
-                                  quantized=ctx.bits.kv is not None, device=ctx.device)
+        group = ctx.family.init_cache(ctx, G, P)
         engine.prefill(ctx.params, prompts[g0:g0 + G], group, cfg=ctx.cfg, qcfg=ctx.qcfg)
         for j in range(G):
-            kvcache.write_slot(cache, g0 + j, group.k[:, j], group.v[:, j],
-                              group.k_scale[:, j], group.v_scale[:, j])
+            ctx.family.splice(cache, group, j, g0 + j)
         del group
     cache.lengths.fill_(P)
 
@@ -66,8 +66,7 @@ def run(ctx):
     tok_gen = ctx.generator(1)
     prompts = torch.randint(0, spec.vocab, (B, P), generator=ctx.generator(0),
                             device=ctx.device, dtype=torch.int32)
-    cache = engine.init_cache(spec.layers, B, P + n * calls, spec.kv_heads, spec.head_dim,
-                              quantized=ctx.bits.kv is not None, device=ctx.device)
+    cache = ctx.family.init_cache(ctx, B, P + n * calls)
     _prefill(ctx, prompts, cache)
 
     def call(tok):

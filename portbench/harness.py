@@ -10,7 +10,11 @@ metric or cell is a file of its own, found by name:
   its parameters;
 * ``metrics/<metric>.py``: ``read(record)`` -> a number, or None where the
   traced run holds nothing for it;
-* ``limits/<cell>.json``: each compared number's limit.
+* ``limits/<cell>.json``: each compared number's limit;
+* ``families/<model_type>.py``: the configuration's shapes and
+  mechanisms, and the hooks (``family.py``) through which a family
+  brings its own weights, params tree, reference, byte and operation
+  counters, cache set-up and tiny size.
 
 A driver's ``run(ctx)`` does the cell's own set-up on the model that the
 harness built, calls ``ctx.setup_done()``, measures its window between
@@ -34,9 +38,8 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from . import traceutil, weights
+from . import family, traceutil
 from .reference import model as reference
-from .spec import Spec, spec_of
 
 PB = Path(__file__).resolve().parent
 ROOT = PB.parent
@@ -91,31 +94,6 @@ def published(config: dict) -> dict:
     return {k: v for k, v in config.items() if k not in OWN_KEYS}
 
 
-def to_params(spec: Spec, W: Dict[str, torch.Tensor]) -> dict:
-    """The program's params tree (per-layer dicts of views into ``W``)."""
-    def entry(name, i=None):
-        pick = (lambda t: t) if i is None else (lambda t: t[i])
-        d = {"weight": pick(W[name])}
-        if name + ".bias" in W:
-            d["bias"] = pick(W[name + ".bias"])
-        return d
-
-    layers = []
-    for i in range(spec.layers):
-        attn = {s: entry(s, i) for s in ("q", "k", "v", "o")}
-        if spec.qk_norm:
-            attn["q_norm"], attn["k_norm"] = entry("q_norm", i), entry("k_norm", i)
-        mlp = {s: entry(s, i) for s in (("gate", "up", "down") if spec.gated else ("fc1", "fc2"))}
-        lp = {"ln1": entry("ln1", i), "attn": attn, "mlp": mlp}
-        if "ln2" in W:
-            lp["ln2"] = entry("ln2", i)
-        layers.append(lp)
-    params = {"embed": {"weight": W["embed"]}, "layers": layers, "final_norm": entry("final_norm")}
-    if not spec.tied:
-        params["lm_head"] = entry("lm_head")
-    return params
-
-
 def build_model(config: dict, seed: int, device):
     """(program cfg, qcfg, served params): the seed's weights, RTN, packed,
     fused and stacked, as the port serves the recipe."""
@@ -125,8 +103,10 @@ def build_model(config: dict, seed: int, device):
     r = config["recipe"]
     qcfg = qformats.build_quant_config(r["weight"], r["act_in"], None, r["head"],
                                        head_act=r["head_act"])
-    W = weights.draw(spec_of(config), seed, device)
-    params = to_params(spec_of(config), W)
+    fam = family.of(config)
+    spec = fam.spec(config)
+    W = fam.draw(spec, seed, device)
+    params = fam.params(spec, W)
     del W
     algorithms.rtn(params, cfg, qcfg)
     algorithms.pack_model(params, cfg, qcfg)
@@ -149,15 +129,18 @@ class Outcome:
 
 class Ctx:
     """What a driver gets: the cell, the seed, the window's length, whether
-    to trace, the device and the built model, and the harness's clock."""
+    to trace, the device, the family's hooks (``family``: a driver makes
+    and fills caches through its ``init_cache`` and ``splice``) and the
+    built model, and the harness's clock."""
 
     def __init__(self, cell: Cell, seed: int, seconds: float, trace: bool, device, t_start):
         self.cell, self.seed, self.seconds, self.trace = cell, seed, seconds, trace
         self.device = torch.device(device)
         self.traffic = cell.traffic
-        self.spec = spec_of(cell.config)
+        self.family = family.of(cell.config)
+        self.spec = self.family.spec(cell.config)
         # a recipe the reference does not model is refused before any work
-        self.bits = reference.bits_of(cell.config["recipe"])
+        self.bits = self.family.bits_of(cell.config["recipe"])
         self.t_start = t_start
         self.setup_s = None
         self.memory_peak = None
@@ -210,17 +193,19 @@ def check(cell: Cell, seed: int, device, samples: List[reference.Sample],
           control: bool = False) -> Dict[str, float]:
     """The widest gap by which a served token's reference logit lies below
     the reference's best over the samples; with ``control`` also the gap of
-    the tokens that the reference in the lower precision puts first."""
-    spec = spec_of(cell.config)
-    W = weights.draw(spec, seed, device)
-    bits = reference.bits_of(cell.config["recipe"])
-    ref = reference.logits(spec, W, samples, bits)
+    the tokens that the reference in the lower precision puts first. The
+    weights, the reference and the precisions are the family's."""
+    fam = family.of(cell.config)
+    spec = fam.spec(cell.config)
+    W = fam.draw(spec, seed, device)
+    bits = fam.bits_of(cell.config["recipe"])
+    ref = fam.logits(spec, W, samples, bits)
     # no served sequence to check reads as a failed check
     out = {"gap_max": max((reference.widest_gap(r, s.targets) for r, s in zip(ref, samples)),
                           default=float("inf")),
            "served_tokens": sum(int(s.targets.numel()) for s in samples)}
     if control:
-        low = reference.logits(spec, W, samples, reference.control_of(bits))
+        low = fam.logits(spec, W, samples, fam.control_of(bits))
         out["control_gap_max"] = max((reference.widest_gap(r, torch.argmax(lo, -1))
                                       for r, lo in zip(ref, low)), default=float("inf"))
     return out

@@ -28,7 +28,11 @@ running across its rows, over an int8 per-token KV cache):
 ``Bits`` states the precision of each stage (None: not quantized);
 :func:`bits_of` reads it from a configuration's ``recipe`` and refuses
 what the reference does not model; :func:`control_of` lowers every 8-bit
-stage to 4 bits.
+stage to 4 bits. A family whose layers this file does not model has a
+reference of its own beside it (``portbench/family.py``), which may
+import the quantizers and norms here (``rtn``, ``fq``, ``codes_scales``,
+``rms``, ``rope``, the attention paths) so that their semantics stay one
+code.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from __future__ import annotations
 import contextlib
 import re
 from dataclasses import dataclass, replace
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -71,12 +75,14 @@ def _int_rw(recipe: dict, key: str, per_token: bool):
     return int(m["bits"]), int(m["group"])
 
 
-def bits_of(recipe: dict) -> Bits:
+def bits_of(recipe: dict, own: Tuple[str, ...] = ()) -> Bits:
     """The precision of each stage that a configuration's ``recipe`` states.
     Refuses a recipe the reference does not model, rather than checking it
-    against another one."""
-    if sorted(recipe) != sorted(RECIPE_KEYS):
-        raise ValueError(f"recipe keys {sorted(recipe)}: the reference models {list(RECIPE_KEYS)}")
+    against another one. ``own`` names the further keys that a family's
+    reference models (its own ``bits_of`` reads them)."""
+    if sorted(set(recipe) - set(own)) != sorted(RECIPE_KEYS):
+        raise ValueError(f"recipe keys {sorted(recipe)}: the reference models "
+                         f"{list(RECIPE_KEYS) + list(own)}")
     if recipe["served_dtype"] != "bfloat16":
         raise ValueError(f"served_dtype {recipe['served_dtype']!r}: the reference models bfloat16")
     if recipe["kv_cache"] != KV_INT8:

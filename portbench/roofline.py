@@ -18,21 +18,60 @@ does it. A step at batch M (one token a slot), with the recipe's bits
 * the whole step: every weight read (the packed head; the embedding table
   is gathered, not read), the KV rows read, the operations of both.
 
-Operations are held to the int8 peak.
+Operations are held to the int8 peak. The metric readers take these
+through :class:`Counters` (``of(config)``), which a family whose layers
+are not attention and a dense MLP replaces with a subclass of its own.
 """
 
 from __future__ import annotations
 
-from .reference.model import Bits, bits_of
-from .spec import Spec, spec_of
+from typing import NamedTuple
+
+from .reference.model import Bits
+from .spec import Spec
 
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
 
 
-def of(config: dict):
-    """(Spec, Bits) of a configuration file."""
-    return spec_of(config), bits_of(config["recipe"])
+class Counters(NamedTuple):
+    """The (bytes, ops) of a configuration's served decode step, as the
+    metric readers ask for them. A family file's ``Counters`` subclasses
+    this and overrides what its layers change."""
+    spec: Spec
+    bits: Bits
+
+    # the kernel classes (``traceutil``) that run the step's linears; the
+    # trace's primary launches of these classes are the ones counted
+    LINEAR_CLASSES = ("B1/B3", "B2")
+
+    def linears(self, m: int):
+        """(bytes, ops) of every launch of LINEAR_CLASSES in one step at
+        batch m."""
+        return w4a8_step(self.spec, self.bits, m)
+
+    def linear_launches(self) -> int:
+        """Primary launches of LINEAR_CLASSES a step: one a linear, and the
+        head's."""
+        return self.spec.layers * len(projections(self.spec)) + 1
+
+    def attention(self, rows: int, slot_steps: int):
+        """(bytes, ops) of the step's attention kernel over ``rows`` cache
+        rows a layer and ``slot_steps`` slots times steps."""
+        return attention(self.spec, self.bits, rows, slot_steps)
+
+    def weights_bytes(self) -> int:
+        """Weights one step reads."""
+        return step_weights_bytes(self.spec, self.bits)
+
+
+def of(config: dict) -> Counters:
+    """The counters of a configuration file, its family's own or these
+    (``spec, bits = of(config)`` unpacks them)."""
+    from .family import of as family_of    # family.py imports this module for its default
+
+    fam = family_of(config)
+    return fam.counters(fam.spec(config), fam.bits_of(config["recipe"]))
 
 
 def projections(spec: Spec):

@@ -5,17 +5,22 @@ keys through its own parser).
 
 Each ``model_type`` has a file of its own, ``families/<model_type>.py``,
 whose ``spec(cfg)`` gives the :class:`Spec` of a configuration of that
-family and refuses keys whose mechanism the reference does not model. A
-family built of the mechanisms below is one new file; a new mechanism is
-new code in the reference as well.
+family (or a frozen dataclass of its own, such as a subclass with further
+fields) and refuses keys whose mechanism its reference does not model. The
+file may also bring the hooks that ``portbench/family.py`` lists, for the
+mechanisms this Spec does not name.
 """
 
 from __future__ import annotations
 
+import functools
 import importlib.util
+import sys
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
 
+# where a model_type's family file is looked up (the tests point it elsewhere)
 FAMILIES = Path(__file__).resolve().parent / "families"
 
 
@@ -40,13 +45,27 @@ class Spec:
     biases: bool           # every linear and the untied head carry a bias
 
 
-def spec_of(cfg: dict) -> Spec:
-    """The Spec of a configuration file's published keys."""
+@functools.lru_cache(maxsize=None)
+def _load(path: Path) -> ModuleType:
+    # registered under its name, as an imported module is (a dataclass in the
+    # file looks its module up there)
+    name = f"portbench_family_{path.parent.name}_{path.stem}"
+    mod_spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(mod_spec)
+    sys.modules[name] = mod
+    mod_spec.loader.exec_module(mod)
+    return mod
+
+
+def family_of(cfg: dict) -> ModuleType:
+    """The family file of a configuration's ``model_type``, loaded once."""
     mt = cfg["model_type"]
     path = FAMILIES / f"{mt}.py"
     if not path.is_file():
         raise ValueError(f"model_type {mt!r} has no file portbench/families/{mt}.py")
-    mod_spec = importlib.util.spec_from_file_location(f"portbench_family_{mt}", path)
-    mod = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(mod)
-    return mod.spec(cfg)
+    return _load(path)
+
+
+def spec_of(cfg: dict) -> Spec:
+    """The Spec of a configuration file's published keys."""
+    return family_of(cfg).spec(cfg)

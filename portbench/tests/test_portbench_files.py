@@ -8,7 +8,7 @@ import re
 import pytest
 
 import tiny
-from portbench import harness
+from portbench import harness, traceutil
 from portbench.spec import spec_of
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -71,3 +71,9 @@ def test_every_plugin_file_is_named_in_the_benchmark():
     assert {p.stem for p in (PB / "limits").glob("*.json")} == cells
     assert {p.stem for p in (PB / "metrics").glob("*.py")} == {m["name"] for m in BENCH["per_layer"]}
     assert {p.stem for p in (PB / "configs").glob("*.json")} == {c["name"] for c in BENCH["configs"]}
+
+
+def test_kernel_class_files_load():
+    hand, primary = traceutil.classes()
+    assert set(traceutil.HAND_KERNELS.items()) <= set(hand.items())
+    assert set(traceutil.PRIMARY) <= set(primary)

@@ -1,10 +1,14 @@
 """Tiny versions of the cells for CPU runs of the harness: the same code,
-the same traffic kinds, small widths, depth, batch and window."""
+the same traffic kinds, small widths, depth, batch and window. A family
+that ``CONFIG`` does not name brings its tiny size as ``TINY`` in its
+family file (``portbench/family.py``)."""
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
+
+from portbench import family
 
 ROOT = Path(__file__).resolve().parents[2]
 CONFIG = {
@@ -36,6 +40,7 @@ def bench() -> dict:
 
 def shrink(cell) -> None:
     """``run_cell``'s ``adjust``: the cell at its tiny size."""
-    cell.config.update(CONFIG[cell.config["model_type"]])
+    tiny = CONFIG.get(cell.config["model_type"])
+    cell.config.update(family.of(cell.config).tiny if tiny is None else tiny)
     cell.traffic.update(TRAFFIC[cell.traffic["driver"]])
     cell.limits = dict(LIMIT)

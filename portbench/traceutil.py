@@ -1,12 +1,25 @@
 """The traced window: device events and the harness's spans from
 ``torch.profiler``, the device's busy time, the classes of the port's hand
-kernels, and the breakdown a traced result line carries."""
+kernels, and the breakdown a traced result line carries.
+
+The classes are the ten below and one more for each file
+``kernel_classes/<name>.json``: ``{"fragment": ..., "class": ...,
+"primary": ...}``, a part of the kernel's name as a trace gives it, its
+class, and the name part of the first kernel of each counted wrapper call
+(null where the fragment's kernels are further launches of a call, as a
+split-K reduce is). A file whose fragment would class another class's
+kernel is refused when the files are read.
+"""
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import json
 import time
-from typing import Dict, List, Tuple
+from pathlib import Path
+from types import MappingProxyType
+from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -34,17 +47,58 @@ PRIMARY = ("w4a8_mma_kernel", "w4a8_gateup_kernel", "decode_attention_append_ker
            "dequant_matmul_kernel", "hadamard_kernel")
 
 
-def launches(events) -> int:
-    """Counted wrapper calls that a trace holds: its primary kernels."""
-    return sum(any(p in name for p in PRIMARY) for name, _, _ in events)
+CLASS_FILES = Path(__file__).resolve().parent / "kernel_classes"
+CLASS_KEYS = ("fragment", "class", "primary")
+
+
+def _class_in(hand: Mapping[str, str], name: str) -> str:
+    for key, cls in hand.items():
+        if key in name:
+            return cls
+    return "glue"
+
+
+@functools.lru_cache(maxsize=None)
+def _classes(directory: Path) -> Tuple[Mapping[str, str], Tuple[str, ...]]:
+    hand, primary = dict(HAND_KERNELS), list(PRIMARY)
+    for path in sorted(directory.glob("*.json")):
+        with open(path) as f:
+            d = json.load(f)
+        if sorted(d) != sorted(CLASS_KEYS):
+            raise ValueError(f"{path.name}: keys {sorted(d)}, not {list(CLASS_KEYS)}")
+        frag, cls, first = d["fragment"], d["class"], d["primary"]
+        clash = [k for k, c in hand.items() if c != cls and (frag in k or k in frag)]
+        clash += [p for p in primary if _class_in(hand, p) != cls and frag in p]
+        if not frag or clash:
+            raise ValueError(f"{path.name}: fragment {frag!r} matches the kernels of "
+                             f"other classes: {clash}")
+        hand[frag] = cls
+        if first is not None:
+            if _class_in(hand, first) != cls:
+                raise ValueError(f"{path.name}: primary {first!r} is not of class {cls!r}")
+            primary.append(first)
+    return MappingProxyType(hand), tuple(primary)
+
+
+def classes() -> Tuple[Mapping[str, str], Tuple[str, ...]]:
+    """(fragment -> class, primary kernels): the ten above and the
+    ``kernel_classes/`` files'."""
+    return _classes(CLASS_FILES)
+
+
+def launches(events, of: Optional[Iterable[str]] = None) -> int:
+    """Counted wrapper calls that a trace holds: its primary kernels (those
+    of the classes ``of`` only, where given)."""
+    hand, primary = classes()
+    if of is not None:
+        want = set(of)
+        primary = tuple(p for p in primary if _class_in(hand, p) in want)
+    return sum(any(p in name for p in primary) for name, _, _ in events)
 
 
 def kernel_class(name: str) -> str:
     """The hand kernel a device op belongs to, or "glue"."""
-    for key, cls in HAND_KERNELS.items():
-        if key in name:
-            return cls
-    return "glue"
+    return _class_in(classes()[0], name)
 
 
 def union_s(intervals) -> float:
@@ -98,9 +152,10 @@ def finish(box: dict) -> dict:
 
 
 def device_s_by_class(events) -> Dict[str, float]:
+    hand = classes()[0]
     out: Dict[str, float] = {}
     for name, a, b in events:
-        k = kernel_class(name)
+        k = _class_in(hand, name)
         out[k] = out.get(k, 0.0) + (b - a) / 1e6
     return out
 
